@@ -96,14 +96,15 @@ def multipathfinder(
     init_sampler: Optional[Callable] = None,
     gtol: float = 1e-8,
     dtype: Optional[torch.dtype] = None,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
     **config_overrides,
 ) -> MultiPathfinderResult:
     """Run Pathfinder from ``nruns`` starting points, mix, and importance-
     resample with PSIS over the own-component log ratios.
 
-    ``device`` chooses where every tensor lives; ``"cuda"`` runs the two
-    Woodbury kernels on the card and raises when CUDA is not available.
+    ``device`` chooses where every tensor lives. The default, ``"cuda"``,
+    runs the two Woodbury kernels on the card and raises when CUDA is not
+    available; ``device="cpu"`` runs their plain torch versions.
     ``ndraws_per_run`` defaults to ``max(ndraws_elbo, ceil(ndraws / nruns))``.
     """
     bad = sorted(k for k in config_overrides if k in _NOT_PORTED)

@@ -11,7 +11,9 @@ Each wrapper takes tensors on the CPU through the plain version, and
 tensors on a CUDA device through the kernel; on a CUDA tensor it launches
 the kernel or raises, and never falls back. The kernel is built with
 ``nvcc`` at first use, from the sources in the package, into the ``build/``
-directory beside the package, and bound with ``ctypes``.
+directory beside the package, and bound with ``ctypes``. How a launch is
+cut into clusters, threads and row tiles is decided here, by
+:func:`_launch_plan`, and checked by the kernel against its own layout.
 
 Shapes (batch ``B`` of independent factors, dimension ``d``, rank ``m``,
 ``N`` draws): ``u``/``x`` ``(B, d, N)``, ``a_half``/``mu`` ``(B, d)``,
@@ -20,10 +22,13 @@ Shapes (batch ``B`` of independent factors, dimension ``d``, rank ``m``,
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import hashlib
 import math
 import os
+import re
 import subprocess
 import tempfile
 import threading
@@ -37,8 +42,10 @@ __all__ = [
     "whiten_sumsq",
     "whiten_sumsq_torch",
     "launch_counts",
+    "launch_counts_by_shape",
     "reset_launch_counts",
     "load_library",
+    "kernel_resources",
 ]
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -47,14 +54,23 @@ _SOURCE = _PKG_DIR / "csrc" / "woodbury_kernels.cu"
 _BUILD_DIR = _PKG_DIR.parent / "build" / "pathfinder_tpu_torch"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 MAX_RANK = 32
 
-# launches of each kernel since the last reset (plain-version calls on CPU
-# tensors do not count)
+# Hopper limits the launch plan works within (H100 SXM)
+NUM_SMS = 132
+SMEM_LIMIT = 232_448  # bytes of shared memory one CTA may use
+MAX_CLUSTER = 8  # the portable cluster size
+_CHUNK = 40  # columns the kernel handles per round (csrc: kChunk)
+_MIN_ROWS = 64  # rows below which a factor is not split further
+
+# launches of each kernel since the last reset, in all and per (B, N)
+# (plain-version calls on CPU tensors do not count)
 _launches = {"sample_and_logq": 0, "whiten_sumsq": 0}
+_launches_by_shape = {name: collections.Counter() for name in _launches}
 _lib = None
+_lib_log = ""  # what nvcc (ptxas -v) said when it built the library
 _lib_lock = threading.Lock()
 
 
@@ -62,9 +78,15 @@ def launch_counts() -> dict:
     return dict(_launches)
 
 
+def launch_counts_by_shape() -> dict:
+    """``{kernel: {(B, N): launches}}`` since the last reset."""
+    return {name: dict(c) for name, c in _launches_by_shape.items()}
+
+
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+        _launches_by_shape[name].clear()
 
 
 # -- plain versions -----------------------------------------------------------
@@ -88,6 +110,82 @@ def whiten_sumsq_torch(x, a_half, X, Ci, mu):
     return torch.sum(w * w, dim=-2)
 
 
+# -- launch plan --------------------------------------------------------------
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _rank_tile(m: int) -> int:
+    """The rank the kernel is instantiated for: m rounded up to 4."""
+    return max(4, _round4(m))
+
+
+def _threads(m: int) -> int:
+    """32 · (MR/4 rank groups) · (row parts), MR = ``_rank_tile(m)``."""
+    mr = _rank_tile(m)
+    return 32 * (mr // 4) * max(1, 32 // mr)
+
+
+def _smem_bytes(tile: int, m: int, N: int, threads: int) -> int:
+    """Dynamic shared memory of one CTA; mirrors ``Layout`` in the source."""
+    mr = _rank_tile(m)
+    warps = threads // 32
+    parts = warps // (mr // 4)
+    nc = min(N, _CHUNK)
+    floats = (
+        4  # the mbarrier
+        + _round4(tile * N + 4) + _round4(tile * m + 4) + 2 * _round4(tile + 4)
+        + _round4(m * m + 4)
+        + _round4(parts * mr * nc) + 2 * _round4(mr * nc) + _round4(mr * (nc + 4))
+        + _round4(warps * nc) + _round4(nc)
+    )
+    return 4 * floats
+
+
+def _cta_rows(d: int, cluster: int, rank: int) -> tuple:
+    """Rows ``[r0, r1)`` of a factor that CTA ``rank`` of its cluster owns
+    (the kernel's own split)."""
+    per = -(-d // cluster)
+    r0 = min(d, rank * per)
+    return r0, min(d, r0 + per)
+
+
+def _launch_plan(B: int, d: int, m: int, N: int, num_sms: int = NUM_SMS) -> tuple:
+    """``(cluster, threads, smem_bytes, tile_rows)`` for ``B`` factors.
+
+    The cluster splits each factor's d rows over 1, 2, 4 or 8 CTAs: the
+    fewest that give every SM a CTA (never below ``_MIN_ROWS`` rows a CTA),
+    and more where a CTA's rows would not fit in shared memory. Where they
+    do not fit even at 8, ``tile_rows`` is smaller than a CTA's rows and
+    the kernel stages them tile by tile, reading them twice.
+    """
+    if min(B, d, N) < 1 or not 0 <= m <= MAX_RANK:
+        raise ValueError(f"no launch plan for B={B}, d={d}, m={m}, N={N}")
+    threads = _threads(m)
+    cluster = 1
+    while (
+        cluster < MAX_CLUSTER
+        and B * cluster < num_sms
+        and -(-d // (2 * cluster)) >= _MIN_ROWS
+    ):
+        cluster *= 2
+    while cluster < MAX_CLUSTER and _smem_bytes(-(-d // cluster), m, N, threads) > SMEM_LIMIT:
+        cluster *= 2
+    rows = -(-d // cluster)
+    tile = rows
+    if _smem_bytes(tile, m, N, threads) > SMEM_LIMIT:
+        fixed = _smem_bytes(0, m, N, threads)
+        tile = (SMEM_LIMIT - fixed) // (4 * (N + m + 2))
+        while tile > 0 and _smem_bytes(tile, m, N, threads) > SMEM_LIMIT:
+            tile -= 1
+        if tile < 1:
+            raise ValueError(f"N={N} columns of one row do not fit in shared memory")
+        tile = -(-rows // -(-rows // tile))  # equal tiles
+    return cluster, threads, _smem_bytes(tile, m, N, threads), tile
+
+
 # -- build and bind -----------------------------------------------------------
 
 
@@ -101,13 +199,14 @@ def _nvcc() -> str:
 
 def load_library() -> ctypes.CDLL:
     """Build (once per source and flags) and load the kernels' library."""
-    global _lib
+    global _lib, _lib_log
     with _lib_lock:
         if _lib is not None:
             return _lib
         src = _SOURCE.read_bytes()
         tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
         so_path = _BUILD_DIR / f"woodbury_kernels_{tag}.so"
+        log_path = so_path.with_suffix(".log")
         if not so_path.exists():
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
@@ -119,12 +218,14 @@ def load_library() -> ctypes.CDLL:
                 raise RuntimeError(
                     f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
                 )
+            log_path.write_text(proc.stdout + proc.stderr)
             os.replace(tmp, so_path)
+        _lib_log = log_path.read_text() if log_path.exists() else ""
         lib = ctypes.CDLL(str(so_path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pf_sample_logq.argtypes = [p] * 8 + [i] * 4 + [p]
+        lib.pf_sample_logq.argtypes = [p] * 8 + [i] * 8 + [p]
         lib.pf_sample_logq.restype = i
-        lib.pf_whiten_sumsq.argtypes = [p] * 6 + [i] * 4 + [p]
+        lib.pf_whiten_sumsq.argtypes = [p] * 6 + [i] * 8 + [p]
         lib.pf_whiten_sumsq.restype = i
         lib.pf_max_rank.argtypes = []
         lib.pf_max_rank.restype = i
@@ -132,6 +233,32 @@ def load_library() -> ctypes.CDLL:
             raise RuntimeError("kernel library and wrapper disagree on MAX_RANK")
         _lib = lib
         return lib
+
+
+def kernel_resources() -> dict:
+    """Registers and spills of each kernel instantiation as ``ptxas -v``
+    reported them at build time: ``{(name, MR, NT): {"registers": r,
+    "spill_stores": bytes, "spill_loads": bytes}}``."""
+    load_library()
+    out, key = {}, None
+    for line in _lib_log.splitlines():
+        found = re.search(r"woodbury_kernelILi(\d+)ELi(\d+)ELb([01])E", line)
+        if "Compiling entry function" in line and found:
+            mr, nt, sample = found.groups()
+            name = "sample_and_logq" if sample == "1" else "whiten_sumsq"
+            key = (name, int(mr), int(nt))
+            out[key] = {}
+        elif key is not None and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[key].update(spill_stores=int(st), spill_loads=int(ld))
+        elif key is not None and "Used" in line and "registers" in line:
+            out[key]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # -- wrappers -----------------------------------------------------------------
@@ -165,9 +292,19 @@ def _flat_shapes(u, X):
     return batch, math.prod(batch), d, m, N
 
 
-def _raise_on_error(code: int, name: str):
+def _launch(name, entry, pointers, device, B, d, m, N):
+    """Launch ``entry`` on the current stream with :func:`_launch_plan`'s
+    plan and count it."""
+    plan = _launch_plan(B, d, m, N, _num_sms(device.index))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = entry(*pointers, B, d, m, N, *plan, stream)
+    if code == -1:
+        raise RuntimeError(f"{name} kernel rejected the launch plan {plan}")
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError {code}")
+    _launches[name] += 1
+    _launches_by_shape[name][(B, N)] += 1
 
 
 def sample_and_logq(u, a_half, X, C, mu, logdet):
@@ -192,16 +329,9 @@ def sample_and_logq(u, a_half, X, C, mu, logdet):
     logq = torch.empty(batch + (N,), dtype=u.dtype, device=u.device)
     if B == 0 or N == 0:
         return x, logq
-    lib = load_library()
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.pf_sample_logq(
-            u.data_ptr(), a_half.data_ptr(), X.data_ptr(), C.data_ptr(),
-            mu.data_ptr(), logdet.data_ptr(), x.data_ptr(), logq.data_ptr(),
-            B, d, m, N, stream,
-        )
-    _raise_on_error(code, "sample_and_logq")
-    _launches["sample_and_logq"] += 1
+    tensors = (u, a_half, X, C, mu, logdet, x, logq)
+    _launch("sample_and_logq", load_library().pf_sample_logq,
+            [t.data_ptr() for t in tensors], u.device, B, d, m, N)
     return x, logq
 
 
@@ -225,13 +355,7 @@ def whiten_sumsq(x, a_half, X, Ci, mu):
     maha = torch.empty(batch + (N,), dtype=x.dtype, device=x.device)
     if B == 0 or N == 0:
         return maha
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.pf_whiten_sumsq(
-            x.data_ptr(), a_half.data_ptr(), X.data_ptr(), Ci.data_ptr(),
-            mu.data_ptr(), maha.data_ptr(), B, d, m, N, stream,
-        )
-    _raise_on_error(code, "whiten_sumsq")
-    _launches["whiten_sumsq"] += 1
+    tensors = (x, a_half, X, Ci, mu, maha)
+    _launch("whiten_sumsq", load_library().pf_whiten_sumsq,
+            [t.data_ptr() for t in tensors], x.device, B, d, m, N)
     return maha

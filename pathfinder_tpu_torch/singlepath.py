@@ -249,12 +249,15 @@ def pathfinder(
     init_sampler: Optional[Callable] = None,
     gtol: float = 1e-8,
     dtype: Optional[torch.dtype] = None,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
     **config_overrides,
 ) -> PathfinderResult:
     """The ELBO-best normal approximation along one L-BFGS trajectory, with
     the host retry loop: try ``t`` (1-based) draws its initial point and all
-    its noise from round ``t − 1`` of path 0's streams."""
+    its noise from round ``t − 1`` of path 0's streams.
+
+    ``device`` defaults to ``"cuda"`` and raises when CUDA is not available;
+    ``device="cpu"`` runs on the CPU."""
     dev = resolve_device(device)
     target = as_log_density(fn, dim=dim)
     if ndraws is None:

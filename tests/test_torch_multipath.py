@@ -54,7 +54,9 @@ def _statistical_parity(d, K, seeds, maxiters=64):
             jt, 1000, key=jax.random.key(s), init=jnp.asarray(init),
             maxiters=maxiters, elbo_chunk=8,
         )
-        tr = multipathfinder(tt, 1000, seed=s, init=init, maxiters=maxiters, elbo_chunk=8)
+        tr = multipathfinder(
+            tt, 1000, seed=s, init=init, maxiters=maxiters, elbo_chunk=8, device="cpu"
+        )
         assert bool(np.all(np.asarray(jr.states.success)))
         assert bool(tr.states.success.all())
         assert int(tr.num_tries.max()) == 1
@@ -89,7 +91,9 @@ def test_multipathfinder_statistical_parity_headline():
 def test_a_paths_draws_do_not_depend_on_its_batch():
     d, K, seed = 16, 8, 3
     target = tzoo.HierarchicalGaussian(d, seed=0)
-    res = multipathfinder(target, 100, seed=seed, nruns=K, maxiters=64, elbo_chunk=8)
+    res = multipathfinder(
+        target, 100, seed=seed, nruns=K, maxiters=64, elbo_chunk=8, device="cpu"
+    )
     cfg = res.config
 
     def run(path_ids, round_idx):
@@ -108,13 +112,15 @@ def test_a_paths_draws_do_not_depend_on_its_batch():
     assert torch.equal(retry.draws[0], alone.draws[0])
     assert torch.equal(retry.draws[2], alone.draws[0])
     assert not torch.equal(alone.draws[0], res.states.draws[5])  # a new round
-    again = multipathfinder(target, 100, seed=seed, nruns=K, maxiters=64, elbo_chunk=8)
+    again = multipathfinder(
+        target, 100, seed=seed, nruns=K, maxiters=64, elbo_chunk=8, device="cpu"
+    )
     assert torch.equal(again.draws, res.draws)
 
 
 def test_resample_reuses_psis_and_chained_calls_differ():
     target = tzoo.HierarchicalGaussian(16, seed=0)
-    res = multipathfinder(target, 50, seed=2, nruns=4, maxiters=32, elbo_chunk=8)
+    res = multipathfinder(target, 50, seed=2, nruns=4, maxiters=32, elbo_chunk=8, device="cpu")
     r1 = resample(res, 30)
     r2 = resample(r1, 30)
     assert r1.psis_result is res.psis_result and r1.draws.shape == (16, 30)
@@ -128,7 +134,9 @@ def test_resample_reuses_psis_and_chained_calls_differ():
 
 
 def test_single_path_pathfinder_runs_and_succeeds():
-    r = pathfinder(tzoo.HierarchicalGaussian(16, seed=0), seed=1, maxiters=64, ndraws=12)
+    r = pathfinder(
+        tzoo.HierarchicalGaussian(16, seed=0), seed=1, maxiters=64, ndraws=12, device="cpu"
+    )
     assert r.success and r.draws.shape == (16, 12) and torch.isfinite(r.draws).all()
     assert r.num_fn_evals > r.optim_trace.num_valid.item() > 2
 
@@ -169,7 +177,7 @@ def test_unported_options_raise():
     t = tzoo.StandardNormal(4)
     for kw in ({"mesh": None}, {"optimizer": "cg"}, {"importance_denominator": "mixture"}):
         with pytest.raises(NotImplementedError):
-            multipathfinder(t, 10, nruns=2, maxiters=3, **kw)
+            multipathfinder(t, 10, nruns=2, maxiters=3, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
         PathfinderConfig(line_search="wolfe")
 
@@ -179,3 +187,17 @@ def test_cuda_request_without_cuda_raises():
         pytest.skip("this machine has CUDA")
     with pytest.raises(RuntimeError):
         multipathfinder(tzoo.StandardNormal(4), 10, nruns=2, maxiters=3, device="cuda")
+
+
+@pytest.mark.parametrize("entry", ["multipathfinder", "pathfinder"])
+def test_entry_points_default_to_the_card(entry):
+    """With no ``device`` argument the entry points run on the card, so on
+    a machine without CUDA they raise instead of moving to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    target = tzoo.StandardNormal(4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "multipathfinder":
+            multipathfinder(target, 10, nruns=2, maxiters=3)
+        else:
+            pathfinder(target, maxiters=3)

@@ -108,6 +108,7 @@ def test_wrapper_on_cpu_uses_the_plain_version_and_counts_nothing():
     x, logq = comps.rand_and_logpdf(u=u)
     comps.logpdf(x)
     assert wk.launch_counts() == {"sample_and_logq": 0, "whiten_sumsq": 0}
+    assert wk.launch_counts_by_shape() == {"sample_and_logq": {}, "whiten_sumsq": {}}
     ref = wk.sample_and_logq_torch(
         u, comps.cov.factor.a_half, comps.cov.factor.X, comps.cov.factor.C,
         comps.mean, comps.cov.factor.log_det,
@@ -128,15 +129,27 @@ def test_wrapper_rejects_other_devices():
 
 
 @pytest.mark.cuda
-def test_kernels_match_plain_versions_on_the_card():
-    """B1 and B2 against their plain versions at a main-path shape (f32;
-    different summation order, so rtol/atol 1e-5 on x, 1e-4 on the sums).
-    Runs where the card and JAX are both installed; ``chip_smoke.py`` makes
-    the same check on a machine with the card alone."""
+@pytest.mark.parametrize(
+    "Bn,d,m,N",
+    [
+        (100, 1000, 12, 10),  # main path: fresh draws, PSIS ratios
+        (800, 1000, 12, 5),  # main path: an ELBO chunk
+        (3, 999, 7, 3),  # odd d, m and N: unaligned runs, rank padding
+        (4, 100, 12, 33),  # N not a multiple of 5
+        (100, 10000, 12, 10),  # large d: a cluster of 8
+        (8, 30000, 32, 10),  # rows that do not fit: the row-tiled path
+        (1, 1000, 12, 1000),  # more columns than one round of the kernel
+    ],
+)
+def test_kernels_match_plain_versions_on_the_card(Bn, d, m, N):
+    """B1 and B2 against their plain versions at main-path and odd shapes
+    (f32; different summation order, so rtol/atol 1e-5 on x, 1e-4 on the
+    sums), and the same bits from a repeated launch. Runs where the card and
+    JAX are both installed; ``chip_smoke.py`` makes the same check on a
+    machine with the card alone."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(0)
-    Bn, d, m, N = 100, 1000, 12, 10
     t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")
     u = t(rng.standard_normal((Bn, d, N)))
     a_half = t(rng.uniform(0.5, 1.5, (Bn, d)))
@@ -150,3 +163,5 @@ def test_kernels_match_plain_versions_on_the_card():
     torch.testing.assert_close(logq, logqr, rtol=1e-4, atol=1e-4)
     maha = wk.whiten_sumsq(x, a_half, X, C, mu)
     torch.testing.assert_close(maha, wk.whiten_sumsq_torch(x, a_half, X, C, mu), rtol=1e-4, atol=1e-4)
+    assert torch.equal(wk.sample_and_logq(u, a_half, X, C, mu, logdet)[0], x)
+    assert torch.equal(wk.whiten_sumsq(x, a_half, X, C, mu), maha)
