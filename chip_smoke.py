@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card, and check it.
+"""Drive the PyTorch port's main path and its k̂-remedy path on one CUDA
+card, and check them.
 
     python3 chip_smoke.py
 
@@ -10,9 +11,10 @@ Phases, each of which fails the run (exit code 1) on any error:
    builds the kernels from ``pathfinder_tpu_torch/csrc/`` and prints the
    build time.
 2. Kernels against their plain torch versions on the card, at the shapes
-   the main path gives them and at odd, wide, large and row-tiled ones,
-   with random factors from a seeded numpy RNG; a repeated launch must give
-   the same bits. Prints each one's launch plan, its L2-cold time beside
+   the main path and the remedy path give them (B2 over a shared x: the
+   mixture grid; both kernels at rank 0: the Laplace components) and at
+   odd, wide, large and row-tiled ones, with random factors from a seeded
+   numpy RNG; a repeated launch must give the same bits. Prints each one's launch plan, its L2-cold time beside
    the plain version's and its bound, and the registers and spills of the
    main path's kernel instantiations (``ptxas -v`` at build time).
 3. The main path: ``multipathfinder`` on ``HierarchicalGaussian(1000)`` with
@@ -21,6 +23,14 @@ Phases, each of which fails the run (exit code 1) on any error:
    launches printed per kernel and shape (B, N)), the median k̂ and moment
    error inside the band of the JAX package, and bitwise-identical draws
    when a seed is repeated.
+4. The remedy path on the same target: ``optimizer="auto",
+   auto_laplace=True`` for 5 seeds and ``importance_denominator="mixture"``
+   for 2, with every path succeeding, finite draws and k̂, both kernels
+   launched at rank 0 in each auto run that tried the Laplace correction,
+   B2 launched over a shared x in each mixture run, the auto run's k̂ not
+   above the main path's on any seed, its median k̂ and moment error inside
+   the band of the JAX package, and bitwise-identical draws when a seed is
+   repeated. Then the stages of one auto call, timed one by one.
 
 The second-to-last lines are a JSON summary of the kernels and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -43,6 +53,16 @@ ROOT = Path(__file__).resolve().parent
 # and its median over 5 seeds carries Monte-Carlo error of its own.
 KHAT_BAND = (1.21, 2.56)
 MOMENT_ERR_BAND = (0.95, 3.78)
+
+# The same for the remedy path, ``optimizer="auto", auto_laplace=True``, run
+# with the JAX package on CPU for keys 0..9 (x64 off): k̂ 1.0088, 0.8313,
+# 1.0858, 0.7636, 0.8856, 1.0593, 0.6965, 0.6934, 0.9014, 0.8482 and moment
+# error 0.9462, 1.1181, 1.3706, 0.7980, 1.8921, 1.4432, 0.8654, 0.9081,
+# 1.0687, 0.8217. cg won on every key; the Laplace correction was tried on
+# 9 keys and kept on 7. Bands again [min − r/2, max + r/2].
+AUTO_KHAT_BAND = (0.50, 1.28)
+AUTO_MOMENT_ERR_BAND = (0.25, 2.44)
+MIXTURE_SEEDS = (0, 1)
 
 # Kernel vs plain version, f32 with a different summation order: x to
 # rtol=atol=1e-5; the column sums (logq, Mahalanobis term, magnitude ~1e3)
@@ -99,11 +119,13 @@ def time_cold_ms(fn, reps=20):
     return statistics.median(times)
 
 
-def bound_us(name, B, d, m, N):
+def bound_us(name, B, d, m, N, shared=False):
     """Least time for the function's work on this card: each input read
     once, each output written once (f32), or its flops at the f32 rate,
-    whichever is larger; and which of the two it is."""
-    reads = B * (d * N + d * m + 2 * d + m * m) + (B if name == "sample_and_logq" else 0)
+    whichever is larger; and which of the two it is. A ``shared`` x of N
+    columns is one input of d·N floats, whatever the number of factors."""
+    x_floats = d * N if shared else B * d * N
+    reads = x_floats + B * (d * m + 2 * d + m * m) + (B if name == "sample_and_logq" else 0)
     writes = B * N + (B * d * N if name == "sample_and_logq" else 0)
     flops = B * N * (4 * d * m + 2 * m * m + 6 * d)
     t_bytes = 4 * (reads + writes) / HBM_BYTES_PER_S
@@ -111,22 +133,38 @@ def bound_us(name, B, d, m, N):
     return 1e6 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-# (label, B, d, m, N): the main path's shapes first, then odd and large ones
+# (label, B, d, m, N): the main path's shapes first, then the remedy path's
+# (m = 0: the Laplace-corrected components), then odd and large ones. Labels
+# that start with "odd" put every tensor one float off 16-byte alignment.
 B1_SHAPES = (
     ("elbo", K * 8, D, M, 5),  # an ELBO chunk: K paths × elbo_chunk 8 candidates
     ("winner", K, D, M, 5),  # the winner's replayed draws; the extra draws alike
     ("fresh", K, D, M, 10),  # fresh draws, ndraws / K = 10
+    ("laplace", K, D, 0, 10),  # draws from the K diagonal Laplace components
     ("odd", 3, 999, 7, 3),
+    ("odd-m0", 3, 999, 0, 3),
     ("wide", 4, 100, 12, 33),
+    ("wide-m0", 4, 1000, 0, 90),  # rank 0 over a cluster, three rounds of columns
     ("large", K, 10000, M, 10),
     ("tiled", 8, 30000, 32, 10),
 )
 B2_SHAPES = (
     ("psis", K, D, M, 10),  # own-component log densities of the K × 10 pooled draws
+    ("laplace", K, D, 0, 10),  # the same under the Laplace components
     ("odd", 3, 999, 7, 3),
+    ("odd-m0", 3, 999, 0, 3),
     ("wide", 4, 100, 12, 33),
+    ("wide-m0", 4, 1000, 0, 90),
     ("large", K, 10000, M, 10),
     ("tiled", 8, 30000, 32, 10),
+)
+# B2 over an x of N columns shared by the B factors (the mixture denominator)
+B2_SHARED_SHAPES = (
+    ("mixture", K, D, M, 1000),  # every component at every one of the K × 10 pooled draws
+    ("mixture-m0", K, D, 0, 1000),  # the same under the Laplace components
+    ("odd-shared", 3, 999, 7, 77),
+    ("wide-shared", 4, 20000, 12, 64),  # a factor's rows fit only split over a cluster
+    ("tiled-shared", 8, 30000, 32, 50),  # nor then: the rows are tiled as well
 )
 MAIN_PATH = {"sample_and_logq": ("elbo", "winner", "fresh"), "whiten_sumsq": ("psis",)}
 
@@ -160,11 +198,18 @@ def kernel_phase(wk):
         )
 
     results = {"sample_and_logq": [], "whiten_sumsq": []}
-    for name, shapes in (("sample_and_logq", B1_SHAPES), ("whiten_sumsq", B2_SHAPES)):
+    for name, shapes, shared in (("sample_and_logq", B1_SHAPES, False),
+                                 ("whiten_sumsq", B2_SHAPES, False),
+                                 ("whiten_sumsq", B2_SHARED_SHAPES, True)):
         for label, B, d, m, N in shapes:
-            offset = 1 if label == "odd" else 0
+            offset = 1 if label.startswith("odd") else 0
             f = factors(B, d, m, offset)
-            u = t(rng.standard_normal((B, d, N)), offset)
+            if not shared:
+                u = t(rng.standard_normal((B, d, N)), offset)
+            elif label == "mixture-m0":  # a contiguous (d, N) block: the wrapper transposes it once
+                u = t(rng.standard_normal((d, N)))
+            else:  # the transpose of a (N, d) block, as the pooled draws are: no copy
+                u = t(rng.standard_normal((N, d)), offset).mT
             if name == "sample_and_logq":
                 args = (u, f["a_half"], f["X"], f["C"], f["mu"], f["logdet"])
                 x, logq = wk.sample_and_logq(*args)
@@ -187,21 +232,38 @@ def kernel_phase(wk):
                 kernel, plain = wk.whiten_sumsq, wk.whiten_sumsq_torch
             ms = time_cold_ms(lambda: kernel(*args))
             plain_ms = time_cold_ms(lambda: plain(*args))
-            bound, bound_by = bound_us(name, B, d, m, N)
-            plan = wk._launch_plan(B, d, m, N)
+            bound, bound_by = bound_us(name, B, d, m, N, shared)
+            plan = (wk._launch_plan_shared if shared else wk._launch_plan)(B, d, m, N)
             row = dict(label=label, B=B, d=d, m=m, N=N, err=err, ms=ms, plain_ms=plain_ms,
                        bound_us=bound, bound_by=bound_by, plan=plan)
             results[name].append(row)
-            print(f"kernel {name} [{label}: B={B} d={d} m={m} N={N}] "
-                  f"plan(cluster,threads,smem,tile)={plan} max_abs_err={err:.3e} "
+            print(f"kernel {name} [{label}: B={B} d={d} m={m} N={N}{' shared x' if shared else ''}] "
+                  f"plan(cluster,threads,smem,tile{',col_tile' if shared else ''})={plan} "
+                  f"max_abs_err={err:.3e} "
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_us={bound:.2f} "
                   f"({bound_by}) share={bound / (1e3 * ms):.3f}", flush=True)
     for (name, mr, nt), r in sorted(wk.kernel_resources().items()):
-        if mr == 12 and nt == 5:  # the main path's instantiations (m = 12, N = 5 or 10)
+        if mr in (4, 12) and nt == 5:  # the instantiations of m = 12 and m = 0 at N = 5, 10, 1000
             print(f"kernel {name} MR={mr} NT={nt}: registers={r.get('registers')} "
                   f"spill_stores={r.get('spill_stores')}B spill_loads={r.get('spill_loads')}B",
                   flush=True)
     return results
+
+
+def _check_result(label, res, mean_t, sd_t):
+    """Paths, draws and k̂ of one result; returns ``(k̂, moment error)``."""
+    import numpy as np
+
+    n_ok = int(res.states.success.sum())
+    draws = res.draws.double().cpu().numpy()
+    khat = float(res.psis_result.pareto_shape)
+    if n_ok != K:
+        fail(f"{label}: {n_ok}/{K} paths succeeded")
+    if tuple(res.draws.shape) != (D, 1000) or not np.isfinite(draws).all():
+        fail(f"{label}: draws of shape {tuple(res.draws.shape)} not all finite")
+    if not np.isfinite(khat):
+        fail(f"{label}: k-hat is not finite")
+    return khat, float(np.max(np.abs(draws.mean(axis=1) - mean_t) / sd_t))
 
 
 def main_path_phase(pt, wk, zoo):
@@ -221,7 +283,7 @@ def main_path_phase(pt, wk, zoo):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         grew = wk.launch_counts()
-        by_shape = {n: {f"B={b},N={n_}": c for (b, n_), c in sorted(v.items())}
+        by_shape = {n: {f"B={b},m={m},N={n_}": c for (b, m, n_, _), c in sorted(v.items())}
                     for n, v in wk.launch_counts_by_shape().items()}
         for n in totals:
             totals[n] += grew[n]
@@ -230,21 +292,13 @@ def main_path_phase(pt, wk, zoo):
     khats, merrs, times, runs = [], [], [], {}
     for seed in SEEDS:
         res, secs, grew, by_shape = run(seed)
-        n_ok = int(res.states.success.sum())
-        draws = res.draws.double().cpu().numpy()
-        khat = float(res.psis_result.pareto_shape)
-        if n_ok != K:
-            fail(f"seed {seed}: {n_ok}/{K} paths succeeded")
-        if tuple(res.draws.shape) != (D, 1000) or not np.isfinite(draws).all():
-            fail(f"seed {seed}: draws of shape {tuple(res.draws.shape)} not all finite")
-        if not np.isfinite(khat):
-            fail(f"seed {seed}: k-hat is not finite")
+        khat, merr = _check_result(f"seed {seed}", res, mean_t, sd_t)
         if min(grew.values()) <= 0:
             fail(f"seed {seed}: a kernel was not launched on the main path: {grew}")
-        merr = float(np.max(np.abs(draws.mean(axis=1) - mean_t) / sd_t))
+        draws = res.draws.double().cpu().numpy()
         sderr = float(np.max(np.abs(draws.std(axis=1) - sd_t) / sd_t))
         evals = int(res.states.num_fn_evals.sum())
-        print(f"main path seed={seed}: paths_ok={n_ok}/{K} khat={khat:.4f} "
+        print(f"main path seed={seed}: paths_ok={K}/{K} khat={khat:.4f} "
               f"moment_err_mean_sd_units={merr:.4f} moment_err_sd_rel={sderr:.4f} "
               f"logp_grad_evals={evals} wall_s={secs:.3f} launches={grew} "
               f"launches_by_shape={by_shape}", flush=True)
@@ -265,7 +319,144 @@ def main_path_phase(pt, wk, zoo):
         fail(f"median k-hat {med_k} outside the JAX band {KHAT_BAND}")
     if not MOMENT_ERR_BAND[0] <= med_m <= MOMENT_ERR_BAND[1]:
         fail(f"median moment error {med_m} outside the JAX band {MOMENT_ERR_BAND}")
+    return totals, dict(zip(SEEDS, khats))
+
+
+def remedy_phase(pt, wk, zoo, main_khats):
+    """The k̂-remedy path at the headline configuration: the optimizer
+    competition with the Laplace escalation, and the mixture denominator."""
+    import torch
+
+    target = zoo.HierarchicalGaussian(D, seed=0)
+    mean_t, sd_t = zoo.hierarchical_gaussian_truth(D, seed=0)
+    totals = {name: 0 for name in wk.launch_counts()}
+
+    def run(seed, **options):
+        wk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = pt.multipathfinder(target, 1000, nruns=K, maxiters=64, elbo_chunk=8, seed=seed,
+                                 **options)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        by_shape = wk.launch_counts_by_shape()
+        for n, c in wk.launch_counts().items():
+            totals[n] += c
+        return res, secs, by_shape
+
+    def shapes_text(by_shape):
+        return {n: {f"B={b},m={m},N={n_}{',shared' if sh else ''}": c
+                    for (b, m, n_, sh), c in sorted(v.items())} for n, v in by_shape.items()}
+
+    def rank0(by_shape, name):
+        return sum(c for (_, m, _, _), c in by_shape[name].items() if m == 0)
+
+    auto = dict(optimizer="auto", auto_laplace=True)
+    khats, merrs, times, first = [], [], [], None
+    for seed in SEEDS:
+        res, secs, by_shape = run(seed, **auto)
+        khat, merr = _check_result(f"auto seed {seed}", res, mean_t, sd_t)
+        kept = res.fit_distribution.components.cov.B.shape[-1] == 0
+        # the correction is tried exactly when no candidate got below 0.7
+        tried = kept or khat >= 0.7
+        at_rank0 = {n: rank0(by_shape, n) for n in by_shape}
+        if tried and min(at_rank0.values()) <= 0:
+            fail(f"auto seed {seed}: Laplace tried, but launches at rank 0 are {at_rank0}")
+        if not tried and max(at_rank0.values()) > 0:
+            fail(f"auto seed {seed}: launches at rank 0 without a Laplace correction")
+        if khat > main_khats[seed]:
+            fail(f"auto seed {seed}: k-hat {khat} above the main path's {main_khats[seed]}")
+        print(f"remedy auto seed={seed}: winner={res.config.optimizer} laplace_tried={tried} "
+              f"laplace_kept={kept} khat_main_path={main_khats[seed]:.4f} khat={khat:.4f} "
+              f"moment_err_mean_sd_units={merr:.4f} "
+              f"logp_grad_evals={int(res.states.num_fn_evals.sum())} wall_s={secs:.3f} "
+              f"launches_by_shape={shapes_text(by_shape)}", flush=True)
+        khats.append(khat)
+        merrs.append(merr)
+        times.append(secs)
+        first = first if first is not None else res
+    repeat, secs, _ = run(SEEDS[0], **auto)
+    times.append(secs)
+    if not torch.equal(repeat.draws, first.draws):
+        fail("auto: a repeated seed gave different draws")
+    med_k, med_m = statistics.median(khats), statistics.median(merrs)
+    med_main = statistics.median(main_khats.values())
+    print(f"remedy auto: median khat={med_k:.4f} band={AUTO_KHAT_BAND} (main path "
+          f"{med_main:.4f}); median moment error={med_m:.4f} band={AUTO_MOMENT_ERR_BAND}; "
+          f"wall first={times[0]:.3f}s steady median={statistics.median(times[1:]):.3f}s; "
+          f"repeated seed bitwise identical", flush=True)
+    if not AUTO_KHAT_BAND[0] <= med_k <= AUTO_KHAT_BAND[1]:
+        fail(f"auto: median k-hat {med_k} outside the JAX band {AUTO_KHAT_BAND}")
+    if not AUTO_MOMENT_ERR_BAND[0] <= med_m <= AUTO_MOMENT_ERR_BAND[1]:
+        fail(f"auto: median moment error {med_m} outside the JAX band {AUTO_MOMENT_ERR_BAND}")
+    if not med_k < med_main:
+        fail(f"auto: median k-hat {med_k} not below the main path's {med_main}")
+
+    first = None
+    for seed in MIXTURE_SEEDS + MIXTURE_SEEDS[:1]:
+        res, secs, by_shape = run(seed, importance_denominator="mixture")
+        khat, merr = _check_result(f"mixture seed {seed}", res, mean_t, sd_t)
+        if by_shape["whiten_sumsq"].get((K, M, 1000, True), 0) <= 0:
+            fail(f"mixture seed {seed}: B2 was not launched over the shared draws")
+        print(f"remedy mixture seed={seed}: khat_main_path={main_khats[seed]:.4f} "
+              f"khat={khat:.4f} moment_err_mean_sd_units={merr:.4f} "
+              f"logp_grad_evals={int(res.states.num_fn_evals.sum())} wall_s={secs:.3f} "
+              f"launches_by_shape={shapes_text(by_shape)}", flush=True)
+        if first is not None and seed == MIXTURE_SEEDS[0] and not torch.equal(res.draws, first.draws):
+            fail("mixture: a repeated seed gave different draws")
+        first = first if first is not None else res
+    print("remedy mixture: repeated seed bitwise identical", flush=True)
     return totals
+
+
+def remedy_stage_times(pt, zoo):
+    """Where one ``optimizer="auto", auto_laplace=True`` call spends its
+    time: its stages run one by one (seed 0), a synchronize after each."""
+    import torch
+
+    from pathfinder_tpu_torch import multipath as mp
+    from pathfinder_tpu_torch.models.protocol import batched_hessian
+    from pathfinder_tpu_torch.ops.mvnormal import MvNormal
+    from pathfinder_tpu_torch.ops.resample import resample_draws
+    from pathfinder_tpu_torch.utils import rng
+
+    target = zoo.HierarchicalGaussian(D, seed=0)
+    stages = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    def candidate(opt):
+        return pt.multipathfinder(target, 1000, nruns=K, maxiters=64, elbo_chunk=8, seed=0,
+                                  optimizer=opt, _suppress_khat_hint=True)
+
+    timed("candidate run lbfgs", lambda: candidate("lbfgs"))
+    res = timed("candidate run cg", lambda: candidate("cg"))
+    comps = res.fit_distribution.components
+    torch.cuda.reset_peak_memory_stats()
+    negH = timed("100 Hessians (torch.func)", lambda: -batched_hessian(target.logp)(comps.mean))
+    peak = torch.cuda.max_memory_allocated()
+    cov = timed("Laplace covariances (diag)",
+                lambda: mp._laplace_covariances(negH, comps.cov.diag(), "diag"))
+    corrected = MvNormal(comps.mean, cov)
+    paths = torch.arange(K, device="cuda")
+    draws_knd = timed("Laplace draws (B1 at rank 0)", lambda: corrected.sample(
+        rng.Stream(0, paths, 1, rng.LAPLACE_DRAWS), 10).mT.contiguous())
+    psis_result = timed("PSIS (B2 at rank 0, target logp, smoothing)",
+                        lambda: mp._compute_psis_result(target.logp, corrected, draws_knd))
+    timed("resampling", lambda: resample_draws(
+        rng.Stream(0, 0, 1, rng.LAPLACE_RESAMPLE), draws_knd, psis_result, 1000))
+    timed("PSIS with the mixture denominator (B2 over shared draws)",
+          lambda: mp._compute_psis_result(target.logp, comps, res.draws_per_component, "mixture"))
+    total = sum(v for k, v in stages.items() if "mixture" not in k)
+    for name, secs in stages.items():
+        print(f"remedy stage [{name}]: {secs:.4f}s", flush=True)
+    print(f"remedy stages: sum without the mixture line {total:.4f}s; peak device memory "
+          f"while the Hessians were formed {peak / 2**20:.0f} MiB", flush=True)
 
 
 def main():
@@ -301,7 +492,13 @@ def main():
     print(f"build: kernels built and loaded in {time.perf_counter() - t0:.2f}s", flush=True)
 
     kernels = kernel_phase(wk)
-    counts = main_path_phase(pt, wk, zoo)
+    if "--kernels-only" in sys.argv[1:]:  # for work on the kernels: stop after their phase
+        print("kernel phase passed; stopping before the model phases", flush=True)
+        return
+    counts, main_khats = main_path_phase(pt, wk, zoo)
+    for name, c in remedy_phase(pt, wk, zoo, main_khats).items():
+        counts[name] += c
+    remedy_stage_times(pt, zoo)
 
     source = "pathfinder_tpu_torch/csrc/woodbury_kernels.cu"
     replaces = {

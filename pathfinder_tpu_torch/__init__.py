@@ -3,12 +3,15 @@ with PSIS resampling) in PyTorch, for one NVIDIA H100.
 
 A port of ``pathfinder_tpu`` (JAX), which stays the reference. The main path,
 ``multipathfinder`` with L-BFGS, Hager-Zhang and the component denominator,
-runs on any torch device; on a CUDA device the Woodbury sample+logq and
-whiten+sumsq steps run as hand-written CUDA kernels.
+and the remedies for a bad Pareto k̂ (``optimizer="cg"`` or ``"auto"``, the
+mixture denominator, ``laplace_resample``) run on any torch device; on a
+CUDA device the Woodbury sample+logq and whiten+sumsq steps run as
+hand-written CUDA kernels.
 """
 
 from pathfinder_tpu_torch.multipath import (
     MultiPathfinderResult,
+    laplace_resample,
     multipathfinder,
     resample,
 )
@@ -22,6 +25,7 @@ __all__ = [
     "pathfinder",
     "multipathfinder",
     "resample",
+    "laplace_resample",
     "PathfinderConfig",
     "PathfinderResult",
     "MultiPathfinderResult",

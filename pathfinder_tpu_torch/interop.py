@@ -8,6 +8,7 @@ and return the port's objects. This module imports no JAX.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -16,8 +17,14 @@ import torch
 from pathfinder_tpu_torch.ops.lbfgs import OptimizationTrace
 from pathfinder_tpu_torch.ops.mvnormal import MvNormal
 from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat
+from pathfinder_tpu_torch.singlepath import PathfinderConfig
 
-__all__ = ["woodbury_from_numpy", "mvnormal_from_numpy", "trace_from_numpy"]
+__all__ = [
+    "woodbury_from_numpy",
+    "mvnormal_from_numpy",
+    "trace_from_numpy",
+    "config_from_fields",
+]
 
 
 def _t(a, dtype, device):
@@ -27,20 +34,24 @@ def _t(a, dtype, device):
 
 
 def woodbury_from_numpy(
-    A, B, D, col_mask=None, *, dtype: Optional[torch.dtype] = None, device="cpu"
+    A, B, D, col_mask=None, *, method: str = "chol",
+    dtype: Optional[torch.dtype] = None, device="cpu",
 ) -> WoodburyPDMat:
-    """``WoodburyPDMat`` from diagonal ``A (..., n)``, ``B (..., n, m)``,
-    ``D (..., m, m)`` and an optional column mask, refactorized in torch."""
+    """``WoodburyPDMat`` from ``A`` (diagonal ``(..., n)`` or dense
+    ``(..., n, n)``), ``B (..., n, m)`` (``m`` may be 0), ``D (..., m, m)``
+    and an optional column mask, refactorized in torch by ``method``."""
     cm = None if col_mask is None else torch.as_tensor(np.array(col_mask), device=device)
     return WoodburyPDMat.from_parts(
-        _t(A, dtype, device), _t(B, dtype, device), _t(D, dtype, device), col_mask=cm
+        _t(A, dtype, device), _t(B, dtype, device), _t(D, dtype, device), col_mask=cm,
+        method=method,
     )
 
 
 def mvnormal_from_numpy(
     mean, A, B, D, col_mask=None, *, dtype: Optional[torch.dtype] = None, device="cpu"
 ) -> MvNormal:
-    """``MvNormal`` with a Woodbury covariance from numpy parts."""
+    """``MvNormal`` with a Woodbury covariance from numpy parts; with a
+    leading axis on every part, a batch of components."""
     cov = woodbury_from_numpy(A, B, D, col_mask, dtype=dtype, device=device)
     return MvNormal(_t(mean, dtype, device).to(cov.dtype), cov)
 
@@ -78,3 +89,15 @@ def trace_from_numpy(
         num_fn_evals=count(num_fn_evals),
         num_ls_exhausted=count(num_ls_exhausted),
     )
+
+
+def config_from_fields(config) -> PathfinderConfig:
+    """The port's ``PathfinderConfig`` from the JAX package's (a named
+    tuple), or from a mapping with fields of the same names. A field the
+    port does not have must be at its off value (``progress_every=0``)."""
+    fields = dict(config) if isinstance(config, dict) else config._asdict()
+    known = {f.name for f in dataclasses.fields(PathfinderConfig)}
+    extra = sorted(k for k, v in fields.items() if k not in known and v)
+    if extra:
+        raise NotImplementedError(f"not ported yet: {', '.join(extra)}")
+    return PathfinderConfig(**{k: v for k, v in fields.items() if k in known})

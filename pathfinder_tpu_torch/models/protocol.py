@@ -3,6 +3,9 @@
 A target's ``logp`` takes a batch ``x`` of shape ``(K, d)`` and returns
 ``(K,)``. Gradients come from ``torch.autograd.grad(logp(x).sum(), x)``:
 lanes are independent, so the gradient of the sum is each lane's own.
+Hessians, ``hess(x (K, d)) -> (K, d, d)``, are the order-2 capability: a
+target may bring its own, else :func:`batched_hessian` derives one with
+``torch.func``.
 """
 
 from __future__ import annotations
@@ -12,7 +15,12 @@ from typing import Callable, Optional
 
 import torch
 
-__all__ = ["LogDensity", "as_log_density", "autograd_value_and_grad"]
+__all__ = [
+    "LogDensity",
+    "as_log_density",
+    "autograd_value_and_grad",
+    "batched_hessian",
+]
 
 
 def autograd_value_and_grad(logp: Callable) -> Callable:
@@ -28,17 +36,38 @@ def autograd_value_and_grad(logp: Callable) -> Callable:
     return value_and_grad
 
 
+def batched_hessian(logp: Callable) -> Callable:
+    """``x (K, d) -> (K, d, d)``: the Hessian of ``logp`` at every row, by
+    ``torch.func.hessian`` (forward over reverse) under ``torch.func.vmap``.
+    ``logp`` is called on one row as a batch of one, so it must be free of
+    in-place updates and of ``.item()``. The derived function is kept on
+    ``logp`` itself, as the JAX package's ``cached_hessian`` is."""
+    h = getattr(logp, "_pf_cached_hess", None)
+    if h is None:
+        one = torch.func.hessian(lambda x: logp(x[None])[0])
+        h = torch.func.vmap(one)
+        try:
+            logp._pf_cached_hess = h
+        except (AttributeError, TypeError):
+            pass  # no __dict__ (a functools.partial): not kept
+    return h
+
+
 @dataclasses.dataclass(frozen=True)
 class LogDensity:
     """A target distribution over ``(dim,)`` vectors, evaluated in batches.
 
     ``value_and_grad(x)`` returns ``(logp(x), ∇logp(x))`` for ``x (K, d)``;
-    when absent it is derived with autograd.
+    when absent it is derived with autograd. ``hess`` (optional,
+    ``x (K, d) -> (K, d, d)``, the Hessian of logp) is used by
+    ``optimizer="newton"`` and by the Laplace correction; absent, they
+    derive it with :func:`batched_hessian`.
     """
 
     logp: Callable
     dim: Optional[int] = None
     value_and_grad: Optional[Callable] = None
+    hess: Optional[Callable] = None
 
     def __post_init__(self):
         if self.value_and_grad is None:
@@ -50,18 +79,22 @@ class LogDensity:
         return dataclasses.replace(self, dim=dim)
 
 
-def as_log_density(fn, dim=None) -> LogDensity:
+def as_log_density(fn, dim=None, hess=None) -> LogDensity:
     """Coerce user input into a :class:`LogDensity`: a ``LogDensity``, any
     object with ``logp`` and ``dim`` attributes (and optionally
-    ``value_and_grad``), or a plain batched callable ``logp(x (K, d))``."""
+    ``value_and_grad`` and ``hess``), or a plain batched callable
+    ``logp(x (K, d))``. An explicit ``hess`` wins over the object's own."""
     if isinstance(fn, LogDensity):
+        if hess is not None and fn.hess is not hess:
+            fn = dataclasses.replace(fn, hess=hess)
         if dim is not None and fn.dim is None:
             return fn.with_dim(dim)
         return fn
     if hasattr(fn, "logp"):
         d = fn.dim if getattr(fn, "dim", None) is not None else dim
         vg = getattr(fn, "value_and_grad", None)
-        return LogDensity(logp=fn.logp, dim=d, value_and_grad=vg)
+        h = hess if hess is not None else getattr(fn, "hess", None)
+        return LogDensity(logp=fn.logp, dim=d, value_and_grad=vg, hess=h)
     if callable(fn):
-        return LogDensity(logp=fn, dim=dim)
+        return LogDensity(logp=fn, dim=dim, hess=hess)
     raise TypeError(f"cannot interpret {type(fn)!r} as a log density")

@@ -13,7 +13,12 @@ import torch
 
 from pathfinder_tpu_torch.models.protocol import LogDensity
 
-__all__ = ["StandardNormal", "HierarchicalGaussian", "hierarchical_gaussian_truth"]
+__all__ = [
+    "StandardNormal",
+    "CorrelatedGaussian",
+    "HierarchicalGaussian",
+    "hierarchical_gaussian_truth",
+]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -27,19 +32,65 @@ def StandardNormal(dim: int) -> LogDensity:
     return LogDensity(logp=logp, dim=dim)
 
 
+def _made_under_transform(t) -> bool:
+    """Whether ``t`` was made inside a ``torch.func`` transform (``vmap``,
+    ``hessian``): such a tensor belongs to that call and must not outlive
+    it. Where torch does not say, assume it was."""
+    check = getattr(getattr(torch._C, "_functorch", None), "is_functorch_wrapped_tensor", None)
+    return check is None or check(t)
+
+
+def _per_dtype_and_device(array):
+    """``like -> tensor``: ``array`` as a tensor of ``like``'s dtype on its
+    device, one copy kept per (dtype, device) beside the target. A copy made
+    while ``torch.func`` traces the target is used once and not kept."""
+    copies = {}
+
+    def get(like):
+        key = (like.dtype, like.device)
+        if key in copies:
+            return copies[key]
+        copy = torch.as_tensor(array, dtype=like.dtype, device=like.device)
+        if not _made_under_transform(copy):
+            copies[key] = copy
+        return copy
+
+    return get
+
+
+def CorrelatedGaussian(dim: int, rho: float = 0.8, seed: int = 0) -> LogDensity:
+    """N(μ, Σ) with a random rotation of an AR(1)-style spectrum: a dense
+    covariance. The target carries its ``mean`` and ``cov`` as numpy
+    arrays."""
+    rng = np.random.default_rng(seed)
+    mu = rng.standard_normal(dim)
+    lam = rho ** np.arange(dim) + 0.05
+    Q = np.linalg.qr(rng.standard_normal((dim, dim)))[0]
+    cov = Q @ np.diag(lam) @ Q.T
+    prec = np.linalg.inv(cov)
+    _, ld = np.linalg.slogdet(cov)
+    const = -0.5 * (dim * _LOG_2PI + ld)
+    mu_t, prec_t = _per_dtype_and_device(mu), _per_dtype_and_device(prec)
+
+    def logp(x):
+        dx = x - mu_t(x)
+        return const - 0.5 * torch.sum(dx * (dx @ prec_t(x)), dim=-1)
+
+    out = LogDensity(logp=logp, dim=dim)
+    out.__dict__["mean"] = mu
+    out.__dict__["cov"] = cov
+    return out
+
+
 def HierarchicalGaussian(dim: int = 1000, seed: int = 0) -> LogDensity:
     """A global log-scale coordinate controlling the variance of ``dim − 1``
     locals (funnel-like but milder), non-centered parameterization."""
     rng = np.random.default_rng(seed)
     obs = rng.standard_normal(dim - 1)
-    # the observations live beside the target, one copy per (dtype, device)
-    copies = {}
+    obs_like = _per_dtype_and_device(obs)
 
     def logp(z):
-        key = (z.dtype, z.device)
-        if key not in copies:
-            copies[key] = torch.as_tensor(obs, dtype=z.dtype, device=z.device)
-        obs_t = copies[key]
+        obs_t = obs_like(z)
         log_tau, theta = z[..., 0], z[..., 1:]
         lp_tau = -0.5 * log_tau**2
         lp_theta = -0.5 * torch.sum(theta * theta, dim=-1)

@@ -1,5 +1,7 @@
-"""Multi-path Pathfinder: batched paths → mixture → PSIS → resampling
-(counterpart of ``pathfinder_tpu/multipath.py``, main path only).
+"""Multi-path Pathfinder: batched paths → mixture → PSIS → resampling, and
+the remedies for a bad Pareto k̂: other optimizers and ``optimizer="auto"``,
+the mixture denominator, and the Laplace covariance correction (counterpart
+of ``pathfinder_tpu/multipath.py``).
 
 All K paths run as one batch on one device. Failed paths are retried in
 bounded rounds that re-run only the failed lanes, compacted and padded to a
@@ -10,16 +12,23 @@ power of two. Path ``i`` in round ``r`` draws everything from the streams
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
 
-from pathfinder_tpu_torch.models.protocol import LogDensity, as_log_density
+from pathfinder_tpu_torch.models.protocol import (
+    LogDensity,
+    as_log_density,
+    batched_hessian,
+)
 from pathfinder_tpu_torch.ops.mvnormal import MvNormal, UniformMixture
+from pathfinder_tpu_torch.ops.optimizers import NEWTON_DENSE_DIM_WARN, OPTIMIZERS
 from pathfinder_tpu_torch.ops.psis import PSISResult, psis
 from pathfinder_tpu_torch.ops.resample import resample_draws
+from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat
 from pathfinder_tpu_torch.singlepath import (
     PathfinderConfig,
     SinglePathState,
@@ -30,15 +39,58 @@ from pathfinder_tpu_torch.singlepath import (
 from pathfinder_tpu_torch.utils import rng
 from pathfinder_tpu_torch.utils.misc import resolve_device, tree_map
 
-__all__ = ["multipathfinder", "MultiPathfinderResult", "resample"]
+__all__ = ["multipathfinder", "MultiPathfinderResult", "resample", "laplace_resample"]
 
 # options of the JAX entry point that this port does not have yet; passing
 # one raises NotImplementedError rather than being silently ignored
 _NOT_PORTED = (
     "mesh", "max_paths_per_launch", "keep_traces", "offload_launches",
-    "transform", "grad", "hess", "progress", "progress_every",
-    "auto_optimizers", "auto_khat_early_exit", "auto_laplace",
+    "transform", "grad", "progress", "progress_every",
 )
+
+
+def _khat_remedy_hint(tried_auto: bool = False, tried_laplace: bool = False) -> str:
+    """One line of remedies for a bad or very bad Pareto-k̂ verdict: the
+    optimizer competition, the Laplace covariance correction, and, for
+    funnel-like geometry where importance sampling is hopeless, sampling."""
+    remedies = []
+    if not tried_auto:
+        remedies.append("optimizer='auto' (k-hat-arbitrated optimizer competition)")
+    if not tried_laplace:
+        remedies.append(
+            "laplace_resample(result, ndraws)"
+            + ("" if tried_auto else " or auto_laplace=True")
+            + " (curvature-corrected covariances)"
+        )
+    remedies.append(
+        "for funnel-like geometry use warm_start_chains + NUTS instead of "
+        "importance sampling"
+    )
+    return (
+        "measured remedies: " + "; ".join(remedies)
+        + " — see docs/examples/resampling.md"
+    )
+
+
+def _maybe_warn_bad_khat(
+    psis_result: Optional[PSISResult],
+    *,
+    tried_auto: bool = False,
+    tried_laplace: bool = False,
+) -> None:
+    """Warn with the remedies when the PSIS verdict is bad or very bad
+    (k̂ > 0.7)."""
+    if psis_result is None:
+        return
+    verdict = psis_result.diagnosis
+    if verdict not in ("bad", "very bad"):
+        return
+    k = float(psis_result.pareto_shape)
+    warnings.warn(
+        f"Pareto k-hat = {k:.2f} ({verdict}): importance weights are "
+        "unreliable and resampled draws may misrepresent the target; "
+        + _khat_remedy_hint(tried_auto=tried_auto, tried_laplace=tried_laplace)
+    )
 
 
 def _log_importance_ratios_fit(components: MvNormal, draws_knd: torch.Tensor):
@@ -46,12 +98,33 @@ def _log_importance_ratios_fit(components: MvNormal, draws_knd: torch.Tensor):
     return components.logpdf(draws_knd.mT)
 
 
-def _compute_psis_result(
-    logp: Callable, components: MvNormal, draws_knd: torch.Tensor
-) -> PSISResult:
-    """PSIS over the pooled own-component log ratios, component-major."""
+def _log_importance_ratios_mixture(components: MvNormal, draws_knd: torch.Tensor):
+    """logq of each draw under the full uniform mixture,
+    ``logsumexp_k' logq_k'(x) − log K``: ``(K, N)``. The pooled draws are
+    distributed as the mixture, so these weights have no more variance than
+    the own-component ones (the balance heuristic). It needs every
+    component at every pooled draw, K²·N densities: kernel B2 in one launch
+    over (component, draw tile), reading the pooled draws where they lie."""
     K, N, d = draws_knd.shape
-    log_q = _log_importance_ratios_fit(components, draws_knd)
+    flat = draws_knd.reshape(K * N, d)
+    logq_all = components.logpdf(flat.mT)  # (K components, K·N draws)
+    return (torch.logsumexp(logq_all, dim=0) - math.log(K)).reshape(K, N)
+
+
+def _compute_psis_result(
+    logp: Callable, components: MvNormal, draws_knd: torch.Tensor,
+    denominator: str = "component",
+) -> PSISResult:
+    """PSIS over the pooled log ratios, component-major. ``denominator``:
+    ``"component"``, each draw under its own component, or ``"mixture"``,
+    under the full mixture (:func:`_log_importance_ratios_mixture`)."""
+    K, N, d = draws_knd.shape
+    if denominator == "component":
+        log_q = _log_importance_ratios_fit(components, draws_knd)
+    elif denominator == "mixture":
+        log_q = _log_importance_ratios_mixture(components, draws_knd)
+    else:
+        raise ValueError(f"unknown importance_denominator {denominator!r}")
     log_p = logp(draws_knd.reshape(K * N, d)).to(log_q.dtype).reshape(K, N)
     return psis((log_p - log_q).reshape(-1))
 
@@ -70,7 +143,12 @@ class MultiPathfinderResult:
     num_tries: torch.Tensor  # (K,) tries per path
     draws_per_component: torch.Tensor  # (K, N, d) pooled candidate draws
     target: LogDensity = None
-    resample_count: int = 0  # resample() calls that led to this result
+    # resample() and laplace_resample() calls that led to this result: the
+    # round of their random streams, so that chained calls differ
+    resample_count: int = 0
+    # the log-ratio denominator that produced psis_result ("component" or
+    # "mixture"), so that resample() reuses or recomputes it correctly
+    importance_denominator: str = "component"
 
     @property
     def nruns(self) -> int:
@@ -85,6 +163,7 @@ def multipathfinder(
     nruns: Optional[int] = None,
     init=None,
     dim: Optional[int] = None,
+    hess: Optional[Callable] = None,
     ndraws_elbo: int = 5,
     ndraws_per_run: Optional[int] = None,
     importance: bool = True,
@@ -100,22 +179,56 @@ def multipathfinder(
     **config_overrides,
 ) -> MultiPathfinderResult:
     """Run Pathfinder from ``nruns`` starting points, mix, and importance-
-    resample with PSIS over the own-component log ratios.
+    resample with PSIS.
 
     ``device`` chooses where every tensor lives. The default, ``"cuda"``,
     runs the two Woodbury kernels on the card and raises when CUDA is not
     available; ``device="cpu"`` runs their plain torch versions.
     ``ndraws_per_run`` defaults to ``max(ndraws_elbo, ceil(ndraws / nruns))``.
+    ``importance_denominator``: ``"component"`` weighs each pooled draw
+    against its own component, ``"mixture"`` against the whole mixture.
+    ``hess`` is the target's Hessian, ``x (K, d) -> (K, d, d)``, for the
+    Laplace correction; absent, it is derived with ``torch.func``.
+
+    ``optimizer="auto"`` runs the full pipeline under each optimizer in
+    ``auto_optimizers`` (default ``("lbfgs", "cg")``; names of
+    ``ops.optimizers.OPTIMIZERS`` and callables with the trace contract)
+    and returns the result with the lower Pareto k̂: which optimizer gives
+    better-located components depends on the target, and the ELBO cannot
+    tell. A NaN k̂ with near-uniform weights (ESS ≈ N, a perfect fit's
+    zero-variance tail) ranks best, any other NaN last. Candidates run in
+    order and stop as soon as one reaches k̂ < ``auto_khat_early_exit``
+    (default 0.7, the "ok" verdict; ``None`` runs every candidate).
+    Requires ``importance=True``. ``auto_laplace=True`` (or ``"diag"`` /
+    ``"full"``) also applies :func:`laplace_resample` to the winner when no
+    candidate reached the threshold, and keeps the correction only if k̂
+    improves.
     """
     bad = sorted(k for k in config_overrides if k in _NOT_PORTED)
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
-    if importance_denominator != "component":
-        raise NotImplementedError(
-            f"importance_denominator={importance_denominator!r} is not ported yet"
+    # auto-mode candidate runs suppress the bad-k̂ hint: only the winner warns
+    suppress_khat_hint = config_overrides.pop("_suppress_khat_hint", False)
+    auto = _pop_auto_options(config_overrides, importance)
+    if auto is not None:
+        shared = dict(
+            seed=seed, nruns=nruns, init=init, dim=dim, hess=hess,
+            ndraws_elbo=ndraws_elbo, ndraws_per_run=ndraws_per_run,
+            importance=importance, importance_denominator=importance_denominator,
+            history_length=history_length, maxiters=maxiters, ntries=ntries,
+            init_scale=init_scale, init_sampler=init_sampler, gtol=gtol,
+            dtype=dtype, device=device,
         )
+        winner = _run_auto(fn, ndraws, auto, shared, config_overrides)
+        if not suppress_khat_hint:
+            _maybe_warn_bad_khat(
+                winner.psis_result, tried_auto=True, tried_laplace=bool(auto.laplace)
+            )
+        return winner
+    if importance_denominator not in ("component", "mixture"):
+        raise ValueError(f"unknown importance_denominator {importance_denominator!r}")
     dev = resolve_device(device)
-    target = as_log_density(fn, dim=dim)
+    target = as_log_density(fn, dim=dim, hess=hess)
 
     if init is not None:
         init = torch.as_tensor(init, device=dev)
@@ -199,11 +312,17 @@ def multipathfinder(
     components = states.fit_distribution
     draws_knd = states.draws.mT  # (K, N, d)
     psis_result = (
-        _compute_psis_result(target.logp, components, draws_knd) if importance else None
+        _compute_psis_result(
+            target.logp, components, draws_knd, denominator=importance_denominator
+        )
+        if importance
+        else None
     )
     draws, component_ids = resample_draws(
         rng.Stream(seed, 0, 0, rng.RESAMPLE), draws_knd, psis_result, ndraws
     )
+    if not suppress_khat_hint:
+        _maybe_warn_bad_khat(psis_result)
     return MultiPathfinderResult(
         input=fn,
         config=config,
@@ -217,7 +336,129 @@ def multipathfinder(
         num_tries=torch.as_tensor(num_tries),
         draws_per_component=draws_knd,
         target=target,
+        importance_denominator=importance_denominator,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class _AutoOptions:
+    optimizers: tuple  # candidates, in the order they run
+    khat_early_exit: Optional[float]  # None: run every candidate
+    laplace: Union[bool, str]  # False, "diag" or "full"
+
+
+_UNSET = object()
+
+
+def _pop_auto_options(config_overrides: dict, importance: bool) -> Optional[_AutoOptions]:
+    """Take the auto mode's options out of ``config_overrides`` and validate
+    them before any run: ``None`` unless ``optimizer="auto"``."""
+    auto_set = config_overrides.pop("auto_optimizers", None)
+    early_exit = config_overrides.pop("auto_khat_early_exit", _UNSET)
+    auto_laplace = config_overrides.pop("auto_laplace", False)
+    is_auto = config_overrides.get("optimizer") == "auto"
+    if auto_set is not None and not is_auto:
+        raise ValueError(
+            "auto_optimizers requires optimizer='auto' (it names the "
+            "candidates the auto mode runs)"
+        )
+    if auto_laplace and not is_auto:
+        raise ValueError(
+            "auto_laplace requires optimizer='auto' (it extends the auto "
+            "mode's k̂ arbitration; call laplace_resample directly on a "
+            "finished result otherwise)"
+        )
+    if auto_laplace is True:
+        auto_laplace = "diag"
+    if auto_laplace not in (False, "diag", "full"):
+        raise ValueError(
+            f"auto_laplace must be False, True, 'diag', or 'full'; got "
+            f"{auto_laplace!r}"
+        )
+    if early_exit is not _UNSET and not is_auto:
+        raise ValueError(
+            "auto_khat_early_exit requires optimizer='auto' (it bounds "
+            "the auto mode's candidate competition)"
+        )
+    if early_exit is _UNSET:
+        early_exit = 0.7  # the "ok" verdict boundary
+    elif early_exit is not None:
+        # fail fast: a bad threshold found after the first full candidate
+        # run would waste the whole pipeline
+        early_exit = float(early_exit)
+    if not is_auto:
+        return None
+    del config_overrides["optimizer"]
+    if auto_set is None:
+        auto_set = ("lbfgs", "cg")
+    elif isinstance(auto_set, str) or callable(auto_set):
+        auto_set = (auto_set,)  # a bare string would iterate per character
+    else:
+        auto_set = tuple(auto_set)
+    if not auto_set:
+        raise ValueError("auto_optimizers must name at least one optimizer")
+    bad = [
+        o for o in auto_set
+        if not ((isinstance(o, str) and o in OPTIMIZERS) or (callable(o) and not isinstance(o, str)))
+    ]
+    if bad:
+        # a typo found inside the Nth run would waste every earlier one
+        raise ValueError(
+            f"unknown auto_optimizers entries {bad}; choose from "
+            f"{tuple(OPTIMIZERS)} or pass callables with the "
+            "minimize_*_trace contract"
+        )
+    if not importance:
+        raise ValueError(
+            "optimizer='auto' selects by Pareto-k̂ and therefore "
+            "requires importance=True"
+        )
+    return _AutoOptions(auto_set, early_exit, auto_laplace)
+
+
+def _khat(r: MultiPathfinderResult) -> float:
+    """The k̂ the auto mode ranks by. A NaN k̂ ("not computed") is
+    ambiguous: a zero-variance weight tail from a perfect fit (every weight
+    ≈ 1/N, ESS ≈ N) is the best outcome and ranks first (−inf; ties break by
+    candidate order). But ``psis`` also returns uniform weights when every
+    log ratio was non-finite, a broken candidate. So the perfect-fit rank
+    needs healthy evidence (all paths succeeded, finite draws); any other
+    NaN ranks last."""
+    k = float(r.psis_result.pareto_shape)
+    if k == k:
+        return k
+    ess_frac = float(r.psis_result.ess) / r.psis_result.weights.shape[0]
+    healthy = bool(r.states.success.all()) and bool(torch.isfinite(r.draws).all())
+    return float("-inf") if (ess_frac >= 0.99 and healthy) else float("inf")
+
+
+def _run_auto(fn, ndraws, auto: _AutoOptions, shared: dict, config_overrides: dict):
+    """Run the candidates and let the Pareto k̂ arbitrate (k̂ as a fit-
+    quality diagnostic, Yao et al. 2018); then, if asked and no candidate
+    is acceptable, try the Laplace correction on the winner."""
+    candidates = []
+    for opt in auto.optimizers:
+        r = multipathfinder(
+            fn, ndraws, **shared,
+            **{**config_overrides, "optimizer": opt, "_suppress_khat_hint": True},
+        )
+        candidates.append(r)
+        # a candidate at "ok" or better ends the competition: later ones
+        # cost a full run each and could at best improve an acceptable fit
+        if auto.khat_early_exit is not None and _khat(r) < auto.khat_early_exit:
+            break
+    winner = min(candidates, key=_khat)  # the first of equals, as they ran
+    if auto.laplace:
+        # the correction at the winner's own means costs one batch of
+        # Hessians, far less than another candidate run; it is kept only if
+        # the diagnostic improves, since it can be a slight negative where
+        # the fits already match the local curvature
+        trigger = auto.khat_early_exit if auto.khat_early_exit is not None else 0.7
+        if _khat(winner) >= trigger:
+            corrected = laplace_resample(winner, ndraws, method=auto.laplace)
+            if _khat(corrected) < _khat(winner):
+                winner = corrected
+    return winner
 
 
 def resample(
@@ -226,17 +467,25 @@ def resample(
     *,
     replace: bool = True,
     importance: bool = True,
+    importance_denominator: Optional[str] = None,
     ndraws_per_run: Optional[int] = None,
 ) -> MultiPathfinderResult:
     """Re-resample a finished result without re-optimizing. Reuses the stored
     per-path draws and PSIS result unless ``ndraws_per_run`` asks for fresh
-    draws from each component. Each call on a result draws from the next
-    round of the resampling stream, so chained calls differ."""
+    draws from each component. The stored PSIS result is tagged with the
+    denominator that produced it: ``importance_denominator=None`` reuses it
+    as it is, and an explicit value recomputes only when it differs from
+    the tag. Each call on a result draws from the next round of the
+    resampling stream, so chained calls differ."""
     count = result.resample_count + 1
     components = result.fit_distribution.components
+    stored_denom = result.importance_denominator or "component"
+    effective_denom = importance_denominator or stored_denom
     if ndraws_per_run is None:
         draws_knd = result.draws_per_component
         psis_stored = result.psis_result
+        if effective_denom != stored_denom:
+            psis_stored = None  # recompute with the requested ratios
     else:
         K = components.mean.shape[0]
         paths = torch.arange(K, device=components.mean.device)
@@ -246,7 +495,9 @@ def resample(
     if importance:
         psis_used = psis_stored
         if psis_used is None:
-            psis_used = _compute_psis_result(result.logp, components, draws_knd)
+            psis_used = _compute_psis_result(
+                result.logp, components, draws_knd, denominator=effective_denom
+            )
     else:
         psis_used = None
     draws, component_ids = resample_draws(
@@ -260,4 +511,155 @@ def resample(
         psis_result=psis_used,
         draws_per_component=draws_knd,
         resample_count=count,
+        importance_denominator=effective_denom,
+    )
+
+
+def _laplace_covariances(negH: torch.Tensor, fit_diag: torch.Tensor, method: str):
+    """Corrected covariances from the negative Hessians ``negH (K, d, d)`` at
+    the component means: a :class:`WoodburyPDMat` batched over K with an
+    empty low-rank part (m = 0). ``fit_diag (K, d)`` is the fitted
+    covariances' diagonal, the fallback."""
+    K, d, _ = negH.shape
+    dtype, dev = negH.dtype, negH.device
+    B0 = torch.zeros((K, d, 0), dtype=dtype, device=dev)
+    D0 = torch.zeros((K, 0, 0), dtype=dtype, device=dev)
+    if method == "diag":
+        # Σ = diag(1 / diag(−H)); μ is generally not a stationary point, so
+        # diag(−H) can have non-positive (or, for the garbage mean of a
+        # failed path, non-finite) coordinates: those fall back, each on its
+        # own, to the fitted covariance's diagonal
+        hd = torch.diagonal(negH, dim1=-2, dim2=-1)
+        usable = (hd > 0) & torch.isfinite(hd)
+        var = torch.where(usable, 1.0 / torch.clamp(hd, min=1e-30), fit_diag)
+        return WoodburyPDMat.from_parts(var, B0, D0)
+    if method == "full":
+        # Σ = (−H)⁻¹ with the saddle-free |λ| spectrum: a direction of
+        # negative curvature keeps its scale (variance 1/|λ|), where a small
+        # positive floor would blow its variance up to 1/floor. A Hessian
+        # with non-finite entries has no spectrum: it is taken as zero, and
+        # then, like a (near-)zero one, the component falls back whole to
+        # the fitted diagonal.
+        finite = torch.isfinite(negH).all(dim=(-2, -1), keepdim=True)
+        w, V = torch.linalg.eigh(torch.where(finite, negH, torch.zeros_like(negH)))
+        aw = w.abs()
+        maxaw = aw.amax(dim=1, keepdim=True)
+        degenerate = (maxaw <= 0) | ~torch.isfinite(maxaw) | ~finite[:, 0]  # (K, 1)
+        floor = 1e-8 * torch.where(degenerate, torch.ones_like(maxaw), maxaw)
+        wc = torch.maximum(aw, floor)
+        sigma = (V / wc[:, None, :]) @ V.mT  # V diag(1/wc) Vᵀ
+        # symmetrize, so that the dense Cholesky sees an exactly symmetric matrix
+        sigma = 0.5 * (sigma + sigma.mT)
+        sigma = torch.where(degenerate[:, :, None], torch.diag_embed(fit_diag), sigma)
+        return WoodburyPDMat.from_parts(sigma, B0, D0)
+    raise ValueError(f"unknown laplace_resample method {method!r}; use 'diag' or 'full'")
+
+
+def laplace_corrected_components_and_draws(
+    logp: Callable,
+    components: MvNormal,
+    stream: rng.Stream,
+    ndraws_per_run: int,
+    method: str = "diag",
+    hess_fn: Optional[Callable] = None,
+):
+    """The core of the Laplace correction: the Hessians at the component
+    means in one batch, the corrected covariances, and ``ndraws_per_run``
+    draws from each corrected component (``stream`` is batched over the K
+    components). Returns ``(corrected MvNormal, draws_knd (K, N, d))``."""
+    if hess_fn is None:
+        hess_fn = batched_hessian(logp)
+    negH = -hess_fn(components.mean).to(components.dtype)  # (K, d, d)
+    corrected = MvNormal(
+        components.mean, _laplace_covariances(negH, components.cov.diag(), method)
+    )
+    return corrected, corrected.sample(stream, ndraws_per_run).mT.contiguous()
+
+
+def laplace_resample(
+    result: MultiPathfinderResult,
+    ndraws: int,
+    *,
+    method: str = "diag",
+    ndraws_per_run: Optional[int] = None,
+    replace: bool = True,
+    importance: bool = True,
+    importance_denominator: Optional[str] = None,
+    hess: Optional[Callable] = None,
+) -> MultiPathfinderResult:
+    """Replace each component's covariance with a Laplace covariance at the
+    same mean, redraw, re-weight and resample.
+
+    Pathfinder's component covariances are L-BFGS inverse-Hessian estimates
+    gathered along the trajectory; at the ELBO-selected means they can be
+    far from the target's local curvature. This correction keeps the chosen
+    means and swaps in the curvature the target has there:
+
+    * ``method="diag"`` (default): ``Σ = diag(1 / diag(−H(μ)))``, falling
+      back per coordinate to the fitted diagonal where ``diag(−H) ≤ 0``.
+    * ``method="full"``: ``Σ = (−H(μ))⁻¹`` by the saddle-free ``|λ|``
+      eigendecomposition: cross-correlations too, at the cost of one dense
+      ``eigh`` and a ``(d, d)`` covariance per component.
+
+    Both evaluate the target's Hessian at every component mean (``hess=`` if
+    given, else the result target's own ``hess``, else ``torch.func``'s
+    forward-over-reverse Hessian of the stored log density, batched over
+    components).
+
+    Returns a new result whose ``fit_distribution`` and per-path
+    ``states.fit_distribution`` hold the corrected components, with fresh
+    draws from each, a recomputed PSIS diagnostic and ``ndraws`` resampled
+    draws. ``elbo_values`` still describe the uncorrected candidate fits.
+    Chain with :func:`resample` to re-resample without correcting again.
+
+    Not a universal win: where the fitted covariances already match the
+    local curvature the correction can be a slight negative. Let the Pareto
+    k̂ arbitrate: apply it when the fitted verdict is bad and keep whichever
+    result diagnoses better.
+    """
+    if method not in ("diag", "full"):
+        raise ValueError(
+            f"unknown laplace_resample method {method!r}; use 'diag' or 'full'"
+        )
+    count = result.resample_count + 1
+    components = result.fit_distribution.components
+    K, d = components.mean.shape
+    if d > NEWTON_DENSE_DIM_WARN:
+        warnings.warn(
+            f"laplace_resample at d={d} materializes {K} dense ({d}, {d}) Hessians"
+            + (" plus one eigh each" if method == "full" else "")
+            + f" — expect high memory above d~{NEWTON_DENSE_DIM_WARN}."
+        )
+    if hess is None:
+        hess = getattr(result.target, "hess", None)
+    N = ndraws_per_run if ndraws_per_run is not None else result.draws_per_component.shape[1]
+    paths = torch.arange(K, device=components.mean.device)
+    corrected, draws_knd = laplace_corrected_components_and_draws(
+        result.logp, components, rng.Stream(result.seed, paths, count, rng.LAPLACE_DRAWS),
+        N, method, hess_fn=hess,
+    )
+    effective_denom = importance_denominator or result.importance_denominator or "component"
+    psis_used = (
+        _compute_psis_result(result.logp, corrected, draws_knd, denominator=effective_denom)
+        if importance
+        else None
+    )
+    draws, component_ids = resample_draws(
+        rng.Stream(result.seed, 0, count, rng.LAPLACE_RESAMPLE), draws_knd, psis_used,
+        ndraws, replace=replace,
+    )
+    return dataclasses.replace(
+        result,
+        fit_distribution=UniformMixture(corrected),
+        # the per-path views stay consistent: both the corrected components
+        # and the draws they produced go in
+        states=dataclasses.replace(
+            result.states, fit_distribution=corrected, draws=draws_knd.mT
+        ),
+        draws=draws,
+        draw_component_ids=component_ids,
+        psis_result=psis_used,
+        draws_per_component=draws_knd,
+        resample_count=count,
+        importance_denominator=effective_denom,
     )

@@ -17,7 +17,10 @@ cut into clusters, threads and row tiles is decided here, by
 
 Shapes (batch ``B`` of independent factors, dimension ``d``, rank ``m``,
 ``N`` draws): ``u``/``x`` ``(B, d, N)``, ``a_half``/``mu`` ``(B, d)``,
-``X`` ``(B, d, m)``, ``C``/``Ci`` ``(B, m, m)``, ``logdet`` ``(B,)``.
+``X`` ``(B, d, m)``, ``C``/``Ci`` ``(B, m, m)``, ``logdet`` ``(B,)``. The rank
+may be 0 (a diagonal factor). B2 also takes one block ``x (d, P)`` shared by
+all ``B`` factors and returns ``(B, P)``: one launch over (factor, column
+tile), with no copy of ``x`` per factor.
 """
 
 from __future__ import annotations
@@ -64,9 +67,14 @@ SMEM_LIMIT = 232_448  # bytes of shared memory one CTA may use
 MAX_CLUSTER = 8  # the portable cluster size
 _CHUNK = 40  # columns the kernel handles per round (csrc: kChunk)
 _MIN_ROWS = 64  # rows below which a factor is not split further
+_COL_TILES = (40, 20, 10, 5)  # widths of a column tile of a shared x, widest first
+_MIN_PAIR_TILE = 10  # narrower tiles are not worth a second CTA on the SM
+# shared memory of a CTA that leaves room for a second one on its SM (228 KB
+# an SM, 1 KB of it reserved per CTA)
+_SMEM_PAIR = 233_472 // 2 - 1024
 
-# launches of each kernel since the last reset, in all and per (B, N)
-# (plain-version calls on CPU tensors do not count)
+# launches of each kernel since the last reset, in all and per shape
+# ``(B, m, N, shared)`` (plain-version calls on CPU tensors do not count)
 _launches = {"sample_and_logq": 0, "whiten_sumsq": 0}
 _launches_by_shape = {name: collections.Counter() for name in _launches}
 _lib = None
@@ -79,7 +87,8 @@ def launch_counts() -> dict:
 
 
 def launch_counts_by_shape() -> dict:
-    """``{kernel: {(B, N): launches}}`` since the last reset."""
+    """``{kernel: {(B, m, N, shared): launches}}`` since the last reset;
+    ``shared`` marks B2 launches over a shared ``x`` of ``N`` columns."""
     return {name: dict(c) for name, c in _launches_by_shape.items()}
 
 
@@ -104,7 +113,8 @@ def sample_and_logq_torch(u, a_half, X, C, mu, logdet):
 
 
 def whiten_sumsq_torch(x, a_half, X, Ci, mu):
-    """``‖v + X (Ci (Xᵀ v))‖²`` per column, ``v = (x − μ)/a½``."""
+    """``‖v + X (Ci (Xᵀ v))‖²`` per column, ``v = (x − μ)/a½``; ``x`` is
+    ``(..., d, N)``, or ``(d, P)`` shared by all factors."""
     v = (x - mu[..., None]) / a_half[..., None]
     w = v + X @ (Ci @ (X.mT @ v))
     return torch.sum(w * w, dim=-2)
@@ -128,15 +138,18 @@ def _threads(m: int) -> int:
     return 32 * (mr // 4) * max(1, 32 // mr)
 
 
-def _smem_bytes(tile: int, m: int, N: int, threads: int) -> int:
-    """Dynamic shared memory of one CTA; mirrors ``Layout`` in the source."""
+def _smem_bytes(tile: int, m: int, N: int, threads: int, shared: bool = False) -> int:
+    """Dynamic shared memory of one CTA; mirrors ``Layout`` in the source.
+    With ``shared`` (B2 over a shared ``x``) ``N`` is the width of a column
+    tile, whose columns are staged one after the other."""
     mr = _rank_tile(m)
     warps = threads // 32
     parts = warps // (mr // 4)
     nc = min(N, _CHUNK)
+    slab = N * (_round4(tile) + 4) if shared else tile * N + 4
     floats = (
         4  # the mbarrier
-        + _round4(tile * N + 4) + _round4(tile * m + 4) + 2 * _round4(tile + 4)
+        + _round4(slab) + _round4(tile * m + 4) + 2 * _round4(tile + 4)
         + _round4(m * m + 4)
         + _round4(parts * mr * nc) + 2 * _round4(mr * nc) + _round4(mr * (nc + 4))
         + _round4(warps * nc) + _round4(nc)
@@ -186,6 +199,56 @@ def _launch_plan(B: int, d: int, m: int, N: int, num_sms: int = NUM_SMS) -> tupl
     return cluster, threads, _smem_bytes(tile, m, N, threads), tile
 
 
+def _launch_plan_shared(B: int, d: int, m: int, P: int, num_sms: int = NUM_SMS) -> tuple:
+    """``(cluster, threads, smem_bytes, tile_rows, col_tile)`` for B2 over an
+    ``x`` of ``P`` columns shared by ``B`` factors.
+
+    The grid runs over (factor, column tile); a cluster stages its factor's
+    rows and one tile of ``col_tile`` columns. A CTA loads, then computes,
+    so two CTAs on an SM overlap where one would idle: the tile is the
+    widest of ``_COL_TILES`` that leaves room for two, from
+    ``_MIN_PAIR_TILE`` columns up, else the widest that fits alone. The
+    cluster grows while no tile fits and while the card would not be
+    filled. Where not even the narrowest tile fits at 8 CTAs, the rows are
+    tiled too and staged twice.
+    """
+    if min(B, d, P) < 1 or not 0 <= m <= MAX_RANK:
+        raise ValueError(f"no launch plan for B={B}, d={d}, m={m}, P={P}")
+    threads = _threads(m)
+    widths = sorted({min(w, P) for w in _COL_TILES}, reverse=True)
+
+    def widest(rows):
+        """The tile for a CTA of ``rows`` rows; 0 where none fits."""
+        smem = {w: _smem_bytes(rows, m, w, threads, True) for w in widths}
+        pair = [w for w in widths if smem[w] <= _SMEM_PAIR and w >= min(_MIN_PAIR_TILE, P)]
+        alone = [w for w in widths if smem[w] <= SMEM_LIMIT]
+        return (pair or alone or [0])[0]
+
+    cluster = 1
+    while cluster < MAX_CLUSTER and not widest(-(-d // cluster)):
+        cluster *= 2
+    while (
+        cluster < MAX_CLUSTER
+        and B * -(-P // max(1, widest(-(-d // cluster)))) * cluster < num_sms
+        and -(-d // (2 * cluster)) >= _MIN_ROWS
+    ):
+        cluster *= 2
+    rows = -(-d // cluster)
+    tile, width = rows, widest(rows)
+    if not width:
+        width = widths[-1]
+        fixed = _smem_bytes(0, m, width, threads, True)
+        tile = (SMEM_LIMIT - fixed) // (4 * (width + m + 2)) & ~3
+        while tile > 0 and _smem_bytes(tile, m, width, threads, True) > SMEM_LIMIT:
+            tile -= 4
+        if tile < 1:
+            raise ValueError(f"one row of {width} columns does not fit in shared memory")
+        tile = min(rows, _round4(-(-rows // -(-rows // tile))))  # equal tiles
+    if -(-P // width) > 65535:
+        raise ValueError(f"P={P} columns need more column tiles than a grid has")
+    return cluster, threads, _smem_bytes(tile, m, width, threads, True), tile, width
+
+
 # -- build and bind -----------------------------------------------------------
 
 
@@ -227,6 +290,8 @@ def load_library() -> ctypes.CDLL:
         lib.pf_sample_logq.restype = i
         lib.pf_whiten_sumsq.argtypes = [p] * 6 + [i] * 8 + [p]
         lib.pf_whiten_sumsq.restype = i
+        lib.pf_whiten_sumsq_shared.argtypes = [p] * 6 + [i] * 9 + [p]
+        lib.pf_whiten_sumsq_shared.restype = i
         lib.pf_max_rank.argtypes = []
         lib.pf_max_rank.restype = i
         if lib.pf_max_rank() != MAX_RANK:
@@ -238,14 +303,15 @@ def load_library() -> ctypes.CDLL:
 def kernel_resources() -> dict:
     """Registers and spills of each kernel instantiation as ``ptxas -v``
     reported them at build time: ``{(name, MR, NT): {"registers": r,
-    "spill_stores": bytes, "spill_loads": bytes}}``."""
+    "spill_stores": bytes, "spill_loads": bytes}}``; B2 over a shared ``x``
+    is listed as ``whiten_sumsq_shared``."""
     load_library()
     out, key = {}, None
     for line in _lib_log.splitlines():
-        found = re.search(r"woodbury_kernelILi(\d+)ELi(\d+)ELb([01])E", line)
+        found = re.search(r"woodbury_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
         if "Compiling entry function" in line and found:
-            mr, nt, sample = found.groups()
-            name = "sample_and_logq" if sample == "1" else "whiten_sumsq"
+            mr, nt, mode = found.groups()
+            name = ("sample_and_logq", "whiten_sumsq", "whiten_sumsq_shared")[int(mode)]
             key = (name, int(mr), int(nt))
             out[key] = {}
         elif key is not None and "spill stores" in line:
@@ -292,10 +358,11 @@ def _flat_shapes(u, X):
     return batch, math.prod(batch), d, m, N
 
 
-def _launch(name, entry, pointers, device, B, d, m, N):
-    """Launch ``entry`` on the current stream with :func:`_launch_plan`'s
-    plan and count it."""
-    plan = _launch_plan(B, d, m, N, _num_sms(device.index))
+def _launch(name, entry, tensors, plan, device, B, d, m, N, shared=False):
+    """Launch ``entry`` on the current stream with ``plan`` and count it. A
+    tensor without elements (``X`` and the core at m = 0) may have no
+    address of its own; the kernel never reads it and gets a valid one."""
+    pointers = [t.data_ptr() or tensors[1].data_ptr() for t in tensors]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         code = entry(*pointers, B, d, m, N, *plan, stream)
@@ -304,7 +371,7 @@ def _launch(name, entry, pointers, device, B, d, m, N):
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError {code}")
     _launches[name] += 1
-    _launches_by_shape[name][(B, N)] += 1
+    _launches_by_shape[name][(B, m, N, shared)] += 1
 
 
 def sample_and_logq(u, a_half, X, C, mu, logdet):
@@ -329,18 +396,23 @@ def sample_and_logq(u, a_half, X, C, mu, logdet):
     logq = torch.empty(batch + (N,), dtype=u.dtype, device=u.device)
     if B == 0 or N == 0:
         return x, logq
-    tensors = (u, a_half, X, C, mu, logdet, x, logq)
+    plan = _launch_plan(B, d, m, N, _num_sms(u.device.index))
     _launch("sample_and_logq", load_library().pf_sample_logq,
-            [t.data_ptr() for t in tensors], u.device, B, d, m, N)
+            (u, a_half, X, C, mu, logdet, x, logq), plan, u.device, B, d, m, N)
     return x, logq
 
 
 def whiten_sumsq(x, a_half, X, Ci, mu):
-    """B2: Mahalanobis terms ``‖L⁻¹(x − μ)‖²`` for the columns of ``x``."""
+    """B2: Mahalanobis terms ``‖L⁻¹(x − μ)‖²`` for the columns of ``x``:
+    ``x (..., d, N)`` with a block of columns per factor gives ``(..., N)``;
+    ``x (d, P)`` beside batched factors is shared by all of them and gives
+    ``(..., P)``."""
     if x.device.type == "cpu":
         return whiten_sumsq_torch(x, a_half, X, Ci, mu)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    if x.ndim == 2 and X.ndim > 2:
+        return _whiten_sumsq_shared(x, a_half, X, Ci, mu)
     batch, B, d, m, N = _flat_shapes(x, X)
     _check_cuda_args(
         [
@@ -355,7 +427,40 @@ def whiten_sumsq(x, a_half, X, Ci, mu):
     maha = torch.empty(batch + (N,), dtype=x.dtype, device=x.device)
     if B == 0 or N == 0:
         return maha
-    tensors = (x, a_half, X, Ci, mu, maha)
+    plan = _launch_plan(B, d, m, N, _num_sms(x.device.index))
     _launch("whiten_sumsq", load_library().pf_whiten_sumsq,
-            [t.data_ptr() for t in tensors], x.device, B, d, m, N)
+            (x, a_half, X, Ci, mu, maha), plan, x.device, B, d, m, N)
+    return maha
+
+
+def _whiten_sumsq_shared(x, a_half, X, Ci, mu):
+    """B2 with ``x (d, P)`` shared by the factors ``X (..., d, m)``. The
+    kernel reads ``x`` in the ``(P, d)`` layout, a column's rows side by
+    side: an ``x`` that is the transpose of a contiguous ``(P, d)`` block
+    (pooled draws) goes in as it is, any other is transposed once."""
+    batch = tuple(X.shape[:-2])
+    B = math.prod(batch)
+    d, m = X.shape[-2:]
+    P = x.shape[1]
+    if d == 0:
+        raise ValueError("the kernels need d >= 1")
+    if m > MAX_RANK:
+        raise ValueError(f"rank m={m} exceeds the kernel's cap of {MAX_RANK}")
+    xt = x.mT if x.mT.is_contiguous() else x.mT.contiguous()
+    _check_cuda_args(
+        [
+            ("x (transposed)", xt, (P, d)),
+            ("a_half", a_half, batch + (d,)),
+            ("X", X, batch + (d, m)),
+            ("Ci", Ci, batch + (m, m)),
+            ("mu", mu, batch + (d,)),
+        ],
+        x.device,
+    )
+    maha = torch.empty(batch + (P,), dtype=x.dtype, device=x.device)
+    if B == 0 or P == 0:
+        return maha
+    plan = _launch_plan_shared(B, d, m, P, _num_sms(x.device.index))
+    _launch("whiten_sumsq", load_library().pf_whiten_sumsq_shared,
+            (xt, a_half, X, Ci, mu, maha), plan, x.device, B, d, m, P, shared=True)
     return maha

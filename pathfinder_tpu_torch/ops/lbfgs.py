@@ -2,10 +2,11 @@
 over lanes (counterpart of ``pathfinder_tpu/ops/lbfgs.py``).
 
 The JAX package runs one path's ``lax.while_loop`` under ``vmap``; here the
-K paths are a leading axis and the loop is a masked Python loop: the body runs
-for all lanes and a lane whose own condition is false keeps its whole state,
-which is what JAX's batched ``while_loop`` does. The trace buffers keep the
-fixed ``(K, maxiters+1, d)`` shape with a per-lane valid count.
+K paths are a leading axis and the loop is the masked loop of
+``ops/trajectory.py``: the body runs for all lanes and a lane whose own
+condition is false keeps its whole state, which is what JAX's batched
+``while_loop`` does. The trace buffers keep the fixed ``(K, maxiters+1, d)``
+shape with a per-lane valid count.
 
 The trace stores the log-density view (``logp`` and ``∇logp``); the optimizer
 minimizes ``f = −logp``.
@@ -18,10 +19,12 @@ from typing import Callable, Optional
 
 import torch
 
-from pathfinder_tpu_torch.ops.linesearch import (
-    hager_zhang_line_search,
-    initial_step_size,
-    resolve_c1,
+from pathfinder_tpu_torch.ops.linesearch import initial_step_size
+from pathfinder_tpu_torch.ops.trajectory import (
+    OptimizationTrace,
+    minimize_trace,
+    scale_aware_gtol,
+    should_abort_nonfinite,
 )
 from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat
 
@@ -38,55 +41,12 @@ __all__ = [
 ]
 
 
-def should_abort_nonfinite(logp_value, grad_logp, fail_on_nonfinite=True):
-    """Abort iff ``fail_on_nonfinite`` and (``isnan(logp)`` or
-    ``logp == +Inf`` or any gradient entry non-finite); ``logp == −Inf`` does
-    not abort."""
-    bad = (
-        torch.isnan(logp_value)
-        | (logp_value == torch.inf)
-        | (~torch.isfinite(grad_logp)).any(dim=-1)
-    )
-    return bad & fail_on_nonfinite
-
-
 def gilbert_init(alpha, s, y):
     """Diagonal H₀ refresh, Gilbert & Lemaréchal (1989) eq. 4.9, per lane."""
     a = torch.sum(y * alpha * y, dim=-1, keepdim=True)
     b = torch.sum(y * s, dim=-1, keepdim=True)
     c = torch.sum(s / alpha * s, dim=-1, keepdim=True)
     return b / (a / alpha + y * y - (a / c) * (s / alpha) ** 2)
-
-
-def scale_aware_gtol(gtol_user, g0, dtype):
-    """The user's ``gtol`` floored at 25 eps times ``min(1, |g0|∞)``."""
-    floor = 25 * torch.finfo(dtype).eps
-    g0_scale = g0.abs().amax(dim=-1)
-    g0_scale = torch.where(
-        torch.isfinite(g0_scale) & (g0_scale > 0), g0_scale,
-        torch.ones_like(g0_scale),
-    )
-    return torch.clamp(floor * torch.clamp(g0_scale, max=1.0), min=gtol_user)
-
-
-@dataclasses.dataclass(frozen=True)
-class OptimizationTrace:
-    """Fixed-shape trace, batched over lanes. Index 0 is the initial point;
-    entries at index ≥ ``num_valid`` are padding."""
-
-    xs: torch.Tensor  # (K, maxiters+1, d) iterates
-    log_densities: torch.Tensor  # (K, maxiters+1) logp values
-    gradients: torch.Tensor  # (K, maxiters+1, d) ∇logp
-    num_valid: torch.Tensor  # (K,) number of valid points (≥ 1)
-    num_bfgs_updates_rejected: torch.Tensor  # (K,)
-    num_fn_evals: torch.Tensor  # (K,) value_and_grad evaluations
-    num_ls_exhausted: torch.Tensor  # (K,) steps kept by the fallback
-
-    @property
-    def point_mask(self) -> torch.Tensor:
-        n = self.xs.shape[-2]
-        pos = torch.arange(n, device=self.xs.device)
-        return pos < self.num_valid[..., None]
 
 
 def _compact_pieces(S_masked, Y_masked, alpha, mask):
@@ -139,79 +99,48 @@ def minimize_lbfgs_trace(
     c1: Optional[float] = None,
     c2: float = 0.9,
     fail_on_nonfinite: bool = True,
+    line_search: str = "hager_zhang",
 ) -> OptimizationTrace:
-    """Maximize ``logp`` from each row of ``x0 (K, d)`` with L-BFGS and
-    Hager-Zhang, recording every trajectory.
+    """Maximize ``logp`` from each row of ``x0 (K, d)`` with L-BFGS and the
+    named line search (Hager-Zhang by default), recording every trajectory.
 
     ``value_and_grad(x (K, d)) -> (logp (K,), ∇logp (K, d))``. Stopping,
     abort and history rules are those of the JAX package: gradient-norm
     ``gtol`` floored at the problem's scale, the ``ftol`` relative-progress
     stall (in ulps), the record-then-abort rule for non-finite points, and
-    the curvature-guarded history update.
+    the curvature-guarded history update. The masked loop over the K lanes
+    is ``ops/trajectory.py``'s, shared with the other optimizers.
     """
     K, d = x0.shape
-    dtype = x0.dtype
-    dev = x0.device
+    dtype, dev = x0.dtype, x0.device
     J = history_length
-    ftol_rel = float(ftol) * float(torch.finfo(dtype).eps) if ftol > 0 else 0.0
-    c1 = resolve_c1(c1, "hager_zhang")
     lanes = torch.arange(K, device=dev)
-
-    def neg_vg(x):
-        lp, glp = value_and_grad(x)
-        return (-lp).to(dtype), (-glp).to(dtype)
-
-    f0, g0 = neg_vg(x0)
-    gtol_eff = scale_aware_gtol(float(gtol), g0, dtype)
-    init_abort = should_abort_nonfinite(-f0, -g0, fail_on_nonfinite)
-
-    xs = torch.zeros((K, maxiters + 1, d), dtype=dtype, device=dev)
-    fs = torch.zeros((K, maxiters + 1), dtype=dtype, device=dev)
-    gs = torch.zeros((K, maxiters + 1, d), dtype=dtype, device=dev)
-    xs[:, 0], fs[:, 0], gs[:, 0] = x0, -f0, -g0
-
     izero = torch.zeros(K, dtype=torch.int64, device=dev)
-    st = dict(
-        it=izero, x=x0, f=f0, g=g0,
-        alpha=torch.ones((K, d), dtype=dtype, device=dev),
-        S=torch.zeros((K, J, d), dtype=dtype, device=dev),
+    carry = dict(
+        alpha=torch.ones((K, d), dtype=dtype, device=dev),  # diag H₀
+        S=torch.zeros((K, J, d), dtype=dtype, device=dev),  # circular history
         Y=torch.zeros((K, J, d), dtype=dtype, device=dev),
-        pos=izero, hlen=izero, nrej=izero, nev=izero + 1, nexh=izero,
-        done=init_abort,
+        pos=izero, hlen=izero, nrej=izero,
     )
 
-    while True:
-        run = (~st["done"]) & (st["it"] < maxiters)
-        if not bool(run.any()):
-            break
-        x, f, g, alpha = st["x"], st["f"], st["g"], st["alpha"]
+    def direction_fn(st, gs):
+        g, alpha = st["g"], st["alpha"]
         direction = _two_loop_direction(g, alpha, st["S"], st["Y"], st["pos"], st["hlen"])
-        dphi0 = torch.sum(g * direction, dim=-1)
         # safeguard: scaled steepest descent if not a descent direction
-        bad_dir = ~(dphi0 < 0)
+        bad_dir = ~(torch.sum(g * direction, dim=-1) < 0)
         direction = torch.where(bad_dir[:, None], -alpha * g, direction)
-
-        a0_first = initial_step_size(x, f, g)
-        alpha0 = torch.where(st["it"] == 0, a0_first, torch.ones_like(f))
-
-        ls = hager_zhang_line_search(
-            neg_vg, x, f, g, direction, alpha0,
-            c1=c1, c2=c2, max_evals=max_ls_evals, active=run,
+        alpha0 = torch.where(
+            st["it"] == 0, initial_step_size(st["x"], st["f"], g), torch.ones_like(st["f"])
         )
-        nev = st["nev"] + ls.num_evals
+        return direction, alpha0, None
 
-        x_new = x + ls.step_size[:, None] * direction
-        f_new, g_new = ls.f, ls.g
-        progress = ls.ok
-        abort = should_abort_nonfinite(-f_new, -g_new, fail_on_nonfinite)
-        nexh = st["nexh"] + (progress & ls.exhausted).long()
-
+    def update_fn(st, mid, direction, ls, x_new):
+        progress, alpha = ls.ok, st["alpha"]
         # curvature-guarded history update
-        svec = x_new - x
-        yvec = g_new - g
+        svec = x_new - st["x"]
+        yvec = ls.g - st["g"]
         curv = torch.sum(yvec * svec, dim=-1)
         accept = progress & (curv > epsilon_curvature * torch.sum(yvec * yvec, dim=-1))
-
         if J > 0:
             write = (st["pos"] + 1) % J
             S, Y = st["S"].clone(), st["Y"].clone()
@@ -220,45 +149,17 @@ def minimize_lbfgs_trace(
             pos = torch.where(accept, write, st["pos"])
         else:
             S, Y, pos = st["S"], st["Y"], st["pos"]
-        hlen = torch.where(accept, torch.clamp(st["hlen"] + 1, max=J), st["hlen"])
-        alpha_new = torch.where(accept[:, None], gilbert_init(alpha, svec, yvec), alpha)
-        nrej = st["nrej"] + (progress & ~accept).long()
-
-        it_new = torch.where(progress, st["it"] + 1, st["it"])
-        # trace rows are written in place: only running lanes that made
-        # progress write, and each writes its own next row
-        wr = run & progress
-        xs[lanes, it_new] = torch.where(wr[:, None], x_new, xs[lanes, it_new])
-        fs[lanes, it_new] = torch.where(wr, -f_new, fs[lanes, it_new])
-        gs[lanes, it_new] = torch.where(wr[:, None], -g_new, gs[lanes, it_new])
-
-        converged = g_new.abs().amax(dim=-1) <= gtol_eff
-        if ftol_rel > 0:
-            stalled = progress & ((f - f_new) <= ftol_rel * (f_new.abs() + ftol_rel))
-        else:
-            stalled = torch.zeros_like(progress)
-        done = (~progress) | converged | stalled | (progress & abort)
-
-        new = dict(
-            it=it_new,
-            x=torch.where(progress[:, None], x_new, x),
-            f=torch.where(progress, f_new, f),
-            g=torch.where(progress[:, None], g_new, g),
-            alpha=alpha_new, S=S, Y=Y, pos=pos, hlen=hlen, nrej=nrej,
-            nev=nev, nexh=nexh, done=done,
+        return dict(
+            alpha=torch.where(accept[:, None], gilbert_init(alpha, svec, yvec), alpha),
+            S=S, Y=Y, pos=pos,
+            hlen=torch.where(accept, torch.clamp(st["hlen"] + 1, max=J), st["hlen"]),
+            nrej=st["nrej"] + (progress & ~accept).long(),
         )
-        for k, v in new.items():
-            m = run.reshape((K,) + (1,) * (v.ndim - 1))
-            st[k] = torch.where(m, v, st[k])
 
-    return OptimizationTrace(
-        xs=xs,
-        log_densities=fs,
-        gradients=gs,
-        num_valid=st["it"] + 1,
-        num_bfgs_updates_rejected=st["nrej"],
-        num_fn_evals=st["nev"],
-        num_ls_exhausted=st["nexh"],
+    return minimize_trace(
+        value_and_grad, x0, carry, direction_fn, update_fn,
+        maxiters=maxiters, gtol=gtol, ftol=ftol, max_ls_evals=max_ls_evals,
+        c1=c1, c2=c2, fail_on_nonfinite=fail_on_nonfinite, line_search=line_search,
     )
 
 

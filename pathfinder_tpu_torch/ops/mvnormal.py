@@ -3,7 +3,9 @@
 
 Sampling goes through kernel B1 and the log density through kernel B2
 (``ops/kernels/woodbury_kernels.py``): the kernel on a CUDA tensor, the plain
-torch version on a CPU tensor. Draws are ``(..., n, N)`` column blocks, as in
+torch version on a CPU tensor. A covariance with a dense ``A`` takes the
+plain torch route of ``ops/woodbury.py`` on every device; the kernels are
+written for a diagonal ``A``. Draws are ``(..., n, N)`` column blocks, as in
 the JAX package. Every sampler takes a :class:`~pathfinder_tpu_torch.utils.
 rng.Stream` for its noise, or the noise itself as ``u=`` (tests inject the
 JAX package's draws this way).
@@ -17,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from pathfinder_tpu_torch.utils.misc import tree_map
 from pathfinder_tpu_torch.ops.kernels.woodbury_kernels import (
     sample_and_logq,
     whiten_sumsq,
@@ -55,13 +58,18 @@ class MvNormal:
         return F.a_half.contiguous(), F.X.contiguous(), self.mean.contiguous()
 
     def logpdf(self, x: torch.Tensor) -> torch.Tensor:
-        """Log density of the columns of ``x (..., n, N)``: ``(..., N)``."""
+        """Log density of the columns of ``x (..., n, N)``: ``(..., N)``. A
+        2-D ``x (n, P)`` beside batched normals is shared by all of them
+        and is not copied per normal: ``(..., P)``."""
         F = self.cov.factor
+        if not F.diag_A:
+            maha = self.cov.invquad(x - self.mean[..., None])
+            return -0.5 * (self.dim * _LOG_2PI + F.log_det[..., None] + maha)
         a_half, X, mean = self._kernel_args()
-        shape = F.X.shape[:-2] + x.shape[-2:]
-        maha = whiten_sumsq(
-            x.expand(shape).contiguous(), a_half, X, F.Ci.contiguous(), mean
-        )
+        batch = F.X.shape[:-2]
+        if not (x.ndim == 2 and batch):
+            x = x.expand(batch + x.shape[-2:]).contiguous()
+        maha = whiten_sumsq(x, a_half, X, F.Ci.contiguous(), mean)
         return -0.5 * (self.dim * _LOG_2PI + F.log_det[..., None] + maha)
 
     def rand_and_logpdf(
@@ -71,10 +79,14 @@ class MvNormal:
         """``(x (..., n, ndraws), logq (..., ndraws))`` with ``x = L u + μ``
         and logq from the already-drawn ``‖u‖²``: no second solve."""
         F = self.cov.factor
+        u = self._noise(stream, ndraws, u)
+        if not F.diag_A:
+            x = self.cov.unwhiten(u) + self.mean[..., None]
+            usq = torch.sum(u * u, dim=-2)
+            return x, -0.5 * (self.dim * _LOG_2PI + F.log_det[..., None] + usq)
         a_half, X, mean = self._kernel_args()
         return sample_and_logq(
-            self._noise(stream, ndraws, u), a_half, X, F.C.contiguous(), mean,
-            F.log_det.contiguous(),
+            u, a_half, X, F.C.contiguous(), mean, F.log_det.contiguous()
         )
 
     def sample(
@@ -114,3 +126,20 @@ class UniformMixture:
         ``logsumexp_k logpdf_k(x) − log K``."""
         per_comp = self.components.logpdf(x)  # (K, N)
         return torch.logsumexp(per_comp, dim=0) - math.log(self.ncomponents)
+
+    def component(self, k) -> MvNormal:
+        """Component ``k``, or the stacked components ``k`` of an index
+        tensor."""
+        return tree_map(lambda t: t[k], self.components)
+
+    def sample(self, stream: Stream, ndraws: int):
+        """``(draws (n, ndraws), component_ids (ndraws,))`` from the mixture:
+        a uniform component per draw, then one draw from it. The ids come
+        from ``stream`` and the noise from its candidate 1."""
+        dev = self.components.mean.device
+        K = self.ncomponents
+        ks = (stream.uniform(ndraws, torch.float64, dev) * K).long().clamp_(max=K - 1)
+        noise = dataclasses.replace(stream, candidate=1)
+        u = noise.normal(ndraws * self.dim, self.components.dtype, dev)
+        draws = self.component(ks).sample(u=u.reshape(ndraws, self.dim, 1))
+        return draws[..., 0].mT, ks

@@ -1,16 +1,20 @@
-"""Low-rank-plus-diagonal ("Woodbury") PD matrices, batched over leading dims.
+"""Low-rank-plus-PD ("Woodbury") matrices, batched over leading dims.
 
-Counterpart of ``pathfinder_tpu/ops/woodbury.py``, restricted to what the
-main path uses: diagonal ``A`` and ``method="chol"`` (the L-BFGS H₀ is always
-diagonal). The factorization is the same QR-free square root
+Counterpart of ``pathfinder_tpu/ops/woodbury.py``. The factorization is the
+same QR-free square root
 
     W = A + B D Bᵀ = L Lᵀ,   L = A½ (I + X C Xᵀ),   X = A^{-1/2} B,
 
 with the small ``m×m`` cores ``C`` (for ``L``) and ``Ci`` (for ``L⁻¹``) from
-a ridge-regularized Cholesky of the Gram matrix ``XᵀX``.
+a ridge-regularized Cholesky of the Gram matrix ``XᵀX`` (``method="chol"``)
+or from its rank-revealing eigendecomposition (``method="eigh"``).
 
-Shapes: ``A (..., n)``, ``B (..., n, m)``, ``D (..., m, m)``; vectors are
-passed as column blocks ``x (..., n, N)``.
+Shapes: ``A (..., n)`` diagonal (the L-BFGS H₀, the hot path) or
+``(..., n, n)`` dense PD; ``B (..., n, m)``, ``D (..., m, m)``, with ``m = 0``
+for a matrix with no low-rank part; vectors are passed as column blocks
+``x (..., n, N)``. For a dense ``A``, ``a_half`` is its lower Cholesky factor
+and ``A½ x`` means ``Kₐ x``; such factors run in plain torch and never reach
+the CUDA kernels.
 
 ``torch.linalg.cholesky`` raises on a non-PD matrix where JAX returns NaNs,
 and downstream logic (``is_finite_pd``, the success predicate, the NaN-
@@ -26,7 +30,13 @@ from typing import Optional
 
 import torch
 
-__all__ = ["WoodburyFactor", "WoodburyPDMat", "pdfactorize", "cholesky_or_nan"]
+__all__ = [
+    "WoodburyFactor",
+    "WoodburyPDMat",
+    "pdfactorize",
+    "pdunfactorize",
+    "cholesky_or_nan",
+]
 
 
 def cholesky_or_nan(M: torch.Tensor) -> torch.Tensor:
@@ -49,31 +59,49 @@ def _solve_lower_t(L, B):
 class WoodburyFactor:
     """Square-root factor ``W = L Lᵀ`` with ``L = A½ (I + X C Xᵀ)``."""
 
-    a_half: torch.Tensor  # (..., n) sqrt(diag A)
+    a_half: torch.Tensor  # (..., n) sqrt(diag A), or (..., n, n) lower Cholesky of A
     X: torch.Tensor  # (..., n, m) A^{-1/2} B, masked columns zeroed
     C: torch.Tensor  # (..., m, m) core of L
     Ci: torch.Tensor  # (..., m, m) core of L⁻¹
     log_det: torch.Tensor  # (...) log det W
 
+    @property
+    def diag_A(self) -> bool:
+        return self.a_half.ndim == self.X.ndim - 1
+
+    # -- A^{±1/2} applications ------------------------------------------------
+    def _ah_mul(self, x):
+        return self.a_half[..., None] * x if self.diag_A else self.a_half @ x
+
+    def _ah_t_mul(self, x):
+        return self.a_half[..., None] * x if self.diag_A else self.a_half.mT @ x
+
+    def _ah_solve(self, x):
+        return x / self.a_half[..., None] if self.diag_A else _solve_lower(self.a_half, x)
+
+    def _ah_t_solve(self, x):
+        return x / self.a_half[..., None] if self.diag_A else _solve_lower_t(self.a_half, x)
+
     def _core(self, M, x):
         # x + X (M (Xᵀ x))
         return x + self.X @ (M @ (self.X.mT @ x))
 
+    # -- factor applications --------------------------------------------------
     def L_mul(self, x):
         """``L x``."""
-        return self.a_half[..., None] * self._core(self.C, x)
+        return self._ah_mul(self._core(self.C, x))
 
     def Lt_mul(self, x):
         """``Lᵀ x``."""
-        return self._core(self.C.mT, self.a_half[..., None] * x)
+        return self._core(self.C.mT, self._ah_t_mul(x))
 
     def L_solve(self, x):
         """``L⁻¹ x``."""
-        return self._core(self.Ci, x / self.a_half[..., None])
+        return self._core(self.Ci, self._ah_solve(x))
 
     def Lt_solve(self, x):
         """``L⁻ᵀ x``."""
-        return self._core(self.Ci.mT, x) / self.a_half[..., None]
+        return self._ah_t_solve(self._core(self.Ci.mT, x))
 
     def mul(self, x):
         """``W x = L (Lᵀ x)``."""
@@ -92,20 +120,21 @@ def _apply_mask(B, D, col_mask):
     return B * cm[..., None, :], D * cm[..., :, None] * cm[..., None, :]
 
 
-def _check_diag_parts(A, B, D):
-    if B.ndim < 2 or D.shape[-2:] != (B.shape[-1],) * 2:
-        raise ValueError(
-            f"B must be (..., n, m) and D (..., m, m); got B {tuple(B.shape)}, "
-            f"D {tuple(D.shape)}"
-        )
-    if A.shape != B.shape[:-1]:
-        if A.shape == B.shape[:-2] + (B.shape[-2],) * 2:
-            raise NotImplementedError(
-                "dense A is not ported yet; pass diag(A) with shape (..., n)"
-            )
-        raise ValueError(
-            f"A must be (..., n) matching B {tuple(B.shape)}; got {tuple(A.shape)}"
-        )
+def _is_diag(A, B) -> bool:
+    """Whether ``A`` is a diagonal ``(..., n)`` beside ``B (..., n, m)``;
+    raises unless it is that or a dense ``(..., n, n)``."""
+    if A.shape == B.shape[:-1]:
+        return True
+    if A.shape == B.shape[:-2] + (B.shape[-2],) * 2:
+        return False
+    raise ValueError(
+        f"A must be (..., n) or (..., n, n) matching B {tuple(B.shape)}; "
+        f"got {tuple(A.shape)}"
+    )
+
+
+def _diag_of(M):
+    return torch.diagonal(M, dim1=-2, dim2=-1)
 
 
 def pdfactorize(
@@ -115,25 +144,42 @@ def pdfactorize(
     col_mask: Optional[torch.Tensor] = None,
     method: str = "chol",
 ) -> WoodburyFactor:
-    """Factorize ``W = diag(A) + B D Bᵀ`` by the ridge-regularized Cholesky
-    of the Gram matrix (the JAX package's ``method="chol"``).
+    """Factorize ``W = A + B D Bᵀ``; ``A`` is a diagonal ``(..., n)`` or a
+    dense PD ``(..., n, n)``.
 
     ``col_mask (..., m)`` marks active columns of ``B``; masked columns are
-    treated as absent. Rank-deficient directions (masked columns, m > n,
-    duplicated history) lie in the null space of ``X``, so the ridge's effect
-    on the represented ``W`` is O(δ).
+    treated as absent.
+
+    ``method``:
+
+    * ``"chol"`` (default): ridge-regularized Cholesky of the Gram matrix.
+      Rank-deficient directions (masked columns, m > n, duplicated history)
+      lie in the null space of ``X``, so the ridge's effect on the
+      represented ``W`` is O(δ).
+    * ``"eigh"``: rank-revealing symmetric eigendecomposition with exact
+      projection of null directions.
     """
-    if method != "chol":
-        raise NotImplementedError(f"method={method!r} is not ported yet")
-    _check_diag_parts(A, B, D)
+    if method not in ("chol", "eigh"):
+        raise ValueError(f"unknown factorization method {method!r}")
+    if B.ndim < 2 or D.shape[-2:] != (B.shape[-1],) * 2:
+        raise ValueError(
+            f"B must be (..., n, m) and D (..., m, m); got B {tuple(B.shape)}, "
+            f"D {tuple(D.shape)}"
+        )
+    diag = _is_diag(A, B)
     dtype = torch.promote_types(torch.promote_types(A.dtype, B.dtype), D.dtype)
     A, B, D = A.to(dtype), B.to(dtype), D.to(dtype)
     m = B.shape[-1]
     B, D = _apply_mask(B, D, col_mask)
 
-    a_half = torch.sqrt(A)
-    X = B / a_half[..., None]
-    log_det_A = torch.sum(torch.log(A), dim=-1)
+    if diag:
+        a_half = torch.sqrt(A)
+        X = B / a_half[..., None]
+        log_det_A = torch.sum(torch.log(A), dim=-1)
+    else:
+        a_half = cholesky_or_nan(A)  # lower, A = Kₐ Kₐᵀ
+        X = _solve_lower(a_half, B) if m else torch.zeros_like(B)
+        log_det_A = 2.0 * torch.sum(torch.log(_diag_of(a_half)), dim=-1)
     if m == 0:
         core0 = torch.zeros(B.shape[:-2] + (0, 0), dtype=dtype, device=B.device)
         return WoodburyFactor(a_half, X, core0, core0, log_det_A)
@@ -144,34 +190,68 @@ def pdfactorize(
     # the ridge scale comes from the DATA Gram, measured before the
     # masked-column identity is injected (see the JAX package's note: an
     # absolute floor drives I + KᵀDK indefinite near convergence)
-    scale = torch.diagonal(G, dim1=-2, dim2=-1).amax(dim=-1)
+    scale = _diag_of(G).amax(dim=-1)
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))[..., None, None]
     if col_mask is not None:
         G = G + eye * (1.0 - col_mask.to(dtype))[..., None, :] * scale
 
-    ridge = (32 * m * eps) * scale
-    K = cholesky_or_nan(G + ridge * eye)  # G̃ = K Kᵀ
-    M = eye + K.mT @ D @ K
-    V = cholesky_or_nan(M)  # M = V Vᵀ
-    V_inv = _solve_lower(V, eye.expand_as(V))
+    if method == "chol":
+        ridge = (32 * m * eps) * scale
+        K = cholesky_or_nan(G + ridge * eye)  # G̃ = K Kᵀ
+        M = eye + K.mT @ D @ K
+        V = cholesky_or_nan(M)  # M = V Vᵀ
+        V_inv = _solve_lower(V, eye.expand_as(V))
 
-    def core(T):  # K⁻ᵀ T K⁻¹
-        P = _solve_lower_t(K, T)
-        return _solve_lower_t(K, P.mT).mT.contiguous()
+        def core(T):  # K⁻ᵀ T K⁻¹
+            P = _solve_lower_t(K, T)
+            return _solve_lower_t(K, P.mT).mT.contiguous()
 
-    C = core(V - eye)
-    Ci = core(V_inv - eye)
-    log_det = log_det_A + 2.0 * torch.sum(
-        torch.log(torch.diagonal(V, dim1=-2, dim2=-1)), dim=-1
-    )
+        C = core(V - eye)
+        Ci = core(V_inv - eye)
+    else:
+        lam, E = torch.linalg.eigh(G)  # ascending eigenvalues
+        tol = scale[..., 0] * (32 * m * eps)
+        active = (lam > tol).to(dtype)
+        s = torch.sqrt(torch.where(active > 0, lam, torch.ones_like(lam)))  # Λ̃^{1/2}
+        outer = active[..., :, None] * active[..., None, :]
+        ss = s[..., :, None] * s[..., None, :]
+        M = eye + (E.mT @ D @ E) * outer * ss
+        V = cholesky_or_nan(M)
+        V_inv = _solve_lower(V, eye.expand_as(V))
+        C = (E @ ((V - eye) / ss) @ E.mT).contiguous()
+        Ci = (E @ ((V_inv - eye) / ss) @ E.mT).contiguous()
+    log_det = log_det_A + 2.0 * torch.sum(torch.log(_diag_of(V)), dim=-1)
     return WoodburyFactor(a_half, X, C, Ci, log_det)
+
+
+def pdunfactorize(F: WoodburyFactor):
+    """``(A, B, D)`` that give the same ``W`` as the factor."""
+    if F.diag_A:
+        A = F.a_half**2
+        B = F.a_half[..., None] * F.X
+    else:
+        A = F.a_half @ F.a_half.mT
+        B = F.a_half @ F.X
+    G = F.X.mT @ F.X
+    D = F.C + F.C.mT + F.C @ G @ F.C.mT
+    return A, B, D
+
+
+def _block_diag(D1, D2):
+    """``blockdiag(D1, D2)`` over shared leading dims."""
+    m1, m2 = D1.shape[-1], D2.shape[-1]
+    batch = torch.broadcast_shapes(D1.shape[:-2], D2.shape[:-2])
+    out = torch.zeros(batch + (m1 + m2, m1 + m2), dtype=D1.dtype, device=D1.device)
+    out[..., :m1, :m1] = D1
+    out[..., m1:, m1:] = D2
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
 class WoodburyPDMat:
-    """Lazy ``n×n`` PD matrix ``W = diag(A) + B D Bᵀ``, batched."""
+    """Lazy ``n×n`` PD matrix ``W = A + B D Bᵀ``, batched."""
 
-    A: torch.Tensor  # (..., n)
+    A: torch.Tensor  # (..., n) diagonal or (..., n, n) dense
     B: torch.Tensor  # (..., n, m)
     D: torch.Tensor  # (..., m, m)
     factor: WoodburyFactor
@@ -185,24 +265,128 @@ class WoodburyPDMat:
         return WoodburyPDMat(A, B, D, F)
 
     @property
+    def diag_A(self) -> bool:
+        return self.A.ndim == self.B.ndim - 1
+
+    @property
+    def dim(self) -> int:
+        return self.B.shape[-2]
+
+    @property
     def dtype(self):
         return self.B.dtype
 
+    def _dense_A(self):
+        return torch.diag_embed(self.A) if self.diag_A else self.A
+
+    def to_dense(self) -> torch.Tensor:
+        """``A + B D Bᵀ`` as ``(..., n, n)``."""
+        return self._dense_A() + self.B @ self.D @ self.B.mT
+
+    def diag(self) -> torch.Tensor:
+        """Diagonal of ``W``: ``(..., n)``."""
+        a = self.A if self.diag_A else _diag_of(self.A)
+        return a + torch.sum((self.B @ self.D) * self.B, dim=-1)
+
+    def entry(self, i, j) -> torch.Tensor:
+        """Element ``W[i, j]`` of every matrix of the batch, without
+        densifying."""
+        if self.diag_A:
+            a = self.A[..., i] if i == j else torch.zeros_like(self.A[..., i])
+        else:
+            a = self.A[..., i, j]
+        Bi, Bj = self.B[..., i, :], self.B[..., j, :]
+        return a + torch.sum(Bi * (self.D @ Bj[..., None])[..., 0], dim=-1)
+
+    # -- linear algebra -------------------------------------------------------
     def mul(self, x) -> torch.Tensor:
         """``W x`` for ``x (..., n, N)``."""
-        return x * self.A[..., None] + self.B @ (self.D @ (self.B.mT @ x))
+        Ax = x * self.A[..., None] if self.diag_A else self.A @ x
+        return Ax + self.B @ (self.D @ (self.B.mT @ x))
+
+    def solve(self, x) -> torch.Tensor:
+        """``W⁻¹ x``."""
+        return self.factor.solve(x)
 
     def logdet(self) -> torch.Tensor:
         return self.factor.log_det
+
+    def inv(self, method: str = "chol") -> "WoodburyPDMat":
+        """``W⁻¹``, still in Woodbury form:
+        ``A⁻¹ + (A⁻¹B) D' (A⁻¹B)ᵀ`` with ``D' = Ci + Ciᵀ + Ciᵀ G Ci``.
+        ``method`` is the factorization of the result."""
+        F = self.factor
+        G = F.X.mT @ F.X
+        D_inv = F.Ci + F.Ci.mT + F.Ci.mT @ G @ F.Ci
+        if F.diag_A:
+            A_inv = 1.0 / self.A
+            B_inv = F.X / F.a_half[..., None]
+        else:
+            eye = torch.eye(self.dim, dtype=self.dtype, device=self.B.device)
+            ah_inv = _solve_lower(F.a_half, eye.expand_as(F.a_half))
+            A_inv = ah_inv.mT @ ah_inv
+            B_inv = ah_inv.mT @ F.X
+        return WoodburyPDMat.from_parts(A_inv, B_inv, D_inv, method=method)
+
+    def quad(self, x) -> torch.Tensor:
+        """``xᵀ W x`` per column: ``(..., n, N) -> (..., N)``."""
+        Bx = self.B.mT @ x
+        Ax = x * self.A[..., None] if self.diag_A else self.A @ x
+        return torch.sum(x * Ax, dim=-2) + torch.sum(Bx * (self.D @ Bx), dim=-2)
 
     def invquad(self, x) -> torch.Tensor:
         """``xᵀ W⁻¹ x`` per column: ``(..., n, N) -> (..., N)``."""
         v = self.factor.L_solve(x)
         return torch.sum(v * v, dim=-2)
 
+    def whiten(self, x) -> torch.Tensor:
+        """``L⁻¹ x``."""
+        return self.factor.L_solve(x)
+
     def unwhiten(self, x) -> torch.Tensor:
         """``L x``."""
         return self.factor.L_mul(x)
+
+    def inv_unwhiten(self, x) -> torch.Tensor:
+        """``L⁻ᵀ x``."""
+        return self.factor.Lt_solve(x)
+
+    def add_scaled_identity(self, c, method: str = "chol") -> "WoodburyPDMat":
+        """``W + c·I`` in Woodbury form; ``c`` must keep ``A + c·I`` PD."""
+        if self.diag_A:
+            A = self.A + c
+        else:
+            A = self.A + c * torch.eye(self.dim, dtype=self.dtype, device=self.B.device)
+        return WoodburyPDMat.from_parts(A, self.B, self.D, method=method)
+
+    def add(self, other: "WoodburyPDMat", method: str = "chol") -> "WoodburyPDMat":
+        """``W₁ + W₂`` in lazy form: the ``A`` parts add (dense if either
+        is) and the low-rank parts concatenate."""
+        if not isinstance(other, WoodburyPDMat):
+            return NotImplemented
+        if self.diag_A == other.diag_A:
+            A = self.A + other.A
+        else:
+            A = self._dense_A() + other._dense_A()
+        dtype = torch.promote_types(self.dtype, other.dtype)
+        B = torch.cat([self.B.to(dtype), other.B.to(dtype)], dim=-1)
+        D = _block_diag(self.D.to(dtype), other.D.to(dtype))
+        return WoodburyPDMat.from_parts(A, B, D, method=method)
+
+    __add__ = add
+
+    def scale(self, c, method: str = "chol"):
+        """``c·W``: a positive scalar keeps the Woodbury form; a non-positive
+        one gives the dense ``c * to_dense()``, which is no longer PD."""
+        c = float(c)
+        if c <= 0:
+            return c * self.to_dense()
+        return WoodburyPDMat.from_parts(self.A * c, self.B, self.D * c, method=method)
+
+    def __mul__(self, c):
+        return self.scale(c)
+
+    __rmul__ = __mul__
 
     def is_finite_pd(self) -> torch.Tensor:
         """True where the factorization succeeded (W numerically PD)."""

@@ -1,7 +1,9 @@
 """Single-path Pathfinder core, batched over paths, and the single-path
 driver (counterpart of ``pathfinder_tpu/singlepath.py``).
 
-Pipeline per path: L-BFGS trajectory → inverse-Hessian fits at every point
+Pipeline per path: optimizer trajectory (L-BFGS by default; any optimizer
+with the trace contract of ``ops/optimizers.py``) → inverse-Hessian fits at
+every point
 → chunked ELBO with the NaN-skipping argmax → the winner's draws. The K
 paths of a batch run as one leading axis. Every random number comes from a
 stream keyed by ``(seed, path, round, purpose, candidate)``, so a path's
@@ -22,9 +24,9 @@ from pathfinder_tpu_torch.ops.lbfgs import (
     OptimizationTrace,
     lbfgs_fits_at,
     lbfgs_history_aux,
-    minimize_lbfgs_trace,
 )
 from pathfinder_tpu_torch.ops.mvnormal import MvNormal, fit_mvnormal
+from pathfinder_tpu_torch.ops.optimizers import resolve_optimizer
 from pathfinder_tpu_torch.utils import rng
 from pathfinder_tpu_torch.utils.misc import resolve_device, tree_map
 
@@ -54,16 +56,13 @@ class PathfinderConfig:
     c2: float = 0.9
     fail_on_nonfinite: bool = True
     elbo_chunk: int = 16  # candidates per ELBO chunk (a memory bound)
-    optimizer: str = "lbfgs"
-    line_search: str = "hager_zhang"
+    # trajectory optimizer: a name of ``ops.optimizers.OPTIMIZERS`` or any
+    # callable with the minimize_*_trace contract; the fit and ELBO stages
+    # read only the trace it returns
+    optimizer: Any = "lbfgs"
+    line_search: str = "hager_zhang"  # a name ``ops.linesearch.resolve_line_search`` knows
 
     def __post_init__(self):
-        if self.optimizer != "lbfgs":
-            raise NotImplementedError(f"optimizer={self.optimizer!r} is not ported yet")
-        if self.line_search != "hager_zhang":
-            raise NotImplementedError(
-                f"line_search={self.line_search!r} is not ported yet"
-            )
         if self.maxiters < 1:
             raise ValueError(f"maxiters must be >= 1, got {self.maxiters}")
         if self.elbo_chunk < 1:
@@ -124,7 +123,8 @@ def pathfinder_core(
     cfg = config
     K, d = x0s.shape
     dtype = x0s.dtype
-    trace = minimize_lbfgs_trace(
+    minimize = resolve_optimizer(cfg.optimizer, target, dim=d)
+    trace = minimize(
         target.value_and_grad,
         x0s,
         maxiters=cfg.maxiters,
@@ -136,6 +136,7 @@ def pathfinder_core(
         c1=cfg.c1,
         c2=cfg.c2,
         fail_on_nonfinite=cfg.fail_on_nonfinite,
+        line_search=cfg.line_search,
     )
     aux = lbfgs_history_aux(trace, cfg.epsilon_curvature)
     L = cfg.maxiters
@@ -240,6 +241,7 @@ def pathfinder(
     seed: int = 0,
     dim: Optional[int] = None,
     init=None,
+    hess: Optional[Callable] = None,
     ndraws_elbo: int = 5,
     ndraws: Optional[int] = None,
     history_length: int = 6,
@@ -257,9 +259,10 @@ def pathfinder(
     its noise from round ``t − 1`` of path 0's streams.
 
     ``device`` defaults to ``"cuda"`` and raises when CUDA is not available;
-    ``device="cpu"`` runs on the CPU."""
+    ``device="cpu"`` runs on the CPU. ``hess`` is the target's Hessian,
+    ``x (K, d) -> (K, d, d)``, for what consumes the order-2 capability."""
     dev = resolve_device(device)
-    target = as_log_density(fn, dim=dim)
+    target = as_log_density(fn, dim=dim, hess=hess)
     if ndraws is None:
         ndraws = ndraws_elbo
     if init is not None:

@@ -20,7 +20,10 @@ from typing import Union
 
 import torch
 
-__all__ = ["Stream", "INIT", "ELBO", "EXTRA", "RESAMPLE", "RESAMPLE_FRESH"]
+__all__ = [
+    "Stream", "INIT", "ELBO", "EXTRA", "RESAMPLE", "RESAMPLE_FRESH",
+    "LAPLACE_DRAWS", "LAPLACE_RESAMPLE",
+]
 
 # purposes: the fourth element of the stream tuple
 INIT = 1  # initial points
@@ -28,6 +31,8 @@ ELBO = 2  # per-candidate ELBO draws (replayed for the winner)
 EXTRA = 3  # a path's draws beyond the ELBO ones, and a failed path's draws
 RESAMPLE = 4  # importance resampling of the pooled draws
 RESAMPLE_FRESH = 5  # fresh per-component draws in resample()
+LAPLACE_DRAWS = 6  # per-component draws from the Laplace-corrected components
+LAPLACE_RESAMPLE = 7  # importance resampling in laplace_resample()
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85

@@ -4,8 +4,10 @@ The kernels run only on the card, but how a launch is cut into clusters,
 threads and row tiles is decided in Python (``_launch_plan``) and checked
 by the kernel against its own shared-memory layout, so it is held here: on
 a grid of shapes every plan covers each row once, keeps to Hopper's limits
-and tiles the rows exactly where a CTA's rows do not fit. The Python
-mirror of the layout is held against the CUDA source itself.
+and tiles the rows exactly where a CTA's rows do not fit; the plan over
+(factor, column tile) of B2 with a shared x covers each column once as
+well. The Python mirror of the layout is held against the CUDA source
+itself.
 """
 
 import math
@@ -61,6 +63,50 @@ def test_plan_fills_the_card_at_the_main_path_shapes():
         assert tile == -(-1000 // cluster)  # one resident tile: each byte read once
 
 
+@pytest.mark.parametrize("B", [1, 3, 100])
+@pytest.mark.parametrize("m", [0, 7, 12, 32])
+def test_shared_x_plan_covers_rows_and_columns_once(B, m):
+    for d in DS + (20000, 30000):
+        for P in (1, 3, 50, 77, 1000):
+            cluster, threads, smem, tile, width = wk._launch_plan_shared(B, d, m, P)
+            assert cluster in (1, 2, 4, 8) and threads == wk._threads(m)
+            assert smem <= wk.SMEM_LIMIT
+            assert smem == wk._smem_bytes(tile, m, width, threads, True)
+            # column tiles [c·width, min(P, (c+1)·width)) cover 0..P once
+            assert 1 <= width <= P
+            ntiles = -(-P // width)
+            assert (ntiles - 1) * width < P <= ntiles * width <= 65535 * width
+            # a tile is a multiple of the kernel's 5-column step, or all of x
+            assert width % 5 == 0 or width == P
+            rows = _covered_once(d, cluster)
+            fits = wk._smem_bytes(rows, m, min(5, P), threads, True) <= wk.SMEM_LIMIT
+            assert (tile == rows) == fits
+            if not fits:
+                assert cluster == wk.MAX_CLUSTER and 1 <= tile < rows
+                assert width == min(5, P)
+                # row tiles [t·tile, ...) cover a CTA's rows
+                assert -(-rows // tile) * tile >= rows
+
+
+def test_shared_x_plan_at_the_mixture_shape():
+    """The headline mixture grid: a factor's 1000 rows and a 10-column tile
+    of x take less than half an SM's shared memory, so two CTAs share an SM
+    and one loads while the other computes (a 40-column tile would fit, but
+    alone); no row is staged twice. A wide factor splits over the cluster
+    before its tile narrows."""
+    assert wk._launch_plan_shared(100, 1000, 12, 1000) == (1, 192, 99696, 1000, 10)
+    assert 2 * (99696 + 1024) <= 233472 < 2 * (wk._smem_bytes(1000, 12, 20, 192, True) + 1024)
+    assert wk._launch_plan_shared(100, 1000, 0, 1000) == (1, 256, 92704, 1000, 20)
+    assert wk._launch_plan_shared(100, 1000, 32, 1000)[3:] == (1000, 20)  # fits only alone
+    cluster, _, _, tile, width = wk._launch_plan_shared(4, 20000, 12, 64)
+    assert (cluster, tile, width) == (8, 2500, 5)
+    # few factors and few columns: the cluster grows to fill the card
+    assert wk._launch_plan_shared(3, 999, 7, 77)[0] == 8
+    for args in ((0, 10, 4, 5), (1, 0, 4, 5), (1, 10, 33, 5), (1, 10, 4, 0)):
+        with pytest.raises(ValueError):
+            wk._launch_plan_shared(*args)
+
+
 def test_plan_rejects_what_the_kernel_cannot_take():
     for args in ((0, 10, 4, 5), (1, 0, 4, 5), (1, 10, 33, 5), (1, 10, 4, 0)):
         with pytest.raises(ValueError):
@@ -69,7 +115,7 @@ def test_plan_rejects_what_the_kernel_cannot_take():
         wk._launch_plan(1, 10, 4, 100_000)
 
 
-def _source_layout_bytes(tile, m, N, threads):
+def _source_layout_bytes(tile, m, N, threads, shared=False):
     """Evaluate the ``Layout`` of the CUDA source for one plan."""
     src = wk._SOURCE.read_text()
     body = re.search(r"struct Layout \{(.*?)\n\};", src, re.S).group(1)
@@ -77,8 +123,8 @@ def _source_layout_bytes(tile, m, N, threads):
     terms = re.findall(r"o \+= round4\((.*?)\);", body)
     assert len(terms) == 11
     mr = wk._rank_tile(m)
-    env = dict(tile=tile, m=m, N=N, mr=mr, warps=threads // 32,
-               parts=threads // 32 // (mr // 4), nc=min(N, wk._CHUNK))
+    env = dict(tile=tile, m=m, N=N, mr=mr, warps=threads // 32, cm=int(shared),
+               parts=threads // 32 // (mr // 4), nc=min(N, wk._CHUNK), round4=wk._round4)
     return 4 * (start + sum(wk._round4(eval(t, {}, env)) for t in terms))
 
 
@@ -88,6 +134,8 @@ def test_python_layout_mirrors_the_cuda_source(m):
     for tile in (1, 42, 500, 1250):
         for N in NS:
             assert wk._smem_bytes(tile, m, N, threads) == _source_layout_bytes(tile, m, N, threads)
+            assert wk._smem_bytes(tile, m, N, threads, True) == _source_layout_bytes(
+                tile, m, N, threads, shared=True)
 
 
 def test_source_constants_agree_with_the_wrapper():

@@ -154,12 +154,36 @@ def test_targets_equal_jax_targets():
     for jt, tt in (
         (jzoo.HierarchicalGaussian(16, seed=2), tzoo.HierarchicalGaussian(16, seed=2)),
         (jzoo.StandardNormal(16), tzoo.StandardNormal(16)),
+        (jzoo.CorrelatedGaussian(16, seed=4), tzoo.CorrelatedGaussian(16, seed=4)),
     ):
         want = np.asarray(jax.vmap(jt.logp)(jnp.asarray(x)))
         np.testing.assert_allclose(tt.logp(torch.tensor(x)).numpy(), want, rtol=1e-12)
         _, g = tt.value_and_grad(torch.tensor(x))
         jg = np.asarray(jax.vmap(jax.grad(jt.logp))(jnp.asarray(x)))
         np.testing.assert_allclose(g.numpy(), jg, rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(tt.mean, jt.mean)  # the correlated Gaussian's moments
+    np.testing.assert_array_equal(tt.cov, jt.cov)
+
+
+def test_target_hessians_equal_jax_and_survive_repeated_tracing():
+    """``batched_hessian`` of a zoo target equals ``jax.hessian`` per row,
+    whether the target is first called under ``torch.func`` (its cached
+    data must then not be a tensor of that trace) or outside it."""
+    from pathfinder_tpu_torch.models.protocol import batched_hessian
+
+    x = np.random.default_rng(1).standard_normal((3, 8))
+    for jt, tt in (
+        (jzoo.HierarchicalGaussian(8, seed=2), tzoo.HierarchicalGaussian(8, seed=2)),
+        (jzoo.CorrelatedGaussian(8, seed=4), tzoo.CorrelatedGaussian(8, seed=4)),
+    ):
+        want = np.asarray(jax.vmap(jax.hessian(jt.logp))(jnp.asarray(x)))
+        hess = batched_hessian(tt.logp)
+        assert batched_hessian(tt.logp) is hess  # derived once per target
+        for _ in range(2):  # the second trace finds whatever the first left
+            np.testing.assert_allclose(hess(torch.tensor(x)).numpy(), want, rtol=1e-10, atol=1e-12)
+        lp = tt.logp(torch.tensor(x))  # now cached outside a trace
+        np.testing.assert_allclose(hess(torch.tensor(x)).numpy(), want, rtol=1e-10, atol=1e-12)
+        np.testing.assert_allclose(lp.numpy(), np.asarray(jax.vmap(jt.logp)(jnp.asarray(x))), rtol=1e-12)
 
 
 def test_importing_the_port_loads_no_jax():
@@ -175,11 +199,53 @@ def test_importing_the_port_loads_no_jax():
 
 def test_unported_options_raise():
     t = tzoo.StandardNormal(4)
-    for kw in ({"mesh": None}, {"optimizer": "cg"}, {"importance_denominator": "mixture"}):
-        with pytest.raises(NotImplementedError):
-            multipathfinder(t, 10, nruns=2, maxiters=3, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        PathfinderConfig(line_search="wolfe")
+    for name in ("mesh", "max_paths_per_launch", "keep_traces", "offload_launches",
+                 "transform", "grad", "progress"):
+        with pytest.raises(NotImplementedError, match=name):
+            multipathfinder(t, 10, nruns=2, maxiters=3, device="cpu", **{name: None})
+
+
+@pytest.mark.parametrize("options", [
+    {"optimizer": "cg"},
+    {"optimizer": "auto"},
+    {"optimizer": "auto", "auto_laplace": True},
+    {"optimizer": "auto", "auto_laplace": "full", "auto_optimizers": ("cg",),
+     "auto_khat_early_exit": None},
+    {"importance_denominator": "mixture"},
+    {"line_search": "backtracking"},
+    {"line_search": "wolfe"},
+    {"line_search": "more_thuente", "optimizer": "bfgs"},
+])
+def test_ported_options_run(options):
+    """The options of the k̂-remedy path run through the entry point on the
+    CPU, and without ``device=`` they ask for the card like any call."""
+    import warnings
+
+    t = tzoo.HierarchicalGaussian(8, seed=0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the bad-k̂ hint, not under test here
+        r = multipathfinder(t, 40, nruns=4, maxiters=30, seed=1, device="cpu", **options)
+    assert r.draws.shape == (8, 40) and torch.isfinite(r.draws).all()
+    assert bool(r.states.success.all())
+    assert r.config.line_search == options.get("line_search", "hager_zhang")
+    assert r.importance_denominator == options.get("importance_denominator", "component")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            multipathfinder(t, 40, nruns=4, maxiters=30, seed=1, **options)
+
+
+def test_config_carried_over_from_jax():
+    from pathfinder_tpu.singlepath import PathfinderConfig as JConfig
+    from pathfinder_tpu_torch.interop import config_from_fields
+
+    jc = JConfig(maxiters=7, optimizer="cg", line_search="wolfe", c1=0.2, elbo_chunk=4)
+    tc = config_from_fields(jc)
+    assert isinstance(tc, PathfinderConfig)
+    for name in PathfinderConfig.__dataclass_fields__:
+        assert getattr(tc, name) == getattr(jc, name), name
+    assert config_from_fields(dict(maxiters=3)) == PathfinderConfig(maxiters=3)
+    with pytest.raises(NotImplementedError, match="progress_every"):
+        config_from_fields(JConfig(progress_every=5))
 
 
 def test_cuda_request_without_cuda_raises():

@@ -100,6 +100,93 @@ def test_uniform_mixture_logpdf_matches_jax():
     )
 
 
+def _stacked(K, d, m, seed):
+    parts = [_dist_parts(d, m, seed=seed + k) for k in range(K)]
+    mean, A, B, D = (np.stack(p) for p in zip(*parts))
+    jcomp = JMvNormal(
+        jnp.asarray(mean),
+        jax.vmap(JWoodbury.from_parts)(jnp.asarray(A), jnp.asarray(B), jnp.asarray(D)),
+    )
+    return jcomp, mvnormal_from_numpy(mean, A, B, D)
+
+
+@pytest.mark.parametrize("K,d,m,P", [(4, 16, 6, 7), (3, 9, 0, 5), (5, 32, 12, 40)])
+def test_shared_x_and_rank_0_plain_versions_match_jax(K, d, m, P):
+    """``x (d, P)`` shared by K components (the mixture grid), and components
+    with no low-rank part (the Laplace ones): the plain versions of B2 and B1
+    equal JAX's ``logpdf`` and ``rand_and_logpdf`` per component."""
+    jcomp, tcomp = _stacked(K, d, m, seed=40 + m)
+    assert tcomp.cov.factor.X.shape == (K, d, m)
+    x = np.random.default_rng(6).standard_normal((d, P))
+    want = np.asarray(jax.vmap(lambda c: c.logpdf(jnp.asarray(x)))(jcomp))  # (K, P)
+    got = tcomp.logpdf(torch.tensor(x))
+    assert got.shape == (K, P)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL)
+    # the same from the transpose of a (P, d) block, as the pooled draws are
+    flat = torch.tensor(np.ascontiguousarray(x.T))
+    np.testing.assert_allclose(tcomp.logpdf(flat.mT).numpy(), want, rtol=RTOL)
+    F = tcomp.cov.factor
+    maha = wk.whiten_sumsq_torch(torch.tensor(x), F.a_half, F.X, F.Ci, tcomp.mean)
+    per_factor = wk.whiten_sumsq_torch(
+        torch.tensor(x).expand(K, d, P), F.a_half, F.X, F.Ci, tcomp.mean)
+    np.testing.assert_allclose(maha.numpy(), per_factor.numpy(), rtol=1e-12)
+    # draws and their log density from injected noise
+    key = jax.random.key(3)
+    keys = jax.random.split(key, K)
+    xj, logqj = jax.vmap(lambda c, k: c.rand_and_logpdf(k, 4))(jcomp, keys)
+    u = np.stack([np.asarray(jax.random.normal(k, (d, 4), dtype=jnp.float64)) for k in keys])
+    xt, logqt = tcomp.rand_and_logpdf(u=torch.tensor(u))
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=RTOL, atol=RTOL)
+    np.testing.assert_allclose(logqt.numpy(), np.asarray(logqj), rtol=RTOL)
+
+
+def test_dense_A_normal_takes_the_plain_route_and_matches_jax():
+    d, N = 9, 4
+    rng = np.random.default_rng(8)
+    Q = rng.standard_normal((d, d))
+    A = Q @ Q.T / d + 0.5 * np.eye(d)
+    mean, _, B, D = _dist_parts(d, 3, seed=2)
+    jd = _jax_dist(mean, A, B, D)
+    td = mvnormal_from_numpy(mean, A, B, D)
+    assert not td.cov.factor.diag_A
+    key = jax.random.key(1)
+    xj, logqj = jd.rand_and_logpdf(key, N)
+    u = np.asarray(jax.random.normal(key, (d, N), dtype=jnp.float64))
+    xt, logqt = td.rand_and_logpdf(u=torch.tensor(u))
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=RTOL, atol=RTOL)
+    np.testing.assert_allclose(logqt.numpy(), np.asarray(logqj), rtol=RTOL)
+    np.testing.assert_allclose(td.logpdf(xt).numpy(), np.asarray(jd.logpdf(xj)), rtol=1e-9)
+    # a rank-0 dense normal too (the full Laplace covariance)
+    td0 = mvnormal_from_numpy(mean, A, np.zeros((d, 0)), np.zeros((0, 0)))
+    jd0 = _jax_dist(mean, A, np.zeros((d, 0)), np.zeros((0, 0)))
+    np.testing.assert_allclose(td0.logpdf(xt).numpy(), np.asarray(jd0.logpdf(xj)), rtol=1e-9)
+
+
+def test_uniform_mixture_sample():
+    """Each draw comes from the component its id names, ids are uniform over
+    the components, and a stream gives the same draws again."""
+    from pathfinder_tpu_torch.utils.rng import Stream
+
+    K, d = 4, 6
+    _, tcomp = _stacked(K, d, 3, seed=60)
+    mix = UniformMixture(tcomp)
+    stream = Stream(7, 0, 0, 9)
+    draws, ks = mix.sample(stream, 4000)
+    assert draws.shape == (d, 4000) and ks.shape == (4000,)
+    assert ks.min() == 0 and ks.max() == K - 1
+    counts = torch.bincount(ks, minlength=K).double() / 4000
+    assert (counts - 0.25).abs().max() < 0.03  # 4 sd of a binomial share
+    again, ks2 = mix.sample(stream, 4000)
+    assert torch.equal(again, draws) and torch.equal(ks2, ks)
+    for k in range(K):
+        own = draws[:, ks == k]
+        err = (own.mean(dim=1) - tcomp.mean[k]).abs() / tcomp.cov.diag()[k].sqrt()
+        assert err.max() < 0.2  # ~1000 draws each: 6 standard errors
+    # the first draws do not depend on how many are asked for
+    few, kf = mix.sample(stream, 10)
+    assert torch.equal(kf, ks[:10])
+
+
 def test_wrapper_on_cpu_uses_the_plain_version_and_counts_nothing():
     wk.reset_launch_counts()
     td = mvnormal_from_numpy(*_dist_parts(16, 4, seed=1), dtype=torch.float32)
@@ -139,6 +226,7 @@ def test_wrapper_rejects_other_devices():
         (100, 10000, 12, 10),  # large d: a cluster of 8
         (8, 30000, 32, 10),  # rows that do not fit: the row-tiled path
         (1, 1000, 12, 1000),  # more columns than one round of the kernel
+        (100, 1000, 0, 10),  # rank 0: the Laplace-corrected components
     ],
 )
 def test_kernels_match_plain_versions_on_the_card(Bn, d, m, N):
@@ -165,3 +253,38 @@ def test_kernels_match_plain_versions_on_the_card(Bn, d, m, N):
     torch.testing.assert_close(maha, wk.whiten_sumsq_torch(x, a_half, X, C, mu), rtol=1e-4, atol=1e-4)
     assert torch.equal(wk.sample_and_logq(u, a_half, X, C, mu, logdet)[0], x)
     assert torch.equal(wk.whiten_sumsq(x, a_half, X, C, mu), maha)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "Bn,d,m,P",
+    [
+        (100, 1000, 12, 1000),  # the mixture grid of the headline configuration
+        (100, 1000, 0, 1000),  # the same under rank-0 (Laplace) components
+        (3, 999, 7, 77),  # odd sizes: every column of x differently aligned
+        (4, 20000, 12, 64),  # a factor's rows split over a cluster
+        (8, 30000, 32, 50),  # rows that are tiled as well
+    ],
+)
+def test_shared_x_kernel_matches_plain_version_on_the_card(Bn, d, m, P):
+    """B2 over an ``x`` shared by the factors against its plain version
+    (f32, rtol/atol 1e-4 on the sums), from both layouts of ``x``, and the
+    same bits from a repeated launch. ``chip_smoke.py`` makes the same check
+    on a machine with the card alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")
+    xt = t(rng.standard_normal((P, d)))
+    a_half = t(rng.uniform(0.5, 1.5, (Bn, d)))
+    X = t(rng.standard_normal((Bn, d, m)) / np.sqrt(d))
+    Ci = t(0.1 * rng.standard_normal((Bn, m, m)))
+    mu = t(rng.standard_normal((Bn, d)))
+    wk.reset_launch_counts()
+    maha = wk.whiten_sumsq(xt.mT, a_half, X, Ci, mu)
+    assert maha.shape == (Bn, P)
+    assert wk.launch_counts_by_shape()["whiten_sumsq"] == {(Bn, m, P, True): 1}
+    torch.testing.assert_close(
+        maha, wk.whiten_sumsq_torch(xt.mT, a_half, X, Ci, mu), rtol=1e-4, atol=1e-4)
+    assert torch.equal(wk.whiten_sumsq(xt.mT, a_half, X, Ci, mu), maha)
+    assert torch.equal(wk.whiten_sumsq(xt.mT.contiguous(), a_half, X, Ci, mu), maha)

@@ -41,6 +41,7 @@ SHAPES = (  # (kernel, B, N) at d = 1000, m = 12
     ("sample_and_logq", 100, 5),
     ("sample_and_logq", 100, 10),
     ("whiten_sumsq", 100, 10),
+    ("whiten_sumsq_shared", 100, 1000),  # the mixture grid: N columns shared by the B factors
 )
 
 
@@ -48,12 +49,13 @@ def instrumented_source() -> str:
     src = wk._SOURCE.read_text()
 
     def stamp(k):
-        return (f"  if (blockIdx.x == 0 && threadIdx.x == 0) pf_stamps[{k}] = clock64();\n")
+        return ("  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) "
+                f"pf_stamps[{k}] = clock64();\n")
 
     after = [
         "  extern __shared__ float4 smem4[];\n",
         "  if (resident) stage_tile(0);\n",
-        "        pass1_flush<MR, NT>(acc, tp, NC, cc, nt);\n      }\n    }\n    __syncthreads();\n",
+        "          pass1_flush<MR, NT>(acc, tp, NC, cc, nt);\n        }\n      }\n      __syncthreads();\n",
         "      s[e] = acc;\n    }\n    __syncthreads();\n",
         "      store_run(x_out + (b * d + r0) * N, su, pad[0], n * N);\n",
         "            SAMPLE ? -0.5f * (static_cast<float>(d) * kLog2Pi + ldb + q) : q;\n      }\n",
@@ -88,6 +90,7 @@ def build() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pf_sample_logq.argtypes = [p] * 8 + [i] * 8 + [p]
     lib.pf_whiten_sumsq.argtypes = [p] * 6 + [i] * 8 + [p]
+    lib.pf_whiten_sumsq_shared.argtypes = [p] * 6 + [i] * 9 + [p]
     lib.pf_read_stamps.argtypes = [p]
     return lib
 
@@ -107,14 +110,18 @@ def main():
         def rand(*shape):
             return torch.randn(*shape, device="cuda", generator=gen)
 
-        u, X, C, mu = rand(B, d, N), rand(B, d, m) / d**0.5, 0.1 * rand(B, m, m), rand(B, d)
+        shared = name == "whiten_sumsq_shared"
+        u = rand(N, d) if shared else rand(B, d, N)  # a shared x goes in as (P, d)
+        X, C, mu = rand(B, d, m) / d**0.5, 0.1 * rand(B, m, m), rand(B, d)
         a_half, logdet = rand(B, d).abs() + 0.5, rand(B)
         out = torch.empty_like(u), torch.empty(B, N, device="cuda")
         if name == "sample_and_logq":
             entry, tensors = lib.pf_sample_logq, (u, a_half, X, C, mu, logdet) + out
+        elif shared:
+            entry, tensors = lib.pf_whiten_sumsq_shared, (u, a_half, X, C, mu, out[1])
         else:
             entry, tensors = lib.pf_whiten_sumsq, (u, a_half, X, C, mu, out[1])
-        plan = wk._launch_plan(B, d, m, N)
+        plan = wk._launch_plan_shared(B, d, m, N) if shared else wk._launch_plan(B, d, m, N)
         stream = torch.cuda.current_stream().cuda_stream
         times = []
         for _ in range(15):
