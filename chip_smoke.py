@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path and its k̂-remedy path on one CUDA
+"""Drive the PyTorch port's main path, its k̂-remedy path and its warm-start
+path (constrained models, NUTS and HMC from a Pathfinder result) on one CUDA
 card, and check them.
 
     python3 chip_smoke.py
@@ -24,13 +25,30 @@ Phases, each of which fails the run (exit code 1) on any error:
    error inside the band of the JAX package, and bitwise-identical draws
    when a seed is repeated.
 4. The remedy path on the same target: ``optimizer="auto",
-   auto_laplace=True`` for 5 seeds and ``importance_denominator="mixture"``
+   auto_laplace=True`` for 3 seeds and ``importance_denominator="mixture"``
    for 2, with every path succeeding, finite draws and k̂, both kernels
    launched at rank 0 in each auto run that tried the Laplace correction,
    B2 launched over a shared x in each mixture run, the auto run's k̂ not
    above the main path's on any seed, its median k̂ and moment error inside
    the band of the JAX package, and bitwise-identical draws when a seed is
    repeated. Then the stages of one auto call, timed one by one.
+5. The warm start at full width: the headline result of seed 0 →
+   ``warm_start_chains(result, 4)`` → ``nuts_chains`` (100 warm-up + 200
+   sampling transitions, ``max_depth=10``, the fixed Pathfinder metric), with
+   finite samples, no divergence after warm-up, max R̂, min bulk ESS and the
+   moment error against the exact posterior inside the band of the JAX
+   package; its times per call, per transition and per leaf iteration. Then
+   NUTS from random starts with windowed mass-matrix adaptation (300
+   warm-up), for the leapfrogs the warm start saves.
+6. Constrained models, each through ``multipathfinder(model, 1000, nruns=8)``
+   and then ``nuts_chains`` on 4 warm-started chains: logistic regression
+   (d = 25), ordered logistic regression (d = 7, ``Ordered`` + ``Identity``)
+   and a ``BayesModel`` with Normal, HalfNormal, Beta and Dirichlet(3) priors;
+   8/8 paths, finite k̂, constrained draws inside their support, both kernels
+   launched at (B, N) = (8, 125), R̂ < 1.05 on every coordinate, and on the
+   logistic regression the Pathfinder mean within 0.5 posterior sd of the
+   NUTS mean. Then ``hmc_warm_start`` on the logistic regression, mean
+   acceptance in [0.6, 0.95].
 
 The second-to-last lines are a JSON summary of the kernels and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -64,6 +82,19 @@ AUTO_KHAT_BAND = (0.50, 1.28)
 AUTO_MOMENT_ERR_BAND = (0.25, 2.44)
 MIXTURE_SEEDS = (0, 1)
 
+# The warm-start phase (phase 5) with the JAX package on the CPU (x64 off) for
+# keys 0..9 at the same sizes (``tests/reference_bands_warm_start.py``):
+# max R̂ 1.0342..1.0512, min bulk ESS (of 800 draws) 217.1..538.3, moment
+# error 0.0846..0.1045, 15 leapfrogs in every sampling transition (depth 4),
+# step sizes 0.22..0.26, no divergence after warm-up on any key. Bands again
+# [min − r/2, max + r/2], with the lower ends of R̂ and of the error at their
+# ideals: a chain that mixes better than the reference's is no fault.
+NUTS_RHAT_BAND = (1.0, 1.0598)
+NUTS_ESS_BAND = (56.49, 698.87)
+NUTS_MOMENT_ERR_BAND = (0.0, 0.1144)
+NUTS_CHAINS, NUTS_WARMUP, NUTS_SAMPLES = 4, 100, 200
+HMC_ACCEPT_BAND = (0.6, 0.95)
+
 # Kernel vs plain version, f32 with a different summation order: x to
 # rtol=atol=1e-5; the column sums (logq, Mahalanobis term, magnitude ~1e3)
 # to rtol=1e-4.
@@ -72,6 +103,9 @@ SUM_TOL = (1e-4, 1e-4)
 
 D, K, M = 1000, 100, 12
 SEEDS = (0, 1, 2, 3, 4)
+# the auto runs of the remedy phase: the first three seeds, since the
+# warm-start and constrained-model phases share the run's time
+REMEDY_SEEDS = SEEDS[:3]
 
 
 def fail(msg):
@@ -136,6 +170,17 @@ def bound_us(name, B, d, m, N, shared=False):
 # (label, B, d, m, N): the main path's shapes first, then the remedy path's
 # (m = 0: the Laplace-corrected components), then odd and large ones. Labels
 # that start with "odd" put every tensor one float off 16-byte alignment.
+# the constrained-model path: d below the rank m, below a warp's lanes and
+# below the row split's floor, and N = 125 = ndraws / nruns, which the kernel
+# walks in rounds of 40, 40, 40 and 5 columns
+SMALL_SHAPES = (
+    ("glm25", 8, 25, M, 125),  # logistic regression at German-credit scale, 8 paths
+    ("glm7", 8, 7, M, 125),  # ordered logistic, negative binomial
+    ("glm2", 8, 2, M, 125),  # the banana
+    ("glm25-K100", K, 25, M, 10),
+    ("glm25-extra", 8, 25, M, 120),  # a path's draws beyond the 5 ELBO ones: rounds of 40
+    ("glm25-elbo", 8 * 16, 25, M, 5),  # an ELBO chunk: 8 paths × 16 candidates
+)
 B1_SHAPES = (
     ("elbo", K * 8, D, M, 5),  # an ELBO chunk: K paths × elbo_chunk 8 candidates
     ("winner", K, D, M, 5),  # the winner's replayed draws; the extra draws alike
@@ -147,7 +192,7 @@ B1_SHAPES = (
     ("wide-m0", 4, 1000, 0, 90),  # rank 0 over a cluster, three rounds of columns
     ("large", K, 10000, M, 10),
     ("tiled", 8, 30000, 32, 10),
-)
+) + SMALL_SHAPES
 B2_SHAPES = (
     ("psis", K, D, M, 10),  # own-component log densities of the K × 10 pooled draws
     ("laplace", K, D, 0, 10),  # the same under the Laplace components
@@ -157,7 +202,7 @@ B2_SHAPES = (
     ("wide-m0", 4, 1000, 0, 90),
     ("large", K, 10000, M, 10),
     ("tiled", 8, 30000, 32, 10),
-)
+) + SMALL_SHAPES
 # B2 over an x of N columns shared by the B factors (the mixture denominator)
 B2_SHARED_SHAPES = (
     ("mixture", K, D, M, 1000),  # every component at every one of the K × 10 pooled draws
@@ -165,6 +210,8 @@ B2_SHARED_SHAPES = (
     ("odd-shared", 3, 999, 7, 77),
     ("wide-shared", 4, 20000, 12, 64),  # a factor's rows fit only split over a cluster
     ("tiled-shared", 8, 30000, 32, 50),  # nor then: the rows are tiled as well
+    ("glm25-mixture", 8, 25, M, 1000),  # the constrained models under the mixture denominator
+    ("glm7-mixture", 8, 7, M, 1000),
 )
 MAIN_PATH = {"sample_and_logq": ("elbo", "winner", "fresh"), "whiten_sumsq": ("psis",)}
 
@@ -319,7 +366,7 @@ def main_path_phase(pt, wk, zoo):
         fail(f"median k-hat {med_k} outside the JAX band {KHAT_BAND}")
     if not MOMENT_ERR_BAND[0] <= med_m <= MOMENT_ERR_BAND[1]:
         fail(f"median moment error {med_m} outside the JAX band {MOMENT_ERR_BAND}")
-    return totals, dict(zip(SEEDS, khats))
+    return totals, dict(zip(SEEDS, khats)), runs[SEEDS[0]]
 
 
 def remedy_phase(pt, wk, zoo, main_khats):
@@ -352,7 +399,7 @@ def remedy_phase(pt, wk, zoo, main_khats):
 
     auto = dict(optimizer="auto", auto_laplace=True)
     khats, merrs, times, first = [], [], [], None
-    for seed in SEEDS:
+    for seed in REMEDY_SEEDS:
         res, secs, by_shape = run(seed, **auto)
         khat, merr = _check_result(f"auto seed {seed}", res, mean_t, sd_t)
         kept = res.fit_distribution.components.cov.B.shape[-1] == 0
@@ -379,7 +426,7 @@ def remedy_phase(pt, wk, zoo, main_khats):
     if not torch.equal(repeat.draws, first.draws):
         fail("auto: a repeated seed gave different draws")
     med_k, med_m = statistics.median(khats), statistics.median(merrs)
-    med_main = statistics.median(main_khats.values())
+    med_main = statistics.median(main_khats[seed] for seed in REMEDY_SEEDS)
     print(f"remedy auto: median khat={med_k:.4f} band={AUTO_KHAT_BAND} (main path "
           f"{med_main:.4f}); median moment error={med_m:.4f} band={AUTO_MOMENT_ERR_BAND}; "
           f"wall first={times[0]:.3f}s steady median={statistics.median(times[1:]):.3f}s; "
@@ -459,6 +506,208 @@ def remedy_stage_times(pt, zoo):
           f"while the Hessians were formed {peak / 2**20:.0f} MiB", flush=True)
 
 
+class CountedTarget:
+    """``value_and_grad`` with its batched calls counted: inside a sampler
+    each call is one leapfrog of every chain, a leaf iteration."""
+
+    def __init__(self, value_and_grad):
+        self.value_and_grad, self.calls = value_and_grad, 0
+
+    def __call__(self, x):
+        self.calls += 1
+        return self.value_and_grad(x)
+
+
+def _run_nuts(nuts_mod, seed, vg, metric, x0s, **options):
+    """``nuts_chains`` timed with a synchronize: ``(out, summary, seconds,
+    leaf iterations)``."""
+    import torch
+
+    counted = CountedTarget(vg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, summary = nuts_mod.nuts_chains(seed, counted, metric, x0s, **options)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, summary, secs, counted.calls - 2  # the two evaluations of the start points
+
+
+def _nuts_line(label, out, summary, secs, leaf_iters):
+    import torch
+
+    n_trans = out.warmup_n_leapfrogs.shape[1] + out.n_leapfrogs.shape[1]
+    lf = out.n_leapfrogs
+    total = int(lf.sum() + out.warmup_n_leapfrogs.sum())
+    ess_min = float(summary["ess_bulk"].min())
+    print(f"{label}: chains={lf.shape[0]} transitions={n_trans} wall_s={secs:.3f} "
+          f"ms_per_transition={1e3 * secs / n_trans:.3f} leaf_iterations={leaf_iters} "
+          f"ms_per_leaf_iteration={1e3 * secs / max(leaf_iters, 1):.3f} "
+          f"leapfrogs_per_transition_median={float(lf.double().median()):.0f} "
+          f"max={int(lf.max())} leapfrogs_total={total} "
+          f"tree_depths={torch.bincount(out.tree_depths.flatten()).tolist()} "
+          f"step_size={[round(float(e), 4) for e in out.step_size]} "
+          f"divergent_after_warmup={int(out.diverging.sum())} "
+          f"rhat_max={float(summary['rhat'].max()):.4f} ess_bulk_min={ess_min:.1f} "
+          f"ess_per_s={ess_min / secs:.2f}", flush=True)
+    return total
+
+
+def warm_start_phase(pt, zoo, result):
+    """NUTS warm-started from the headline Pathfinder result of seed 0, then
+    NUTS from random starts with its own mass-matrix adaptation."""
+    import numpy as np
+    import torch
+
+    from pathfinder_tpu_torch.integrations import nuts
+    from pathfinder_tpu_torch.utils import rng
+
+    target = zoo.HierarchicalGaussian(D, seed=0)
+    mean_t, sd_t = zoo.hierarchical_gaussian_truth(D, seed=0)
+    vg, metric, x0s = nuts.warm_start_chains(result, NUTS_CHAINS)
+    if x0s.device.type != "cuda" or metric.device.type != "cuda":
+        fail("the warm start left the card")
+    out, summary, secs, leaf_iters = _run_nuts(
+        nuts, 0, vg, metric, x0s, num_warmup=NUTS_WARMUP, num_samples=NUTS_SAMPLES, max_depth=10)
+    warm_total = _nuts_line("warm start (fixed Pathfinder metric)", out, summary, secs, leaf_iters)
+    xs = out.samples.double().reshape(-1, D).cpu().numpy()
+    if tuple(out.samples.shape) != (NUTS_CHAINS, NUTS_SAMPLES, D) or not np.isfinite(xs).all():
+        fail(f"warm start: samples of shape {tuple(out.samples.shape)} not all finite")
+    if int(out.diverging.sum()):
+        fail(f"warm start: {int(out.diverging.sum())} divergences after warm-up")
+    rhat, ess = float(summary["rhat"].max()), float(summary["ess_bulk"].min())
+    merr = float(np.max(np.abs(xs.mean(axis=0) - mean_t) / sd_t))
+    print(f"warm start: rhat_max={rhat:.4f} band={NUTS_RHAT_BAND} ess_bulk_min={ess:.1f} "
+          f"band={NUTS_ESS_BAND} moment_err_mean_sd_units={merr:.4f} band={NUTS_MOMENT_ERR_BAND}",
+          flush=True)
+    for name, v, (lo, hi) in (("max R-hat", rhat, NUTS_RHAT_BAND), ("min bulk ESS", ess, NUTS_ESS_BAND),
+                              ("moment error", merr, NUTS_MOMENT_ERR_BAND)):
+        if not lo <= v <= hi:
+            fail(f"warm start: {name} {v} outside the JAX band {(lo, hi)}")
+
+    # the same chains without Pathfinder: random starts, the identity metric,
+    # windowed adaptation over a warm-up of 300
+    starts = rng.Stream(0, torch.arange(NUTS_CHAINS, device="cuda"), 0, rng.INIT).uniform(
+        D, torch.float32, "cuda") * 4.0 - 2.0
+    cold, cold_summary, secs, leaf_iters = _run_nuts(
+        nuts, 0, target.value_and_grad, None, starts, num_warmup=300, num_samples=NUTS_SAMPLES,
+        max_depth=10, adapt_mass_matrix=True)
+    cold_total = _nuts_line("cold start (identity metric, windowed adaptation)", cold, cold_summary,
+                            secs, leaf_iters)
+    pf_evals = int(result.states.num_fn_evals.sum())
+    print(f"gradient evaluations: Pathfinder {pf_evals} ({K} paths) + warm-started NUTS {warm_total} "
+          f"(4 chains) = {pf_evals + warm_total}; NUTS from random starts {cold_total} (4 chains); "
+          f"warm-up alone {int(out.warmup_n_leapfrogs.sum())} against "
+          f"{int(cold.warmup_n_leapfrogs.sum())}", flush=True)
+    if not torch.isfinite(cold.samples).all():
+        fail("cold start: samples not all finite")
+
+
+def _bayes_model():
+    """A model with a Normal, a HalfNormal, a Beta and a Dirichlet(3) prior:
+    location/scale observations, a binomial and a multinomial count."""
+    import torch
+
+    from pathfinder_tpu_torch.models import bayes
+
+    data = torch.tensor([1.2, 0.8, 1.1, 0.9, 1.0, 1.3], device="cuda")
+    counts = torch.tensor([3.0, 5.0, 2.0], device="cuda")
+
+    def loglik(p):
+        w = torch.cat([p["w"], 1.0 - p["w"].sum(-1, keepdim=True)], dim=-1)
+        mu, sigma = p["mu"][..., None], p["sigma"][..., None]
+        return (torch.sum(-0.5 * ((data - mu) / sigma) ** 2 - torch.log(sigma), dim=-1)
+                + 7.0 * torch.log(p["theta"]) + 3.0 * torch.log1p(-p["theta"])
+                + torch.sum(counts * torch.log(w), dim=-1))
+
+    return bayes.BayesModel(
+        [("mu", bayes.Normal(0.0, 10.0)), ("sigma", bayes.HalfNormal(2.0)),
+         ("theta", bayes.Beta(2.0, 2.0)), ("w", bayes.Dirichlet([1.0, 2.0, 1.5]))], loglik)
+
+
+def constrained_phase(pt, wk, zoo):
+    """Three constrained models through multipathfinder and warm-started
+    NUTS, then HMC on the first; returns the kernels' launches."""
+    import torch
+
+    from pathfinder_tpu_torch.integrations import hmc, nuts
+
+    X, y, _ = zoo.german_credit_synthetic()
+    Xo, yo, _, _ = zoo.ordered_logistic_synthetic()
+    models = (
+        ("logistic regression d=25", zoo.LogisticRegression(X, y)),
+        ("ordered logistic d=7", zoo.OrderedLogisticRegression(Xo, yo, n_cats=4)),
+        ("BayesModel d=5", _bayes_model()),
+    )
+    totals = {name: 0 for name in wk.launch_counts()}
+    first = None
+    for label, model in models:
+        wk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = pt.multipathfinder(model, 1000, nruns=8, seed=0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        by_shape = wk.launch_counts_by_shape()
+        for n, c in wk.launch_counts().items():
+            totals[n] += c
+        n_ok, khat = int(res.states.success.sum()), float(res.psis_result.pareto_shape)
+        d = res.draws.shape[0]
+        if n_ok != 8:
+            fail(f"{label}: {n_ok}/8 paths succeeded")
+        if khat != khat or not torch.isfinite(res.draws).all():
+            fail(f"{label}: k-hat {khat} or draws not finite")
+        for name in ("sample_and_logq", "whiten_sumsq"):
+            if by_shape[name].get((8, M, 125, False), 0) <= 0:
+                fail(f"{label}: {name} was not launched at (B, m, N) = (8, {M}, 125): {by_shape[name]}")
+        dt = res.draws_transformed
+        if label.startswith("ordered"):
+            if tuple(dt.shape) != (d, 1000) or not bool((torch.diff(dt[:3], dim=0) > 0).all()):
+                fail(f"{label}: cutpoints not increasing")
+        elif label.startswith("BayesModel"):
+            w_sum = dt["w"].sum(-1) + (1.0 - dt["w"].sum(-1))
+            inside = (bool((dt["sigma"] > 0).all()) and bool(((dt["theta"] > 0) & (dt["theta"] < 1)).all())
+                      and bool((dt["w"] > 0).all()) and bool((dt["w"].sum(-1) < 1).all())
+                      and bool(((w_sum - 1.0).abs() < 1e-5).all()))
+            if not inside or not torch.isfinite(dt["logjoint"]).all():
+                fail(f"{label}: constrained draws outside their support")
+        elif dt is not res.draws:
+            fail(f"{label}: a plain target came back with transformed draws")
+        print(f"constrained [{label}]: paths_ok=8/8 khat={khat:.4f} "
+              f"logp_grad_evals={int(res.states.num_fn_evals.sum())} wall_s={secs:.3f} "
+              f"launches_by_shape={ {n: {f'B={b},m={m},N={n_}': c for (b, m, n_, _), c in sorted(v.items())} for n, v in by_shape.items()} }",
+              flush=True)
+        vg, metric, x0s = nuts.warm_start_chains(res, NUTS_CHAINS)
+        out, summary, secs, leaf_iters = _run_nuts(
+            nuts, 0, vg, metric, x0s, num_warmup=NUTS_WARMUP, num_samples=NUTS_SAMPLES)
+        _nuts_line(f"constrained [{label}] NUTS", out, summary, secs, leaf_iters)
+        if not torch.isfinite(out.samples).all():
+            fail(f"{label}: NUTS samples not all finite")
+        rhat = float(summary["rhat"].max())
+        if not rhat < 1.05:
+            fail(f"{label}: max R-hat {rhat} not below 1.05")
+        if first is None:
+            first = res
+            gap = float(((res.draws.mean(1) - summary["mean"]).abs() / summary["sd"]).max())
+            print(f"constrained [{label}]: Pathfinder mean within {gap:.4f} posterior sd of the "
+                  f"NUTS mean (limit 0.5)", flush=True)
+            if not gap < 0.5:
+                fail(f"{label}: Pathfinder mean {gap} posterior sd from the NUTS mean")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = hmc.hmc_warm_start(0, first, num_warmup=300, num_samples=200)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    acc = float(h.accept_prob.mean())
+    print(f"hmc_warm_start [logistic regression d=25]: transitions=500 leapfrogs_per_transition=16 "
+          f"wall_s={secs:.3f} ms_per_leapfrog={1e3 * secs / 8000:.3f} step_size={float(h.step_size):.4f} "
+          f"mean_accept={acc:.4f} band={HMC_ACCEPT_BAND}", flush=True)
+    if tuple(h.samples.shape) != (200, 25) or not torch.isfinite(h.samples).all():
+        fail("hmc_warm_start: samples not finite")
+    if not HMC_ACCEPT_BAND[0] <= acc <= HMC_ACCEPT_BAND[1]:
+        fail(f"hmc_warm_start: mean acceptance {acc} outside {HMC_ACCEPT_BAND}")
+    return totals
+
+
 def main():
     try:
         import torch
@@ -495,10 +744,15 @@ def main():
     if "--kernels-only" in sys.argv[1:]:  # for work on the kernels: stop after their phase
         print("kernel phase passed; stopping before the model phases", flush=True)
         return
-    counts, main_khats = main_path_phase(pt, wk, zoo)
+    counts, main_khats, headline = main_path_phase(pt, wk, zoo)
     for name, c in remedy_phase(pt, wk, zoo, main_khats).items():
         counts[name] += c
     remedy_stage_times(pt, zoo)
+    warm_start_phase(pt, zoo, headline)
+    for name, c in constrained_phase(pt, wk, zoo).items():
+        if c <= 0:
+            fail(f"{name} was not launched on the constrained-model path")
+        counts[name] += c
 
     source = "pathfinder_tpu_torch/csrc/woodbury_kernels.cu"
     replaces = {

@@ -14,6 +14,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pathfinder_tpu_torch.integrations import transforms
+from pathfinder_tpu_torch.integrations.hmc import WoodburyMetric
+from pathfinder_tpu_torch.models import bayes
 from pathfinder_tpu_torch.ops.lbfgs import OptimizationTrace
 from pathfinder_tpu_torch.ops.mvnormal import MvNormal
 from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat
@@ -24,6 +27,10 @@ __all__ = [
     "mvnormal_from_numpy",
     "trace_from_numpy",
     "config_from_fields",
+    "metric_from_numpy",
+    "bijector_from_spec",
+    "bayes_model_from_spec",
+    "ArrayNoise",
 ]
 
 
@@ -101,3 +108,80 @@ def config_from_fields(config) -> PathfinderConfig:
     if extra:
         raise NotImplementedError(f"not ported yet: {', '.join(extra)}")
     return PathfinderConfig(**{k: v for k, v in fields.items() if k in known})
+
+
+def metric_from_numpy(
+    A, B, D, *, method: str = "chol", dtype: Optional[torch.dtype] = None, device="cpu"
+) -> WoodburyMetric:
+    """A ``WoodburyMetric`` from the parts ``minv.A``, ``minv.B``, ``minv.D``
+    of the JAX package's metric, refactorized in torch."""
+    return WoodburyMetric(woodbury_from_numpy(A, B, D, method=method, dtype=dtype, device=device))
+
+
+def bijector_from_spec(spec) -> transforms.Bijector:
+    """A bijector from its name and parameters: ``("Exp", {})``,
+    ``("Interval", {"low": 0.0, "high": 2.0})``, or a stack
+    ``("Stacked", [(spec, size), ...])``."""
+    name, params = spec
+    if name == "Stacked":
+        return transforms.Stacked(tuple((bijector_from_spec(b), int(n)) for b, n in params))
+    cls = getattr(transforms, name, None)
+    if not (isinstance(cls, type) and issubclass(cls, transforms.Bijector)):
+        raise ValueError(f"unknown bijector {name!r}")
+    return cls(**{k: float(v) for k, v in params.items()})
+
+
+def bayes_model_from_spec(priors, loglikelihood=None) -> bayes.BayesModel:
+    """A ``BayesModel`` from its priors as ``(name, distribution name,
+    parameters, size)`` tuples, e.g. ``("sigma", "HalfNormal", {"scale":
+    2.0}, 1)``; parameters are scalars or numpy arrays (a Dirichlet's
+    ``alpha``). The likelihood is the port's own, batched callable."""
+    out = []
+    for name, dist_name, params, size in priors:
+        cls = getattr(bayes, dist_name, None)
+        if not (isinstance(cls, type) and issubclass(cls, bayes.Distribution)):
+            raise ValueError(f"unknown distribution {dist_name!r}")
+        kw = {
+            k: (float(v) if np.ndim(v) == 0 else np.asarray(v, dtype=np.float64))
+            for k, v in params.items()
+        }
+        out.append((name, cls(**kw), int(size)))
+    return bayes.BayesModel(out, loglikelihood)
+
+
+class ArrayNoise:
+    """The random decisions of one HMC or NUTS run as arrays, in place of the
+    port's streams (the samplers' ``noise=``): the numbers the JAX package
+    drew under its own keys, so that both samplers make the same decisions.
+    All arrays lead with ``(T transitions, C chains)``, warm-up first:
+
+    * ``momentum (T, C, d)`` standard normals;
+    * HMC: ``jitter (T, C)`` step-size factors in (0.8, 1.2), ``accept (T, C)``
+      uniforms;
+    * NUTS: ``direction (T, C, max_depth)`` booleans (go right),
+      ``merge (T, C, max_depth)`` uniforms, ``leaf (T, C, max_depth, L)``
+      uniforms for leaf ``n < L`` of the subtree of each doubling.
+    """
+
+    def __init__(self, *, momentum, jitter=None, accept=None, direction=None, merge=None,
+                 leaf=None, dtype: Optional[torch.dtype] = None, device="cpu"):
+        self.momentum_ = _t(momentum, dtype, device)
+        f = lambda a: None if a is None else _t(a, self.momentum_.dtype, device)
+        self.jitter_, self.accept_, self.merge_, self.leaf_ = f(jitter), f(accept), f(merge), f(leaf)
+        self.direction_ = (
+            None if direction is None else torch.as_tensor(np.array(direction), device=device).bool()
+        )
+
+    def momentum(self, t):
+        return self.momentum_[t]
+
+    def jitter(self, t):
+        return self.jitter_[t]
+
+    def accept(self, t):
+        return self.accept_[t]
+
+    def tree(self, t, max_depth):
+        leaves = [self.leaf_[t, :, j, : 1 << j] for j in range(max_depth)]
+        return (self.direction_[t, :, :max_depth], self.merge_[t, :, :max_depth],
+                torch.cat(leaves, dim=-1))

@@ -79,11 +79,13 @@ class LogDensity:
         return dataclasses.replace(self, dim=dim)
 
 
-def as_log_density(fn, dim=None, hess=None) -> LogDensity:
+def as_log_density(fn, dim=None, grad=None, hess=None) -> LogDensity:
     """Coerce user input into a :class:`LogDensity`: a ``LogDensity``, any
     object with ``logp`` and ``dim`` attributes (and optionally
-    ``value_and_grad`` and ``hess``), or a plain batched callable
-    ``logp(x (K, d))``. An explicit ``hess`` wins over the object's own."""
+    ``value_and_grad`` or ``logp_and_grad``, and ``hess``), or a plain
+    batched callable ``logp(x (K, d))``. ``grad``, ``x (K, d) -> (K, d)``,
+    is the user's own gradient and replaces autograd where the input brings
+    no ``value_and_grad``. An explicit ``hess`` wins over the object's own."""
     if isinstance(fn, LogDensity):
         if hess is not None and fn.hess is not hess:
             fn = dataclasses.replace(fn, hess=hess)
@@ -92,9 +94,22 @@ def as_log_density(fn, dim=None, hess=None) -> LogDensity:
         return fn
     if hasattr(fn, "logp"):
         d = fn.dim if getattr(fn, "dim", None) is not None else dim
-        vg = getattr(fn, "value_and_grad", None)
+        vg = getattr(fn, "value_and_grad", None) or getattr(fn, "logp_and_grad", None)
+        if vg is None and grad is not None:
+            vg = _vg_from_parts(fn.logp, grad)
         h = hess if hess is not None else getattr(fn, "hess", None)
         return LogDensity(logp=fn.logp, dim=d, value_and_grad=vg, hess=h)
     if callable(fn):
-        return LogDensity(logp=fn, dim=dim, hess=hess)
+        vg = _vg_from_parts(fn, grad) if grad is not None else None
+        return LogDensity(logp=fn, dim=dim, value_and_grad=vg, hess=hess)
     raise TypeError(f"cannot interpret {type(fn)!r} as a log density")
+
+
+def _vg_from_parts(logp: Callable, grad: Callable) -> Callable:
+    """``value_and_grad`` from a log density and the user's gradient of it,
+    both batched."""
+
+    def value_and_grad(x):
+        return logp(x), grad(x)
+
+    return value_and_grad

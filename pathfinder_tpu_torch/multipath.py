@@ -19,6 +19,10 @@ from typing import Any, Callable, Optional, Union
 import numpy as np
 import torch
 
+from pathfinder_tpu_torch.integrations.transforms import (
+    resolve_transform,
+    transformed_outputs,
+)
 from pathfinder_tpu_torch.models.protocol import (
     LogDensity,
     as_log_density,
@@ -45,7 +49,7 @@ __all__ = ["multipathfinder", "MultiPathfinderResult", "resample", "laplace_resa
 # one raises NotImplementedError rather than being silently ignored
 _NOT_PORTED = (
     "mesh", "max_paths_per_launch", "keep_traces", "offload_launches",
-    "transform", "grad", "progress", "progress_every",
+    "progress", "progress_every",
 )
 
 
@@ -149,6 +153,14 @@ class MultiPathfinderResult:
     # the log-ratio denominator that produced psis_result ("component" or
     # "mixture"), so that resample() reuses or recomputes it correctly
     importance_denominator: str = "component"
+    # constrained-space views of a transform-aware run (a model with a
+    # ``.transformed``, a TransformedLogDensity, or ``transform=``): the
+    # pushforward of the fit, the draws mapped forward (a named chain dict
+    # for a BayesModel), and the link itself; plain runs repeat
+    # ``fit_distribution`` and ``draws`` and leave ``transform`` None
+    fit_distribution_transformed: Any = None
+    draws_transformed: Any = None
+    transform: Any = None
 
     @property
     def nruns(self) -> int:
@@ -163,7 +175,9 @@ def multipathfinder(
     nruns: Optional[int] = None,
     init=None,
     dim: Optional[int] = None,
+    grad: Optional[Callable] = None,
     hess: Optional[Callable] = None,
+    transform=None,
     ndraws_elbo: int = 5,
     ndraws_per_run: Optional[int] = None,
     importance: bool = True,
@@ -187,8 +201,15 @@ def multipathfinder(
     ``ndraws_per_run`` defaults to ``max(ndraws_elbo, ceil(ndraws / nruns))``.
     ``importance_denominator``: ``"component"`` weighs each pooled draw
     against its own component, ``"mixture"`` against the whole mixture.
-    ``hess`` is the target's Hessian, ``x (K, d) -> (K, d, d)``, for the
-    Laplace correction; absent, it is derived with ``torch.func``.
+    ``grad`` is the user's own gradient, ``x (K, d) -> (K, d)``, in place of
+    autograd. ``hess`` is the target's Hessian, ``x (K, d) -> (K, d, d)``,
+    for the Laplace correction; absent, it is derived with ``torch.func``.
+
+    ``fn`` may be a model with a ``.transformed`` (a ``BayesModel``) or a
+    ``TransformedLogDensity``; or pass ``transform=`` a bijector, with ``fn``
+    (and ``grad``) then in the constrained space. The run happens in the
+    unconstrained space, and ``draws_transformed`` and
+    ``fit_distribution_transformed`` hold the constrained-space views.
 
     ``optimizer="auto"`` runs the full pipeline under each optimizer in
     ``auto_optimizers`` (default ``("lbfgs", "cg")``; names of
@@ -212,8 +233,8 @@ def multipathfinder(
     auto = _pop_auto_options(config_overrides, importance)
     if auto is not None:
         shared = dict(
-            seed=seed, nruns=nruns, init=init, dim=dim, hess=hess,
-            ndraws_elbo=ndraws_elbo, ndraws_per_run=ndraws_per_run,
+            seed=seed, nruns=nruns, init=init, dim=dim, grad=grad, hess=hess,
+            transform=transform, ndraws_elbo=ndraws_elbo, ndraws_per_run=ndraws_per_run,
             importance=importance, importance_denominator=importance_denominator,
             history_length=history_length, maxiters=maxiters, ntries=ntries,
             init_scale=init_scale, init_sampler=init_sampler, gtol=gtol,
@@ -228,10 +249,23 @@ def multipathfinder(
     if importance_denominator not in ("component", "mixture"):
         raise ValueError(f"unknown importance_denominator {importance_denominator!r}")
     dev = resolve_device(device)
-    target = as_log_density(fn, dim=dim, hess=hess)
-
     if init is not None:
         init = torch.as_tensor(init, device=dev)
+        if dim is None and init.ndim == 2:
+            dim = int(init.shape[1])  # "init or dim" holds for transform=<bijector> too
+    target_input, tld = resolve_transform(fn, transform, dim=dim, grad=grad)
+    if tld is not None and hess is not None:
+        raise ValueError(
+            "hess= cannot be combined with a transform: the unconstrained "
+            "Hessian needs the bijector chain rule; omit hess= (it is then "
+            "derived with torch.func from the linked density)."
+        )
+    # with a transform, grad was consumed (bijector path) or rejected
+    target = as_log_density(
+        target_input, dim=dim, grad=None if tld is not None else grad, hess=hess
+    )
+
+    if init is not None:
         if not init.is_floating_point():
             init = init.to(torch.get_default_dtype())
         if init.ndim != 2:
@@ -323,12 +357,14 @@ def multipathfinder(
     )
     if not suppress_khat_hint:
         _maybe_warn_bad_khat(psis_result)
+    mixture = UniformMixture(components)
+    draws_t, fit_t = transformed_outputs(tld, fn, draws, mixture)
     return MultiPathfinderResult(
         input=fn,
         config=config,
         seed=seed,
         logp=target.logp,
-        fit_distribution=UniformMixture(components),
+        fit_distribution=mixture,
         draws=draws,
         draw_component_ids=component_ids,
         states=states,
@@ -337,6 +373,9 @@ def multipathfinder(
         draws_per_component=draws_knd,
         target=target,
         importance_denominator=importance_denominator,
+        fit_distribution_transformed=fit_t,
+        draws_transformed=draws_t,
+        transform=tld,
     )
 
 
@@ -504,6 +543,10 @@ def resample(
         rng.Stream(result.seed, 0, count, rng.RESAMPLE), draws_knd, psis_used,
         ndraws, replace=replace,
     )
+    # a transform-aware result gets its constrained-space draws rebuilt
+    draws_t, _ = transformed_outputs(
+        result.transform, result.input, draws, result.fit_distribution
+    )
     return dataclasses.replace(
         result,
         draws=draws,
@@ -512,6 +555,7 @@ def resample(
         draws_per_component=draws_knd,
         resample_count=count,
         importance_denominator=effective_denom,
+        draws_transformed=draws_t,
     )
 
 
@@ -604,7 +648,8 @@ def laplace_resample(
     Both evaluate the target's Hessian at every component mean (``hess=`` if
     given, else the result target's own ``hess``, else ``torch.func``'s
     forward-over-reverse Hessian of the stored log density, batched over
-    components).
+    components). For a transform-aware run that is the Hessian of the
+    *linked* (unconstrained) density, the space the components live in.
 
     Returns a new result whose ``fit_distribution`` and per-path
     ``states.fit_distribution`` hold the corrected components, with fresh
@@ -648,9 +693,13 @@ def laplace_resample(
         rng.Stream(result.seed, 0, count, rng.LAPLACE_RESAMPLE), draws_knd, psis_used,
         ndraws, replace=replace,
     )
+    mixture = UniformMixture(corrected)
+    draws_t, fit_t = transformed_outputs(result.transform, result.input, draws, mixture)
     return dataclasses.replace(
         result,
-        fit_distribution=UniformMixture(corrected),
+        fit_distribution=mixture,
+        fit_distribution_transformed=fit_t,
+        draws_transformed=draws_t,
         # the per-path views stay consistent: both the corrected components
         # and the draws they produced go in
         states=dataclasses.replace(

@@ -18,6 +18,10 @@ from typing import Any, Callable, Optional, Union
 
 import torch
 
+from pathfinder_tpu_torch.integrations.transforms import (
+    resolve_transform,
+    transformed_outputs,
+)
 from pathfinder_tpu_torch.models.protocol import LogDensity, as_log_density
 from pathfinder_tpu_torch.ops.elbo import maximize_elbo_chunked
 from pathfinder_tpu_torch.ops.lbfgs import (
@@ -204,8 +208,7 @@ def uniform_init_sampler(scale: float = 2.0) -> Callable:
 @dataclasses.dataclass
 class PathfinderResult:
     """Single-path result (counterpart of the JAX package's
-    ``PathfinderResult``; the transformed-space fields and the lazy replays
-    are not ported yet)."""
+    ``PathfinderResult``; the lazy replays are not ported yet)."""
 
     input: Any
     config: PathfinderConfig
@@ -222,6 +225,12 @@ class PathfinderResult:
     success: bool
     num_fn_evals: int
     state: SinglePathState = None
+    target: LogDensity = None
+    # constrained-space views of a transform-aware run (see
+    # ``MultiPathfinderResult``); plain runs repeat the fit and the draws
+    fit_distribution_transformed: Any = None
+    draws_transformed: Any = None
+    transform: Any = None
 
 
 def validate_dtype(dtype) -> None:
@@ -241,7 +250,9 @@ def pathfinder(
     seed: int = 0,
     dim: Optional[int] = None,
     init=None,
+    grad: Optional[Callable] = None,
     hess: Optional[Callable] = None,
+    transform=None,
     ndraws_elbo: int = 5,
     ndraws: Optional[int] = None,
     history_length: int = 6,
@@ -259,14 +270,34 @@ def pathfinder(
     its noise from round ``t − 1`` of path 0's streams.
 
     ``device`` defaults to ``"cuda"`` and raises when CUDA is not available;
-    ``device="cpu"`` runs on the CPU. ``hess`` is the target's Hessian,
-    ``x (K, d) -> (K, d, d)``, for what consumes the order-2 capability."""
+    ``device="cpu"`` runs on the CPU. ``grad`` is the user's own gradient,
+    ``x (K, d) -> (K, d)``; ``hess`` the target's Hessian,
+    ``x (K, d) -> (K, d, d)``, for what consumes the order-2 capability.
+
+    ``fn`` may be a model with a ``.transformed`` (a ``BayesModel``) or a
+    ``TransformedLogDensity``; or pass ``transform=`` a bijector, with ``fn``
+    (and ``grad``) then in the constrained space. ``init`` is always in the
+    unconstrained space; ``draws_transformed`` and
+    ``fit_distribution_transformed`` hold the constrained-space views."""
     dev = resolve_device(device)
-    target = as_log_density(fn, dim=dim, hess=hess)
+    if init is not None:
+        init = torch.as_tensor(init, device=dev)
+        if dim is None and init.ndim == 1:
+            dim = int(init.shape[0])  # "init or dim" holds for transform=<bijector> too
+    target_input, tld = resolve_transform(fn, transform, dim=dim, grad=grad)
+    if tld is not None and hess is not None:
+        raise ValueError(
+            "hess= cannot be combined with a transform: the unconstrained "
+            "Hessian needs the bijector chain rule; omit hess= (it is then "
+            "derived with torch.func from the linked density)."
+        )
+    # with a transform, grad was consumed (bijector path) or rejected
+    target = as_log_density(
+        target_input, dim=dim, grad=None if tld is not None else grad, hess=hess
+    )
     if ndraws is None:
         ndraws = ndraws_elbo
     if init is not None:
-        init = torch.as_tensor(init, device=dev)
         if not init.is_floating_point():
             init = init.to(torch.get_default_dtype())
         if dtype is not None:
@@ -326,6 +357,7 @@ def pathfinder(
             f"{nrej} ({perc}%) updates to the inverse Hessian estimate were "
             "rejected to keep it positive definite."
         )
+    draws_t, fit_t = transformed_outputs(tld, fn, one.draws, one.fit_distribution)
     return PathfinderResult(
         input=fn,
         config=config,
@@ -342,4 +374,8 @@ def pathfinder(
         success=success,
         num_fn_evals=int(one.num_fn_evals),
         state=state,
+        target=target,
+        fit_distribution_transformed=fit_t,
+        draws_transformed=draws_t,
+        transform=tld,
     )

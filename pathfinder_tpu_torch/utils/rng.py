@@ -22,7 +22,7 @@ import torch
 
 __all__ = [
     "Stream", "INIT", "ELBO", "EXTRA", "RESAMPLE", "RESAMPLE_FRESH",
-    "LAPLACE_DRAWS", "LAPLACE_RESAMPLE",
+    "LAPLACE_DRAWS", "LAPLACE_RESAMPLE", "MOMENTUM", "NUTS_TREE", "HMC_JITTER", "HMC_ACCEPT", "PRIOR", "PRIOR_AUX", "MAX_ROUND",
 ]
 
 # purposes: the fourth element of the stream tuple
@@ -33,6 +33,20 @@ RESAMPLE = 4  # importance resampling of the pooled draws
 RESAMPLE_FRESH = 5  # fresh per-component draws in resample()
 LAPLACE_DRAWS = 6  # per-component draws from the Laplace-corrected components
 LAPLACE_RESAMPLE = 7  # importance resampling in laplace_resample()
+# the samplers: path = chain, round = transition (warm-up and sampling
+# numbered on), candidate = tree depth or leaf
+MOMENTUM = 8  # a transition's momentum
+# every decision of a NUTS tree, drawn in one call per transition: candidate
+# = depth gives the doubling's direction (element 0) and the uniform of its
+# merge (element 1); candidate = 64 + 2^depth − 1 + n the uniform of leaf n of
+# that doubling's subtree
+NUTS_TREE = 9
+HMC_JITTER = 12  # the step-size jitter of an HMC transition
+HMC_ACCEPT = 13  # its Metropolis test
+PRIOR = 14  # prior draws of a BayesModel (candidate = block)
+PRIOR_AUX = 15  # the second stream of a prior that needs two (Beta, StudentT)
+
+MAX_ROUND = 1 << 24  # rounds share a 32-bit counter word with the 8-bit purpose
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -79,6 +93,10 @@ class Stream:
     round: IntLike
     purpose: int
     candidate: IntLike = 0
+
+    def __post_init__(self):
+        if isinstance(self.round, int) and not 0 <= self.round < MAX_ROUND:
+            raise ValueError(f"stream round {self.round} outside [0, {MAX_ROUND})")
 
     def _words(self, nblocks: int, device) -> torch.Tensor:
         path = _as_long(self.path, device)

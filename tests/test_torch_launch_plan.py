@@ -149,3 +149,45 @@ def test_source_constants_agree_with_the_wrapper():
         mr = wk._rank_tile(m)
         assert wk._threads(m) == 8 * mr * max(1, 32 // mr)
         assert math.gcd(wk._threads(m), 32) == 32
+
+
+# the constrained models' shapes: d below the rank m = 12, below a warp's 32
+# lanes and below the row split's floor of 64, and N = ndraws / nruns = 125
+SMALL = [(8, 25, 12, 125), (8, 7, 12, 125), (8, 2, 12, 125), (100, 25, 12, 10), (8, 8, 12, 125),
+         (1, 1, 12, 125), (4, 7, 0, 125), (8, 25, 12, 126)]
+
+
+@pytest.mark.parametrize("B,d,m,N", SMALL)
+def test_plan_at_the_small_model_shapes(B, d, m, N):
+    """A factor with fewer rows than ``_MIN_ROWS`` is never split (no CTA
+    without rows), its rows are one resident tile, and N = 125 columns are
+    walked in rounds of ``_CHUNK``: 40, 40, 40 and 5, with exact 5-column
+    tiles since 125 is a multiple of 5."""
+    cluster, threads, smem, tile = wk._launch_plan(B, d, m, N)
+    assert (cluster, tile) == (1, d) and threads == wk._threads(m)
+    assert smem == wk._smem_bytes(d, m, N, threads) == _source_layout_bytes(d, m, N, threads)
+    assert smem <= wk._SMEM_PAIR  # two CTAs an SM
+    rounds = [min(wk._CHUNK, N - c0) for c0 in range(0, N, wk._CHUNK)]
+    assert sum(rounds) == N and max(rounds) <= wk._CHUNK
+    if N == 125:
+        assert rounds == [40, 40, 40, 5]
+    # the slab of all N columns grows with tile · N and nothing else does
+    assert smem - wk._smem_bytes(d, m, 5, threads) >= 4 * (d * (N - 5) - 3) - 4 * 2000
+
+
+@pytest.mark.parametrize("B,d,m,P", [(8, 25, 12, 1000), (8, 7, 12, 1000), (8, 2, 12, 1000),
+                                     (8, 25, 0, 1000), (100, 25, 12, 1000), (1, 3, 12, 7)])
+def test_shared_x_plan_at_the_small_model_shapes(B, d, m, P):
+    """The mixture denominator of a small model: no cluster, the widest
+    column tile, every column's run of d floats in its own round4(d) + 4
+    floats (an unaligned run of 7 or 25 floats has at most 3 + 3 edge floats,
+    which may be all of it)."""
+    cluster, threads, smem, tile, width = wk._launch_plan_shared(B, d, m, P)
+    assert (cluster, tile, width) == (1, d, min(40, P))
+    assert smem == _source_layout_bytes(d, m, width, threads, shared=True)
+    assert smem <= wk._SMEM_PAIR
+    for pad in range(4):  # a column that starts pad floats past 16 bytes fits its slot
+        assert pad + d <= wk._round4(d) + 4
+        head = min((4 - pad) & 3, d)
+        body = (d - head) & ~3
+        assert head <= 3 and d - head - body <= 3 and head + body <= d

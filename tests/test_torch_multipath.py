@@ -11,6 +11,11 @@
   and in a retry batch.
 * The numpy copy of ``hierarchical_gaussian_truth`` equals the original.
 * ``import pathfinder_tpu_torch`` loads no JAX.
+* ``grad=`` and ``transform=`` at both entry points, their errors, and the
+  constrained-space result fields through ``resample`` and
+  ``laplace_resample``.
+* The slice as a whole, ``multipathfinder(transform=...)`` then
+  ``nuts_chains``, on the negative-binomial model against the JAX package.
 """
 
 import subprocess
@@ -25,7 +30,10 @@ import torch
 
 from pathfinder_tpu import multipathfinder as jmultipathfinder
 from pathfinder_tpu.models import zoo as jzoo
-from pathfinder_tpu_torch import multipathfinder, resample
+from pathfinder_tpu_torch import laplace_resample, multipathfinder, resample
+from pathfinder_tpu_torch.integrations import nuts as tnuts
+from pathfinder_tpu_torch.integrations import transforms as ttr
+from pathfinder_tpu_torch.models import bayes as tb
 from pathfinder_tpu_torch.models import zoo as tzoo
 from pathfinder_tpu_torch.singlepath import PathfinderConfig, pathfinder_core, pathfinder
 from pathfinder_tpu_torch.utils import rng
@@ -189,7 +197,9 @@ def test_target_hessians_equal_jax_and_survive_repeated_tracing():
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, pathfinder_tpu_torch, pathfinder_tpu_torch.interop, "
-        "pathfinder_tpu_torch.ops.kernels.woodbury_kernels; "
+        "pathfinder_tpu_torch.ops.kernels.woodbury_kernels, "
+        "pathfinder_tpu_torch.integrations.nuts, pathfinder_tpu_torch.integrations.ppl, "
+        "pathfinder_tpu_torch.models.bayes, pathfinder_tpu_torch.models.zoo; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pathfinder_tpu')]; "
         "assert not bad, bad"
     )
@@ -199,8 +209,7 @@ def test_importing_the_port_loads_no_jax():
 
 def test_unported_options_raise():
     t = tzoo.StandardNormal(4)
-    for name in ("mesh", "max_paths_per_launch", "keep_traces", "offload_launches",
-                 "transform", "grad", "progress"):
+    for name in ("mesh", "max_paths_per_launch", "keep_traces", "offload_launches", "progress"):
         with pytest.raises(NotImplementedError, match=name):
             multipathfinder(t, 10, nruns=2, maxiters=3, device="cpu", **{name: None})
 
@@ -267,3 +276,186 @@ def test_entry_points_default_to_the_card(entry):
             multipathfinder(target, 10, nruns=2, maxiters=3)
         else:
             pathfinder(target, maxiters=3)
+
+
+def _lognormal_target():
+    """Π LogNormal(0.3, 0.7) over 3 positives: the constrained density, its
+    gradient, and the ``Exp`` link."""
+    mu, sig = 0.3, 0.7
+
+    def logp(x):
+        lx = torch.log(x)
+        return torch.sum(-0.5 * ((lx - mu) / sig) ** 2 - lx, dim=-1)
+
+    def grad(x):
+        return (-(torch.log(x) - mu) / sig**2 - 1.0) / x
+
+    return logp, grad
+
+
+@pytest.mark.parametrize("entry", ["multipathfinder", "pathfinder"])
+def test_grad_option_replaces_autograd(entry):
+    """A user gradient, batched ``(K, d) -> (K, d)``, is what the optimizer
+    calls; the result equals the autograd run's bit for bit."""
+    t = tzoo.CorrelatedGaussian(5, seed=2)
+    calls = []
+
+    def grad(x):
+        calls.append(tuple(x.shape))
+        return t.value_and_grad(x)[1]
+
+    kw = dict(seed=3, maxiters=40, device="cpu", dtype=torch.float64)
+    if entry == "multipathfinder":
+        a = multipathfinder(t.logp, 30, nruns=4, dim=5, grad=grad, **kw)
+        b = multipathfinder(t.logp, 30, nruns=4, dim=5, **kw)
+        assert all(shape[1] == 5 for shape in calls) and (4, 5) in calls
+    else:
+        a = pathfinder(t.logp, dim=5, grad=grad, **kw)
+        b = pathfinder(t.logp, dim=5, **kw)
+    assert calls and torch.equal(a.draws, b.draws)
+    assert a.transform is None and a.draws_transformed is a.draws
+
+
+@pytest.mark.parametrize("entry", ["multipathfinder", "pathfinder"])
+def test_transform_option_with_bijector_and_constrained_grad(entry):
+    """``transform=<bijector>``: ``fn`` and ``grad=`` are in the constrained
+    space, the run in the unconstrained one; with the chain-ruled gradient
+    the user's logp is never differentiated and the draws are the autograd
+    run's up to rounding. The dimension comes from ``init`` where ``dim`` is
+    not given."""
+    logp, grad = _lognormal_target()
+    kw = dict(seed=0, maxiters=40, device="cpu", dtype=torch.float64)
+    run = (lambda **o: multipathfinder(logp, 64, nruns=4, **o, **kw)) if entry == "multipathfinder" \
+        else (lambda **o: pathfinder(logp, ndraws=64, **o, **kw))
+    a = run(transform=ttr.Exp(), dim=3, grad=grad)
+    b = run(transform=ttr.Exp(), dim=3)
+    np.testing.assert_allclose(a.draws.numpy(), b.draws.numpy(), rtol=1e-6, atol=1e-8)
+    assert isinstance(a.transform, ttr.TransformedLogDensity) and a.transform.grad_constrained is grad
+    assert a.draws_transformed.shape == (3, 64) and bool((a.draws_transformed > 0).all())
+    np.testing.assert_allclose(a.draws_transformed.numpy(), torch.exp(a.draws).numpy(), rtol=1e-12)
+    # the pushforward of the fit: log q(x) = log q_z(log x) − Σ log x
+    x = a.draws_transformed[:, :4]
+    want = a.fit_distribution.logpdf(torch.log(x)) - torch.log(x).sum(0)
+    np.testing.assert_allclose(a.fit_distribution_transformed.logpdf(x).numpy(), want.numpy(), rtol=1e-9)
+    # E[log x] = 0.3 under the target
+    assert abs(float(a.draws.mean()) - 0.3) < 0.25
+    init = np.zeros((4, 3)) if entry == "multipathfinder" else np.zeros(3)
+    c = (multipathfinder(logp, 16, init=init, transform=ttr.Exp(), **kw) if entry == "multipathfinder"
+         else pathfinder(logp, init=init, transform=ttr.Exp(), **kw))
+    assert c.transform.dim == 3
+
+
+def test_transform_inputs_and_errors():
+    logp, grad = _lognormal_target()
+    tld = ttr.TransformedLogDensity(logp, ttr.Exp(), 3)
+    kw = dict(seed=0, maxiters=30, device="cpu", dtype=torch.float64)
+    by_fn = multipathfinder(tld, 16, nruns=2, **kw)
+    by_kw = multipathfinder(None, 16, nruns=2, transform=tld, **kw)
+    assert by_fn.transform is tld and torch.equal(by_fn.draws, by_kw.draws)
+    assert torch.equal(pathfinder(tld, **kw).draws, pathfinder(None, transform=tld, **kw).draws)
+    hess = lambda x: torch.zeros(x.shape[0], 3, 3, dtype=x.dtype)
+    for call in (lambda **o: multipathfinder(tld, 16, nruns=2, **o, **kw),
+                 lambda **o: pathfinder(tld, **o, **kw)):
+        with pytest.raises(ValueError, match="hess= cannot be combined with a transform"):
+            call(hess=hess)
+        with pytest.raises(ValueError, match="grad= cannot be combined"):
+            call(grad=grad)
+    with pytest.raises(TypeError, match="Bijector or TransformedLogDensity"):
+        multipathfinder(logp, 16, nruns=2, dim=3, transform="exp", **kw)
+    with pytest.raises(ValueError, match="dim is required"):
+        multipathfinder(logp, 16, nruns=2, transform=ttr.Exp(), **kw)
+
+
+def test_explicit_transform_overrides_the_models_chain_conversion():
+    """A model run under its own link gets the named chain dict; under
+    another ``transform=`` the draws are mapped by that transform, so that
+    they stay consistent with ``fit_distribution_transformed``."""
+    model = tb.BayesModel({"a": tb.HalfNormal(1.0), "b": (tb.Normal(0.0, 1.0), 2)})
+    kw = dict(seed=0, maxiters=30, device="cpu", dtype=torch.float64)
+    own = multipathfinder(model, 20, nruns=2, **kw)
+    assert set(own.draws_transformed) >= {"a", "b", "logjoint"}
+    assert own.draws_transformed["b"].shape == (20, 2)
+    other = ttr.TransformedLogDensity(model.constrained_logp, ttr.Exp(), 3)
+    res = multipathfinder(model, 20, nruns=2, transform=other, **kw)
+    assert isinstance(res.draws_transformed, torch.Tensor)
+    np.testing.assert_allclose(res.draws_transformed.numpy(), torch.exp(res.draws).numpy(), rtol=1e-12)
+
+
+def test_resample_and_laplace_resample_rebuild_the_transformed_fields():
+    X, y, _ = tzoo.negative_binomial_synthetic(n=120, d=3, seed=1)
+    tld = tzoo.NegativeBinomialRegression(X, y)
+    res = multipathfinder(tld, 60, nruns=4, seed=2, maxiters=60, device="cpu", dtype=torch.float64)
+    again = resample(res, 25)
+    assert again.draws_transformed.shape == (4, 25)
+    np.testing.assert_allclose(again.draws_transformed.numpy(), tld.forward_draws(again.draws).numpy())
+    assert again.fit_distribution_transformed is res.fit_distribution_transformed
+    for method in ("diag", "full"):
+        lap = laplace_resample(res, 40, method=method)
+        # the Hessian is the linked density's: finite everywhere, PD near the mode
+        assert lap.fit_distribution.components.cov.B.shape[-1] == 0
+        assert lap.fit_distribution_transformed.base is lap.fit_distribution
+        assert lap.fit_distribution_transformed is not res.fit_distribution_transformed
+        np.testing.assert_allclose(lap.draws_transformed.numpy(), tld.forward_draws(lap.draws).numpy())
+        assert bool((lap.draws_transformed[3] > 0).all()) and np.isfinite(float(lap.psis_result.pareto_shape))
+        x = lap.draws_transformed[:, :3]
+        z = lap.draws[:, :3]
+        np.testing.assert_allclose(
+            lap.fit_distribution_transformed.logpdf(x).numpy(),
+            (lap.fit_distribution.logpdf(z) - z[3]).numpy(), rtol=1e-9,
+        )
+
+
+def test_transform_run_follows_the_jax_trajectories():
+    """From the same initial points in f64 the port's L-BFGS on the linked
+    ordered-logistic density walks the JAX package's trajectories: equal
+    evaluation counts on at least 3 of 4 paths (a stopping-rule tie at the
+    noise floor may move one), optima within 1e-5."""
+    X, y, _, _ = jzoo.ordered_logistic_synthetic(n=200, d=3, n_cats=4, seed=0)
+    jt, tt = jzoo.OrderedLogisticRegression(X, y, 4), tzoo.OrderedLogisticRegression(X, y, 4)
+    init = np.random.default_rng(0).uniform(-1.0, 1.0, (4, jt.dim))
+    jr = jmultipathfinder(jt, 40, key=jax.random.key(0), init=jnp.asarray(init), maxiters=60)
+    tr = multipathfinder(tt, 40, seed=0, init=init, maxiters=60, device="cpu")
+    assert tr.draws.dtype == torch.float64
+    je, te = np.asarray(jr.states.num_fn_evals), tr.states.num_fn_evals.numpy()
+    assert int((je == te).sum()) >= 3, (je, te)
+    jbest = np.asarray(jr.states.trace.log_densities).max(axis=1)
+    tbest = tr.states.trace.log_densities.nan_to_num(nan=-np.inf).max(dim=1).values.numpy()
+    np.testing.assert_allclose(tbest, jbest, rtol=1e-5)
+    cut = tr.draws_transformed[:3]
+    assert bool((torch.diff(cut, dim=0) > 0).all())
+    assert np.asarray(jr.draws_transformed).shape == tuple(tr.draws_transformed.shape)
+
+
+def _jnuts():
+    import importlib
+
+    return importlib.import_module("pathfinder_tpu.integrations.nuts")
+
+
+def test_slice_as_a_whole_negative_binomial_against_jax():
+    """``multipathfinder(transform=...)`` then ``nuts_chains`` on the
+    negative-binomial model at its test size, in both packages: the posterior
+    means agree within Monte-Carlo error (5 standard errors from both ESS),
+    the sds within 25%, and both runs mix (R̂ < 1.05)."""
+    d = 6
+    X, y, _ = jzoo.negative_binomial_synthetic(n=500, d=d, phi=3.0, seed=0)
+    jt, tt = jzoo.NegativeBinomialRegression(X, y), tzoo.NegativeBinomialRegression(X, y)
+    jres = jmultipathfinder(jt, 200, key=jax.random.key(1), nruns=8, maxiters=80)
+    jvg, jmetric, jx0 = _jnuts().warm_start_chains(jres, 4)
+    jout, jsum = _jnuts().nuts_chains(jax.random.key(2), jvg, jmetric, jx0, num_samples=300,
+                                   num_warmup=100, max_depth=6)
+    # the port, with the constrained density and the bijector given apart
+    res = multipathfinder(tt.logp_constrained, 200, transform=tt.bijector, dim=tt.dim, seed=1,
+                          nruns=8, maxiters=80, device="cpu", dtype=torch.float64)
+    assert bool(res.states.success.all()) and float(res.psis_result.pareto_shape) < 0.7
+    assert bool((res.draws_transformed[d] > 0).all())
+    vg, metric, x0s = tnuts.warm_start_chains(res, 4)
+    out, summ = tnuts.nuts_chains(2, vg, metric, x0s, num_samples=300, num_warmup=100, max_depth=6)
+    assert not bool(out.diverging.any())
+    assert float(summ["rhat"].max()) < 1.05 and float(np.max(np.asarray(jsum["rhat"]))) < 1.05
+    jmean, jsd = np.asarray(jsum["mean"]), np.asarray(jsum["sd"])
+    se = np.sqrt(jsd**2 / np.asarray(jsum["ess_bulk"]) + summ["sd"].numpy() ** 2 / summ["ess_bulk"].numpy())
+    assert np.max(np.abs(summ["mean"].numpy() - jmean) / se) < 5.0
+    np.testing.assert_allclose(summ["sd"].numpy(), jsd, rtol=0.25)
+    # the Pathfinder draws themselves are near the NUTS posterior
+    assert np.max(np.abs(res.draws.mean(1).numpy() - jmean) / jsd) < 0.35
