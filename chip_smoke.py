@@ -39,7 +39,7 @@ Phases, each of which fails the run (exit code 1) on any error:
    moment error against the exact posterior inside the band of the JAX
    package; its times per call, per transition and per leaf iteration. Then
    NUTS from random starts with windowed mass-matrix adaptation (300
-   warm-up), for the leapfrogs the warm start saves.
+   warm-up, 100 draws), for the leapfrogs the warm start saves.
 6. Constrained models, each through ``multipathfinder(model, 1000, nruns=8)``
    and then ``nuts_chains`` on 4 warm-started chains: logistic regression
    (d = 25), ordered logistic regression (d = 7, ``Ordered`` + ``Identity``)
@@ -49,11 +49,22 @@ Phases, each of which fails the run (exit code 1) on any error:
    logistic regression the Pathfinder mean within 0.5 posterior sd of the
    NUTS mean. Then ``hmc_warm_start`` on the logistic regression, mean
    acceptance in [0.6, 0.95].
+7. Serving scale on the headline target: 32768 paths with
+   ``keep_traces=False`` in launches of 8192, states offloaded to pinned
+   host memory, then the same on the card (bitwise-equal draws, component
+   ids and k̂), then the memory rule's own cap and offload choice; every path
+   succeeding, k̂ and moment error inside the headline band, both kernels
+   launched at the serving shapes; wall, paths/s and peak device memory of
+   each run. A ``save_result``/``load_result`` round trip of a 4096-path
+   run (launches of 1024) whose ``resample`` is bitwise equal; the
+   ``elbo_estimates`` replay of a headline path against its stored
+   ``elbo_values``; and ``fit_distributions`` of a slim path raising.
 
 The second-to-last lines are a JSON summary of the kernels and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import importlib
 import json
 import statistics
 import subprocess
@@ -93,7 +104,15 @@ NUTS_RHAT_BAND = (1.0, 1.0598)
 NUTS_ESS_BAND = (56.49, 698.87)
 NUTS_MOMENT_ERR_BAND = (0.0, 0.1144)
 NUTS_CHAINS, NUTS_WARMUP, NUTS_SAMPLES = 4, 100, 200
+# NUTS from random starts, the comparison: 300 warm-up transitions (windowed
+# adaptation) and, since the serving phase shares the run's time, 100 draws
+COLD_SAMPLES = 100
 HMC_ACCEPT_BAND = (0.6, 0.95)
+
+# The serving-scale phase (phase 7): paths, the launch cap of its first two
+# runs, and the file round trip's paths and cap
+SERVE_K, SERVE_CAP = 32768, 8192
+FILE_K, FILE_CAP = 4096, 1024
 
 # Kernel vs plain version, f32 with a different summation order: x to
 # rtol=atol=1e-5; the column sums (logq, Mahalanobis term, magnitude ~1e3)
@@ -181,6 +200,10 @@ SMALL_SHAPES = (
     ("glm25-extra", 8, 25, M, 120),  # a path's draws beyond the 5 ELBO ones: rounds of 40
     ("glm25-elbo", 8 * 16, 25, M, 5),  # an ELBO chunk: 8 paths × 16 candidates
 )
+# the serving phase's launches of 8192 paths: an ELBO chunk of 8192 × 8
+# candidates, the winners' draws, a PSIS block
+SERVE_B1 = (("serving-elbo", SERVE_CAP * 8, D, M, 5), ("serving-winner", SERVE_CAP, D, M, 5))
+SERVE_B2 = (("serving-psis", SERVE_CAP, D, M, 5),)
 B1_SHAPES = (
     ("elbo", K * 8, D, M, 5),  # an ELBO chunk: K paths × elbo_chunk 8 candidates
     ("winner", K, D, M, 5),  # the winner's replayed draws; the extra draws alike
@@ -192,7 +215,7 @@ B1_SHAPES = (
     ("wide-m0", 4, 1000, 0, 90),  # rank 0 over a cluster, three rounds of columns
     ("large", K, 10000, M, 10),
     ("tiled", 8, 30000, 32, 10),
-) + SMALL_SHAPES
+) + SMALL_SHAPES + SERVE_B1
 B2_SHAPES = (
     ("psis", K, D, M, 10),  # own-component log densities of the K × 10 pooled draws
     ("laplace", K, D, 0, 10),  # the same under the Laplace components
@@ -202,7 +225,7 @@ B2_SHAPES = (
     ("wide-m0", 4, 1000, 0, 90),
     ("large", K, 10000, M, 10),
     ("tiled", 8, 30000, 32, 10),
-) + SMALL_SHAPES
+) + SMALL_SHAPES + SERVE_B2
 # B2 over an x of N columns shared by the B factors (the mixture denominator)
 B2_SHARED_SHAPES = (
     ("mixture", K, D, M, 1000),  # every component at every one of the K × 10 pooled draws
@@ -236,6 +259,11 @@ def kernel_phase(wk):
         return view
 
     def factors(B, d, m, offset=0):
+        if B * d * m > 10**8:  # the serving shapes: made on the card, seeded
+            g = torch.Generator("cuda").manual_seed(B)
+            r = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+            return dict(a_half=0.5 + torch.rand((B, d), generator=g, device="cuda"),
+                        X=r(B, d, m) / d**0.5, C=0.1 * r(B, m, m), mu=r(B, d), logdet=10.0 * r(B))
         return dict(
             a_half=t(rng.uniform(0.5, 1.5, (B, d)), offset),
             X=t(rng.standard_normal((B, d, m)) / np.sqrt(d), offset),
@@ -251,7 +279,10 @@ def kernel_phase(wk):
         for label, B, d, m, N in shapes:
             offset = 1 if label.startswith("odd") else 0
             f = factors(B, d, m, offset)
-            if not shared:
+            if B * d * m > 10**8:
+                u = torch.randn((B, d, N), generator=torch.Generator("cuda").manual_seed(N),
+                                device="cuda")
+            elif not shared:
                 u = t(rng.standard_normal((B, d, N)), offset)
             elif label == "mixture-m0":  # a contiguous (d, N) block: the wrapper transposes it once
                 u = t(rng.standard_normal((d, N)))
@@ -284,6 +315,7 @@ def kernel_phase(wk):
             row = dict(label=label, B=B, d=d, m=m, N=N, err=err, ms=ms, plain_ms=plain_ms,
                        bound_us=bound, bound_by=bound_by, plan=plan)
             results[name].append(row)
+            del f, u, args
             print(f"kernel {name} [{label}: B={B} d={d} m={m} N={N}{' shared x' if shared else ''}] "
                   f"plan(cluster,threads,smem,tile{',col_tile' if shared else ''})={plan} "
                   f"max_abs_err={err:.3e} "
@@ -558,8 +590,9 @@ def warm_start_phase(pt, zoo, result):
     import numpy as np
     import torch
 
-    from pathfinder_tpu_torch.integrations import nuts
     from pathfinder_tpu_torch.utils import rng
+
+    nuts = importlib.import_module("pathfinder_tpu_torch.integrations.nuts")
 
     target = zoo.HierarchicalGaussian(D, seed=0)
     mean_t, sd_t = zoo.hierarchical_gaussian_truth(D, seed=0)
@@ -585,11 +618,11 @@ def warm_start_phase(pt, zoo, result):
             fail(f"warm start: {name} {v} outside the JAX band {(lo, hi)}")
 
     # the same chains without Pathfinder: random starts, the identity metric,
-    # windowed adaptation over a warm-up of 300
+    # windowed adaptation over a warm-up of 300, then 100 draws
     starts = rng.Stream(0, torch.arange(NUTS_CHAINS, device="cuda"), 0, rng.INIT).uniform(
         D, torch.float32, "cuda") * 4.0 - 2.0
     cold, cold_summary, secs, leaf_iters = _run_nuts(
-        nuts, 0, target.value_and_grad, None, starts, num_warmup=300, num_samples=NUTS_SAMPLES,
+        nuts, 0, target.value_and_grad, None, starts, num_warmup=300, num_samples=COLD_SAMPLES,
         max_depth=10, adapt_mass_matrix=True)
     cold_total = _nuts_line("cold start (identity metric, windowed adaptation)", cold, cold_summary,
                             secs, leaf_iters)
@@ -629,7 +662,9 @@ def constrained_phase(pt, wk, zoo):
     NUTS, then HMC on the first; returns the kernels' launches."""
     import torch
 
-    from pathfinder_tpu_torch.integrations import hmc, nuts
+    # the submodules: the package exports the functions hmc and nuts under their names
+    hmc = importlib.import_module("pathfinder_tpu_torch.integrations.hmc")
+    nuts = importlib.import_module("pathfinder_tpu_torch.integrations.nuts")
 
     X, y, _ = zoo.german_credit_synthetic()
     Xo, yo, _, _ = zoo.ordered_logistic_synthetic()
@@ -708,6 +743,122 @@ def constrained_phase(pt, wk, zoo):
     return totals
 
 
+def serving_phase(pt, wk, zoo, headline):
+    """32768 paths in slim launches of 8192, offloaded and on the card, then
+    the memory rule's own choice; the result file round trip; the replays
+    on the headline result. Returns the kernels' launches."""
+    import numpy as np
+    import torch
+
+    from pathfinder_tpu_torch.parallel import sharding
+    from pathfinder_tpu_torch.utils.serialize import load_result, save_result
+
+    target = zoo.HierarchicalGaussian(D, seed=0)
+    mean_t, sd_t = zoo.hierarchical_gaussian_truth(D, seed=0)
+    totals = {name: 0 for name in wk.launch_counts()}
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    t_phase = time.perf_counter()
+
+    def run(K, **options):
+        wk.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        free = sharding.free_device_bytes(torch.device("cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pt.multipathfinder(target, 1000, nruns=K, maxiters=64, elbo_chunk=8, seed=0,
+                                 keep_traces=False, **options)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for n, c in wk.launch_counts().items():
+            totals[n] += c
+        by_shape = {n: {f"B={b},m={m},N={n_}": c for (b, m, n_, _), c in sorted(v.items())}
+                    for n, v in wk.launch_counts_by_shape().items()}
+        n_ok = int(res.states.success.sum())
+        khat = float(res.psis_result.pareto_shape)
+        draws = res.draws.double().cpu().numpy()
+        merr = float(np.max(np.abs(draws.mean(axis=1) - mean_t) / sd_t))
+        offloaded = res.states.draws.device.type == "cpu"
+        print(f"serving K={K} options={options}: cap={res.max_paths_per_launch} offloaded={offloaded} "
+              f"paths_ok={n_ok}/{K} tries_max={int(res.num_tries.max())} khat={khat:.4f} "
+              f"moment_err_mean_sd_units={merr:.4f} wall_s={secs:.3f} paths_per_s={K / secs:.1f} "
+              f"peak_device_bytes={torch.cuda.max_memory_allocated()} free_bytes_at_start={free} "
+              f"logp_grad_evals={int(res.states.num_fn_evals.sum())} launches_by_shape={by_shape}",
+              flush=True)
+        if n_ok != K or not np.isfinite(draws).all() or khat != khat:
+            fail(f"serving {options}: {n_ok}/{K} paths, or draws or k-hat not finite")
+        if not (KHAT_BAND[0] <= khat <= KHAT_BAND[1] and MOMENT_ERR_BAND[0] <= merr <= MOMENT_ERR_BAND[1]):
+            fail(f"serving {options}: k-hat {khat} or moment error {merr} outside the headline band")
+        return res, by_shape, torch.cuda.max_memory_allocated()
+
+    off, by_shape, _ = run(SERVE_K, max_paths_per_launch=SERVE_CAP, offload_launches=True)
+    for name, (label, B, _, m, N) in (("sample_and_logq", SERVE_B1[0]), ("whiten_sumsq", SERVE_B2[0])):
+        if by_shape[name].get(f"B={B},m={m},N={N}", 0) <= 0:
+            fail(f"serving: {name} was not launched at its {label} shape (B, N) = ({B}, {N})")
+    st = off.states.draws
+    if not (st.device.type == "cpu" and st.is_pinned() and off.states.fit_distribution.mean.is_pinned()):
+        fail("serving: offloaded states are not pinned host tensors")
+    print(f"serving: offloaded states are pinned host tensors ({st.device}, pinned={st.is_pinned()})",
+          flush=True)
+    on, _, _ = run(SERVE_K, max_paths_per_launch=SERVE_CAP, offload_launches=False)
+    same = (torch.equal(on.draws, off.draws) and torch.equal(on.draw_component_ids, off.draw_component_ids)
+            and float(on.psis_result.pareto_shape) == float(off.psis_result.pareto_shape))
+    if on.states.draws.device.type != "cuda" or not same:
+        fail("serving: offload on and off disagree, or the states left the card without offload")
+    print("serving: offload on and off bitwise equal (draws, component ids, k-hat)", flush=True)
+    del on
+    torch.cuda.empty_cache()
+    est = sharding.lane_bytes(D, 64, 6, 5, 8, 5)
+    auto, _, peak = run(SERVE_K)
+    lanes = auto.max_paths_per_launch or SERVE_K
+    print(f"serving: memory rule chose cap={auto.max_paths_per_launch} "
+          f"offload={auto.states.draws.device.type == 'cpu'} from lane_bytes={est} "
+          f"state_bytes={sharding.state_bytes(D, 64, 6, 5, keep_traces=False)} "
+          f"(LAUNCH_SHARE={sharding.LAUNCH_SHARE}, OFFLOAD_SHARE={sharding.OFFLOAD_SHARE}); "
+          f"max_memory_allocated={peak}, per lane of a launch {peak / lanes:.0f} (with the "
+          f"{SERVE_K} states)", flush=True)
+    del auto
+    torch.cuda.empty_cache()
+
+    small, _, _ = run(FILE_K, max_paths_per_launch=FILE_CAP, offload_launches=True)
+    path = ROOT / "build" / "serving_result"  # build/ is ignored by git; the file is deleted below
+    path.parent.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    save_result(path, small)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_result(path, fn=target)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    size = path.with_suffix(".npz").stat().st_size
+    path.with_suffix(".npz").unlink()
+    again, want = pt.resample(loaded, 1000), pt.resample(small, 1000)
+    if not (torch.equal(again.draws, want.draws) and torch.equal(again.draw_component_ids,
+                                                                  want.draw_component_ids)):
+        fail("serving: resample on the loaded result differs from resample on the result")
+    print(f"serving file K={FILE_K} cap={FILE_CAP}: bytes={size} save_s={t_save:.3f} "
+          f"load_s={t_load:.3f}; resample of the loaded result bitwise equal", flush=True)
+
+    for k in (0, 1, 2):
+        p = headline.path_result(k)
+        est_k, stored = p.elbo_estimates.value, p.elbo_values
+        nan = torch.isnan(stored)
+        if not torch.equal(torch.isnan(est_k), nan) or int((~nan).sum()) == 0:
+            fail(f"replay path {k}: NaN pattern of elbo_estimates differs from elbo_values")
+        got, want = est_k[~nan], stored[~nan]
+        print(f"replay path {k}: {int((~nan).sum())} candidates not NaN, "
+              f"{int((got == want).sum())} bitwise equal", flush=True)
+        if not torch.equal(got, want):
+            fail(f"replay path {k}: elbo_estimates do not replay elbo_values bit for bit")
+    try:
+        off.path_result(0).fit_distributions
+    except ValueError as e:
+        print(f"slim path_result(0).fit_distributions raises: {e}", flush=True)
+    else:
+        fail("fit_distributions of a slim path did not raise")
+    print(f"serving phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return totals
+
+
 def main():
     try:
         import torch
@@ -736,7 +887,7 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     wk.load_library()
     print(f"build: kernels built and loaded in {time.perf_counter() - t0:.2f}s", flush=True)
 
@@ -752,6 +903,8 @@ def main():
     for name, c in constrained_phase(pt, wk, zoo).items():
         if c <= 0:
             fail(f"{name} was not launched on the constrained-model path")
+        counts[name] += c
+    for name, c in serving_phase(pt, wk, zoo, headline).items():
         counts[name] += c
 
     source = "pathfinder_tpu_torch/csrc/woodbury_kernels.cu"
@@ -778,6 +931,7 @@ def main():
         })
         if counts[name] <= 0:
             fail(f"{name} was not launched on the main path")
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,15 @@ A port of ``pathfinder_tpu`` (JAX), which stays the reference. The main path,
 ``multipathfinder`` with L-BFGS, Hager-Zhang and the component denominator,
 the remedies for a bad Pareto k̂ (``optimizer="cg"`` or ``"auto"``, the
 mixture denominator, ``laplace_resample``), constrained models (``transform=``,
-``models.bayes.BayesModel``, the GLMs of ``models.zoo``) and the HMC/NUTS warm
-start from a Pathfinder result (``integrations``) run on any torch device; on
-a CUDA device the Woodbury sample+logq and whiten+sumsq steps run as
-hand-written CUDA kernels.
+``models.bayes.BayesModel``, the GLMs of ``models.zoo``), the HMC/NUTS warm
+start from a Pathfinder result (``integrations``), serving-scale runs
+(``max_paths_per_launch``, ``keep_traces``, ``offload_launches``) and result
+files (``utils.serialize``) run on any torch device; on a CUDA device the
+Woodbury sample+logq and whiten+sumsq steps run as hand-written CUDA kernels.
+
+The JAX package's names are exported where the port has them. Not here:
+``paths_mesh``, ``paths_dim_mesh`` and ``make_path_executor``, the device-mesh
+helpers, which wait for the multi-GPU port.
 """
 
 from pathfinder_tpu_torch.integrations.hmc import WoodburyMetric, hmc, hmc_warm_start
@@ -19,28 +24,45 @@ from pathfinder_tpu_torch.integrations.nuts import (
     warm_start_chains,
 )
 from pathfinder_tpu_torch.models.bayes import BayesModel
-
+from pathfinder_tpu_torch.models.protocol import LogDensity, as_log_density
 from pathfinder_tpu_torch.multipath import (
     MultiPathfinderResult,
     laplace_resample,
     multipathfinder,
     resample,
 )
+from pathfinder_tpu_torch.ops.mvnormal import MvNormal, UniformMixture
+from pathfinder_tpu_torch.ops.psis import PSISResult, psis
+from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat, pdfactorize, pdunfactorize
 from pathfinder_tpu_torch.singlepath import (
     PathfinderConfig,
     PathfinderResult,
     pathfinder,
 )
+from pathfinder_tpu_torch.utils.diagnostics import ess_bulk, ess_tail, split_rhat, summarize
 
 __all__ = [
     "pathfinder",
     "multipathfinder",
     "resample",
     "laplace_resample",
-    "PathfinderConfig",
     "PathfinderResult",
     "MultiPathfinderResult",
+    "PathfinderConfig",
+    "LogDensity",
+    "as_log_density",
     "BayesModel",
+    "MvNormal",
+    "UniformMixture",
+    "WoodburyPDMat",
+    "pdfactorize",
+    "pdunfactorize",
+    "PSISResult",
+    "psis",
+    "ess_bulk",
+    "ess_tail",
+    "split_rhat",
+    "summarize",
     "WoodburyMetric",
     "hmc",
     "hmc_warm_start",

@@ -100,8 +100,9 @@ def trace_from_numpy(
 
 def config_from_fields(config) -> PathfinderConfig:
     """The port's ``PathfinderConfig`` from the JAX package's (a named
-    tuple), or from a mapping with fields of the same names. A field the
-    port does not have must be at its off value (``progress_every=0``)."""
+    tuple), or from a mapping with fields of the same names. The port has
+    every field of the JAX package's; a field it does not know must be at
+    its off value (false, zero or None)."""
     fields = dict(config) if isinstance(config, dict) else config._asdict()
     known = {f.name for f in dataclasses.fields(PathfinderConfig)}
     extra = sorted(k for k, v in fields.items() if k not in known and v)

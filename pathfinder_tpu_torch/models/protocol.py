@@ -20,6 +20,8 @@ __all__ = [
     "as_log_density",
     "autograd_value_and_grad",
     "batched_hessian",
+    "from_pytree_logp",
+    "PytreeTarget",
 ]
 
 
@@ -113,3 +115,77 @@ def _vg_from_parts(logp: Callable, grad: Callable) -> Callable:
         return logp(x), grad(x)
 
     return value_and_grad
+
+
+def _flatten(tree, leaves: list):
+    """Append the leaves of a dict / tuple / list tree to ``leaves`` in the
+    JAX package's order (a dict by sorted key) and return its structure."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        return ("dict", keys, [_flatten(tree[k], leaves) for k in keys])
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), None, [_flatten(v, leaves) for v in tree])
+    leaf = torch.as_tensor(tree)
+    leaves.append(leaf)
+    return ("leaf", tuple(leaf.shape), None)
+
+
+def _unflatten(struct, x: torch.Tensor, at: list):
+    """The tree of ``struct`` over consecutive slices of the last axis of
+    ``x``; every leaf keeps ``x``'s leading axes."""
+    kind, info, children = struct
+    if kind == "leaf":
+        n = 1
+        for s in info:
+            n *= s
+        out = x[..., at[0]:at[0] + n].reshape(x.shape[:-1] + info)
+        at[0] += n
+        return out
+    vals = [_unflatten(c, x, at) for c in children]
+    return dict(zip(info, vals)) if kind == "dict" else kind(vals)
+
+
+def from_pytree_logp(logp_tree: Callable, example_params) -> "PytreeTarget":
+    """A flat-vector target from a log density over a parameter tree (dicts,
+    tuples and lists of tensors), the idiom of PPL-style models.
+
+    ``logp_tree(params)`` takes a tree shaped like ``example_params`` whose
+    leaves carry a leading batch axis, ``(K, *shape)``, and returns
+    ``(K,)``. Leaves are laid out in the JAX package's ``ravel_pytree``
+    order (a dict by sorted key), so a flat vector means the same parameters
+    in both packages. Returns a :class:`PytreeTarget`: its ``.target`` is a
+    :class:`LogDensity` for ``pathfinder``/``multipathfinder``, and
+    ``ravel``/``unravel`` move between the two views."""
+    leaves: list = []
+    struct = _flatten(example_params, leaves)
+    flat0 = torch.cat([leaf.reshape(-1) for leaf in leaves]) if leaves else torch.zeros(0)
+
+    def unravel(x):
+        return _unflatten(struct, x, [0])
+
+    def logp(x):
+        return logp_tree(unravel(x))
+
+    return PytreeTarget(LogDensity(logp=logp, dim=int(flat0.shape[0])), unravel, flat0)
+
+
+@dataclasses.dataclass(frozen=True)
+class PytreeTarget:
+    """The flat-vector view of a tree-parameterized log density.
+    ``unravel(x (..., dim))`` gives the tree with ``x``'s leading axes on
+    every leaf, in ``x``'s dtype."""
+
+    target: LogDensity
+    unravel: Callable
+    example_flat: torch.Tensor
+
+    def ravel(self, params) -> torch.Tensor:
+        """The flat ``(dim,)`` vector of an (unbatched) parameter tree."""
+        leaves: list = []
+        _flatten(params, leaves)
+        return torch.cat([leaf.reshape(-1) for leaf in leaves])
+
+    def unravel_draws(self, draws: torch.Tensor):
+        """A ``(dim, ndraws)`` draw matrix as a tree with a leading draws
+        axis on every leaf."""
+        return self.unravel(draws.mT)

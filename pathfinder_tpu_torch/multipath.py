@@ -3,10 +3,15 @@ the remedies for a bad Pareto k̂: other optimizers and ``optimizer="auto"``,
 the mixture denominator, and the Laplace covariance correction (counterpart
 of ``pathfinder_tpu/multipath.py``).
 
-All K paths run as one batch on one device. Failed paths are retried in
-bounded rounds that re-run only the failed lanes, compacted and padded to a
-power of two. Path ``i`` in round ``r`` draws everything from the streams
-``(seed, i, r, ...)``, so results do not depend on batch layout.
+The K paths run as one batch on one device, or, at serving scale, as
+launches of ``max_paths_per_launch`` lanes each (``parallel/sharding.py``),
+whose outputs may stream into host memory as each launch completes
+(``offload_launches``) and may drop their trajectory arrays
+(``keep_traces=False``); the defaults come from the card's free memory.
+Failed paths are retried in bounded rounds that re-run only the failed
+lanes, compacted and padded to a power of two. Path ``i`` in round ``r``
+draws everything from the streams ``(seed, i, r, ...)``, so results do not
+depend on batch layout, launch cap or offload.
 """
 
 from __future__ import annotations
@@ -33,8 +38,16 @@ from pathfinder_tpu_torch.ops.optimizers import NEWTON_DENSE_DIM_WARN, OPTIMIZER
 from pathfinder_tpu_torch.ops.psis import PSISResult, psis
 from pathfinder_tpu_torch.ops.resample import resample_draws
 from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat
+from pathfinder_tpu_torch.parallel.sharding import (
+    chunk_launches,
+    free_device_bytes,
+    lane_bytes,
+    plan_launches,
+    state_bytes,
+)
 from pathfinder_tpu_torch.singlepath import (
     PathfinderConfig,
+    PathfinderResult,
     SinglePathState,
     pathfinder_core,
     uniform_init_sampler,
@@ -42,15 +55,13 @@ from pathfinder_tpu_torch.singlepath import (
 )
 from pathfinder_tpu_torch.utils import rng
 from pathfinder_tpu_torch.utils.misc import resolve_device, tree_map
+from pathfinder_tpu_torch.utils.progress import ThrottledProgress
 
 __all__ = ["multipathfinder", "MultiPathfinderResult", "resample", "laplace_resample"]
 
 # options of the JAX entry point that this port does not have yet; passing
 # one raises NotImplementedError rather than being silently ignored
-_NOT_PORTED = (
-    "mesh", "max_paths_per_launch", "keep_traces", "offload_launches",
-    "progress", "progress_every",
-)
+_NOT_PORTED = ("mesh",)
 
 
 def _khat_remedy_hint(tried_auto: bool = False, tried_laplace: bool = False) -> str:
@@ -115,22 +126,64 @@ def _log_importance_ratios_mixture(components: MvNormal, draws_knd: torch.Tensor
     return (torch.logsumexp(logq_all, dim=0) - math.log(K)).reshape(K, N)
 
 
+def _slim_traces(states: SinglePathState) -> SinglePathState:
+    """The states without their trajectory arrays (``keep_traces=False``),
+    with the trace's counts kept. The trace is most of a lane's state (xs
+    and gradients are 2·(maxiters+1)·d floats, 520 KB at d=1000 and
+    maxiters=64, against 130 KB for the rest) and nothing pooled reads it.
+    The empty arrays are new tensors, not views, so that the trace's memory
+    is freed before the next launch."""
+    tr = states.trace
+    K, d = tr.xs.shape[0], tr.xs.shape[-1]
+    slim = dataclasses.replace(
+        tr,
+        xs=tr.xs.new_empty((K, 0, d)),
+        log_densities=tr.log_densities.new_empty((K, 0)),
+        gradients=tr.gradients.new_empty((K, 0, d)),
+    )
+    return dataclasses.replace(states, trace=slim)
+
+
+def _blocks(K: int, chunk: Optional[int]):
+    """``[lo, hi)`` path blocks of at most ``chunk`` paths (one without)."""
+    step = K if chunk is None or chunk >= K else chunk
+    return [(lo, min(lo + step, K)) for lo in range(0, K, step)]
+
+
+def _rows(tree, lo: int, hi: int, device):
+    """Rows ``lo:hi`` of every leaf, on ``device``."""
+    return tree_map(lambda t: t[lo:hi].to(device), tree)
+
+
 def _compute_psis_result(
     logp: Callable, components: MvNormal, draws_knd: torch.Tensor,
-    denominator: str = "component",
+    denominator: str = "component", chunk: Optional[int] = None, device=None,
 ) -> PSISResult:
     """PSIS over the pooled log ratios, component-major. ``denominator``:
-    ``"component"``, each draw under its own component, or ``"mixture"``,
-    under the full mixture (:func:`_log_importance_ratios_mixture`)."""
+    ``"component"``, each draw under its own component (kernel B2), or
+    ``"mixture"``, under the full mixture
+    (:func:`_log_importance_ratios_mixture`).
+
+    The components and draws may lie in host memory (an offloaded run);
+    they are computed on ``device`` (default: where they lie). With
+    ``chunk``, the own-component ratios are computed one block of ``chunk``
+    paths at a time, reading the blocks from where they lie; the ratios are
+    per path, so the result is the unchunked one. The mixture needs every
+    component at every draw and is not chunked."""
     K, N, d = draws_knd.shape
-    if denominator == "component":
-        log_q = _log_importance_ratios_fit(components, draws_knd)
-    elif denominator == "mixture":
-        log_q = _log_importance_ratios_mixture(components, draws_knd)
-    else:
+    dev = draws_knd.device if device is None else device
+    if denominator not in ("component", "mixture"):
         raise ValueError(f"unknown importance_denominator {denominator!r}")
-    log_p = logp(draws_knd.reshape(K * N, d)).to(log_q.dtype).reshape(K, N)
-    return psis((log_p - log_q).reshape(-1))
+    ratios = []
+    for lo, hi in _blocks(K, chunk if denominator == "component" else None):
+        comps, dk = _rows(components, lo, hi, dev), draws_knd[lo:hi].to(dev)
+        if denominator == "component":
+            log_q = _log_importance_ratios_fit(comps, dk)
+        else:
+            log_q = _log_importance_ratios_mixture(comps, dk)
+        log_p = logp(dk.reshape(-1, d)).to(log_q.dtype).reshape(hi - lo, N)
+        ratios.append((log_p - log_q).reshape(-1))
+    return psis(torch.cat(ratios))
 
 
 @dataclasses.dataclass
@@ -161,10 +214,76 @@ class MultiPathfinderResult:
     fit_distribution_transformed: Any = None
     draws_transformed: Any = None
     transform: Any = None
+    # the launch cap the run used (None: one launch); resample() and
+    # laplace_resample() work through the paths in blocks of it
+    max_paths_per_launch: Optional[int] = None
 
     @property
     def nruns(self) -> int:
         return self.states.draws.shape[0]
+
+    def _launch_lanes(self, k: int) -> int:
+        """Lanes of the launch that ran path ``k``'s last attempt: round
+        ``r`` ran the paths tried more than ``r`` times, padded to a power
+        of two after round 0, in launches of at most the cap."""
+        r = int(self.states.round[k])
+        n = int((self.num_tries > r).sum())
+        if r > 0:
+            n = 1 << max(0, math.ceil(math.log2(n)))
+        cap = self.max_paths_per_launch
+        return n if cap is None else min(cap, n)
+
+    def path_result(self, k: int) -> PathfinderResult:
+        """Path ``k``'s own :class:`PathfinderResult` on the run's device,
+        with its constrained-space views where the run had a transform."""
+        st = tree_map(lambda t: t[k].to(self.draws.device), self.states)
+        draws_t, fit_t = transformed_outputs(
+            self.transform, self.input, st.draws, st.fit_distribution
+        )
+        return PathfinderResult(
+            input=self.input,
+            config=self.config,
+            seed=self.seed,
+            logp=self.logp,
+            fit_distribution=st.fit_distribution,
+            draws=st.draws,
+            fit_iteration=int(st.fit_iteration),
+            num_tries=int(self.num_tries[k]),
+            optim_trace=st.trace,
+            elbo_values=st.elbo_values,
+            elbo_se=st.elbo_se,
+            num_bfgs_updates_rejected=int(st.num_bfgs_updates_rejected),
+            success=bool(st.success),
+            num_fn_evals=int(st.num_fn_evals),
+            state=st,
+            target=self.target,
+            fit_distribution_transformed=fit_t,
+            draws_transformed=draws_t,
+            transform=self.transform,
+            launch_lanes=self._launch_lanes(k),
+        )
+
+    @property
+    def pathfinder_results(self):
+        return [self.path_result(k) for k in range(self.nruns)]
+
+    def __repr__(self):
+        out = (
+            "Multi-path Pathfinder result\n"
+            f"  runs: {self.nruns}\n"
+            f"  draws: {self.draws.shape[1]}"
+        )
+        if self.psis_result is not None:
+            k = float(self.psis_result.pareto_shape)
+            verdict = self.psis_result.diagnosis
+            out += f"\n  Pareto shape diagnostic: {k:.2f} ({verdict})"
+            if verdict in ("bad", "very bad"):
+                out += (
+                    "\n  hint: k-hat > 0.7 — try optimizer='auto', "
+                    "laplace_resample, or warm_start_chains "
+                    "(docs/examples/resampling.md)"
+                )
+        return out
 
 
 def multipathfinder(
@@ -190,10 +309,30 @@ def multipathfinder(
     gtol: float = 1e-8,
     dtype: Optional[torch.dtype] = None,
     device: Union[str, torch.device] = "cuda",
+    max_paths_per_launch: Optional[int] = None,
+    keep_traces: bool = True,
+    offload_launches: Optional[bool] = None,
+    progress: bool = False,
     **config_overrides,
 ) -> MultiPathfinderResult:
     """Run Pathfinder from ``nruns`` starting points, mix, and importance-
     resample with PSIS.
+
+    Serving scale: ``max_paths_per_launch`` runs the paths as launches of at
+    most that many lanes; ``keep_traces=False`` drops each launch's
+    trajectory arrays as it completes (per-path ``fit_distributions`` and
+    ``elbo_estimates`` then raise); ``offload_launches=True`` streams each
+    launch's states into pinned host memory while the next launch runs, so
+    that they never accumulate on the card (``result.states`` then holds
+    host tensors, read back one block at a time by the PSIS tail,
+    ``resample`` and ``laplace_resample``). None of them changes a random
+    number or a decision. On a CUDA device the defaults follow the card's
+    free memory (``parallel.sharding.plan_launches``): one launch while
+    its estimated peak fits in half of it, else the fewest even launches
+    that fit; offload when a chunked run's states would pass a quarter of
+    it. On the CPU the defaults are one launch and no offload.
+    ``progress=True`` prints a throttled line of succeeded paths after each
+    round of launches.
 
     ``device`` chooses where every tensor lives. The default, ``"cuda"``,
     runs the two Woodbury kernels on the card and raises when CUDA is not
@@ -238,7 +377,8 @@ def multipathfinder(
             importance=importance, importance_denominator=importance_denominator,
             history_length=history_length, maxiters=maxiters, ntries=ntries,
             init_scale=init_scale, init_sampler=init_sampler, gtol=gtol,
-            dtype=dtype, device=device,
+            dtype=dtype, device=device, max_paths_per_launch=max_paths_per_launch,
+            keep_traces=keep_traces, offload_launches=offload_launches, progress=progress,
         )
         winner = _run_auto(fn, ndraws, auto, shared, config_overrides)
         if not suppress_khat_hint:
@@ -306,35 +446,57 @@ def multipathfinder(
         **config_overrides,
     )
 
+    cap, offload = max_paths_per_launch, offload_launches
+    if dev.type == "cuda" and (cap is None or offload is None):
+        cap, offload = plan_launches(
+            nruns,
+            lane_bytes(d, maxiters, history_length, ndraws_elbo, config.elbo_chunk,
+                       ndraws_per_run, dtype),
+            state_bytes(d, maxiters, history_length, ndraws_per_run, dtype, keep_traces),
+            free_device_bytes(dev), cap=cap, offload=offload,
+        )
+
     def run_round(path_ids: torch.Tensor, round_idx: int) -> SinglePathState:
         if init is not None and round_idx == 0:
             x0s = init.to(dtype)
         else:
             stream = rng.Stream(seed, path_ids, round_idx, rng.INIT)
             x0s = sampler(stream, d, dtype, dev)
-        return pathfinder_core(target, x0s, config, seed, path_ids, round_idx)
 
+        def launch(ids, x):
+            st = pathfinder_core(target, x, config, seed, ids, round_idx)
+            # slimmed per launch, so that a launch's trace is freed before the next
+            return st if keep_traces else _slim_traces(st)
+
+        return chunk_launches(launch, cap, bool(offload))(path_ids, x0s)
+
+    reporter = ThrottledProgress(nruns, name="Multi-path Pathfinder") if progress else None
     states = run_round(torch.arange(nruns, device=dev), 0)
     num_tries = np.ones(nruns, dtype=np.int64)
     rounds = 1
     while rounds < ntries:
         failed = ~states.success.cpu().numpy()
+        if reporter is not None:
+            reporter.update(nruns - int(failed.sum()), extra=f"(round {rounds})")
         if not failed.any():
             break
         fidx = np.nonzero(failed)[0]
         B = 1 << max(0, int(np.ceil(np.log2(len(fidx)))))
         sel = np.concatenate([fidx, np.full(B - len(fidx), fidx[0])])
         retry = run_round(torch.as_tensor(sel, device=dev), rounds)
-        rows = torch.as_tensor(fidx, device=dev)
 
         def merge(old, new):
-            out = old.clone()
-            out[rows] = new[: len(fidx)]
-            return out
+            # in place, where the states lie (host memory when offloaded):
+            # this run made them and nothing else holds them
+            old[torch.as_tensor(fidx, device=old.device)] = new[: len(fidx)].to(old.device)
+            return old
 
         states = tree_map(merge, states, retry)
         num_tries[failed] += 1
         rounds += 1
+    if reporter is not None:
+        reporter.update(nruns - int((~states.success).sum()))
+        reporter.close()
 
     n_failed = int((~states.success).sum())
     if n_failed:
@@ -344,16 +506,17 @@ def multipathfinder(
         )
 
     components = states.fit_distribution
-    draws_knd = states.draws.mT  # (K, N, d)
+    draws_knd = states.draws.mT  # (K, N, d), in host memory when offloaded
     psis_result = (
         _compute_psis_result(
-            target.logp, components, draws_knd, denominator=importance_denominator
+            target.logp, components, draws_knd, denominator=importance_denominator,
+            chunk=cap, device=dev,
         )
         if importance
         else None
     )
     draws, component_ids = resample_draws(
-        rng.Stream(seed, 0, 0, rng.RESAMPLE), draws_knd, psis_result, ndraws
+        rng.Stream(seed, 0, 0, rng.RESAMPLE), draws_knd, psis_result, ndraws, device=dev
     )
     if not suppress_khat_hint:
         _maybe_warn_bad_khat(psis_result)
@@ -376,6 +539,7 @@ def multipathfinder(
         fit_distribution_transformed=fit_t,
         draws_transformed=draws_t,
         transform=tld,
+        max_paths_per_launch=cap,
     )
 
 
@@ -515,33 +679,42 @@ def resample(
     denominator that produced it: ``importance_denominator=None`` reuses it
     as it is, and an explicit value recomputes only when it differs from
     the tag. Each call on a result draws from the next round of the
-    resampling stream, so chained calls differ."""
+    resampling stream, so chained calls differ. A serving-scale result is
+    worked through in blocks of its launch cap, its pool left where it lies
+    (in host memory when offloaded)."""
     count = result.resample_count + 1
     components = result.fit_distribution.components
     stored_denom = result.importance_denominator or "component"
     effective_denom = importance_denominator or stored_denom
+    dev, cap = result.draws.device, result.max_paths_per_launch
     if ndraws_per_run is None:
         draws_knd = result.draws_per_component
         psis_stored = result.psis_result
         if effective_denom != stored_denom:
             psis_stored = None  # recompute with the requested ratios
     else:
-        K = components.mean.shape[0]
-        paths = torch.arange(K, device=components.mean.device)
-        stream = rng.Stream(result.seed, paths, count, rng.RESAMPLE_FRESH)
-        draws_knd = components.sample(stream, ndraws_per_run).mT
+        pool = components.mean.device
+        draws_knd = torch.cat([
+            _rows(components, lo, hi, dev).sample(
+                rng.Stream(result.seed, torch.arange(lo, hi, device=dev), count,
+                           rng.RESAMPLE_FRESH),
+                ndraws_per_run,
+            ).mT.to(pool)
+            for lo, hi in _blocks(components.mean.shape[0], cap)
+        ])
         psis_stored = None
     if importance:
         psis_used = psis_stored
         if psis_used is None:
             psis_used = _compute_psis_result(
-                result.logp, components, draws_knd, denominator=effective_denom
+                result.logp, components, draws_knd, denominator=effective_denom,
+                chunk=cap, device=dev,
             )
     else:
         psis_used = None
     draws, component_ids = resample_draws(
         rng.Stream(result.seed, 0, count, rng.RESAMPLE), draws_knd, psis_used,
-        ndraws, replace=replace,
+        ndraws, replace=replace, device=dev,
     )
     # a transform-aware result gets its constrained-space draws rebuilt
     draws_t, _ = transformed_outputs(
@@ -655,7 +828,9 @@ def laplace_resample(
     ``states.fit_distribution`` hold the corrected components, with fresh
     draws from each, a recomputed PSIS diagnostic and ``ndraws`` resampled
     draws. ``elbo_values`` still describe the uncorrected candidate fits.
-    Chain with :func:`resample` to re-resample without correcting again.
+    Chain with :func:`resample` to re-resample without correcting again. A
+    serving-scale result is corrected in blocks of its launch cap, and the
+    corrected components and draws stay where the pool lies.
 
     Not a universal win: where the fitted covariances already match the
     local curvature the correction can be a slight negative. Let the Pareto
@@ -678,20 +853,27 @@ def laplace_resample(
     if hess is None:
         hess = getattr(result.target, "hess", None)
     N = ndraws_per_run if ndraws_per_run is not None else result.draws_per_component.shape[1]
-    paths = torch.arange(K, device=components.mean.device)
-    corrected, draws_knd = laplace_corrected_components_and_draws(
-        result.logp, components, rng.Stream(result.seed, paths, count, rng.LAPLACE_DRAWS),
-        N, method, hess_fn=hess,
-    )
+    dev, cap, pool = result.draws.device, result.max_paths_per_launch, components.mean.device
+    parts, pool_draws = [], []
+    for lo, hi in _blocks(K, cap):
+        stream = rng.Stream(result.seed, torch.arange(lo, hi, device=dev), count, rng.LAPLACE_DRAWS)
+        part, dk = laplace_corrected_components_and_draws(
+            result.logp, _rows(components, lo, hi, dev), stream, N, method, hess_fn=hess
+        )
+        parts.append(tree_map(lambda t: t.to(pool), part))
+        pool_draws.append(dk.to(pool))
+    corrected = parts[0] if len(parts) == 1 else tree_map(lambda *ts: torch.cat(ts), *parts)
+    draws_knd = torch.cat(pool_draws)
     effective_denom = importance_denominator or result.importance_denominator or "component"
     psis_used = (
-        _compute_psis_result(result.logp, corrected, draws_knd, denominator=effective_denom)
+        _compute_psis_result(result.logp, corrected, draws_knd, denominator=effective_denom,
+                             chunk=cap, device=dev)
         if importance
         else None
     )
     draws, component_ids = resample_draws(
         rng.Stream(result.seed, 0, count, rng.LAPLACE_RESAMPLE), draws_knd, psis_used,
-        ndraws, replace=replace,
+        ndraws, replace=replace, device=dev,
     )
     mixture = UniformMixture(corrected)
     draws_t, fit_t = transformed_outputs(result.transform, result.input, draws, mixture)

@@ -35,6 +35,7 @@ def minimize_bfgs_trace(
     c2: float = 0.9,
     fail_on_nonfinite: bool = True,
     line_search: str = "hager_zhang",
+    progress_every: int = 0,
 ) -> OptimizationTrace:
     """Maximize ``logp`` from each row of ``x0 (K, d)`` with dense
     inverse-Hessian BFGS, recording every trajectory.
@@ -114,4 +115,5 @@ def minimize_bfgs_trace(
         value_and_grad, x0, carry, direction_fn, update_fn,
         maxiters=maxiters, gtol=gtol, ftol=ftol, max_ls_evals=max_ls_evals,
         c1=c1, c2=c2, fail_on_nonfinite=fail_on_nonfinite, line_search=line_search,
+        progress_every=progress_every, name="BFGS",
     )

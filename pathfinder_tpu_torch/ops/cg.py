@@ -39,6 +39,7 @@ def minimize_cg_trace(
     c2: float = 0.9,
     fail_on_nonfinite: bool = True,
     line_search: str = "hager_zhang",
+    progress_every: int = 0,
 ) -> OptimizationTrace:
     """Maximize ``logp`` from each row of ``x0 (K, d)`` with PR+ nonlinear
     CG, recording every trajectory.
@@ -98,4 +99,5 @@ def minimize_cg_trace(
         value_and_grad, x0, carry, direction_fn, update_fn,
         maxiters=maxiters, gtol=gtol, ftol=ftol, max_ls_evals=max_ls_evals,
         c1=c1, c2=c2, fail_on_nonfinite=fail_on_nonfinite, line_search=line_search,
+        progress_every=progress_every, name="CG",
     )

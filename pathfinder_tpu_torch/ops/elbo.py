@@ -16,7 +16,13 @@ import torch
 from pathfinder_tpu_torch.ops.mvnormal import MvNormal
 from pathfinder_tpu_torch.utils.misc import findmax_skipnan
 
-__all__ = ["ELBOEstimate", "elbo_and_samples", "maximize_elbo_chunked"]
+__all__ = [
+    "ELBOEstimate",
+    "elbo_and_samples",
+    "elbo_stats",
+    "maximize_elbo",
+    "maximize_elbo_chunked",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +51,29 @@ def elbo_and_samples(logp: Callable, dist: MvNormal, u: torch.Tensor) -> ELBOEst
         # a single draw has no variance information: SE is unknown
         se = torch.full_like(elbo, torch.nan)
     return ELBOEstimate(elbo, se, draws, logp_x, logq, logr)
+
+
+def elbo_stats(logp: Callable, dist: MvNormal, u: torch.Tensor):
+    """``(value, std_err)`` of :func:`elbo_and_samples`; the draws are not
+    kept, since the same noise replays them."""
+    est = elbo_and_samples(logp, dist, u)
+    return est.value, est.std_err
+
+
+def maximize_elbo(logp: Callable, dists: MvNormal, u: torch.Tensor, valid_mask: torch.Tensor):
+    """The ELBO of every candidate at once and the NaN-skipping argmax over
+    the last batch axis: ``dists`` batched ``(..., L)``, their noise
+    ``u (..., L, d, N)``, ``valid_mask (..., L)``. Returns ``(best_idx (...),
+    estimates, best_value (...))``; the values and standard errors of
+    invalid candidates are NaN, as in :func:`maximize_elbo_chunked`."""
+    est = elbo_and_samples(logp, dists, u)
+    est = dataclasses.replace(
+        est,
+        value=torch.where(valid_mask, est.value, torch.nan),
+        std_err=torch.where(valid_mask, est.std_err, torch.nan),
+    )
+    best, idx = findmax_skipnan(est.value)
+    return idx, est, best
 
 
 def maximize_elbo_chunked(

@@ -38,6 +38,8 @@ __all__ = [
     "lbfgs_inverse_hessian",
     "lbfgs_history_aux",
     "lbfgs_fits_at",
+    "lbfgs_inverse_hessians",
+    "history_windows",
 ]
 
 
@@ -100,6 +102,7 @@ def minimize_lbfgs_trace(
     c2: float = 0.9,
     fail_on_nonfinite: bool = True,
     line_search: str = "hager_zhang",
+    progress_every: int = 0,
 ) -> OptimizationTrace:
     """Maximize ``logp`` from each row of ``x0 (K, d)`` with L-BFGS and the
     named line search (Hager-Zhang by default), recording every trajectory.
@@ -109,7 +112,8 @@ def minimize_lbfgs_trace(
     ``gtol`` floored at the problem's scale, the ``ftol`` relative-progress
     stall (in ulps), the record-then-abort rule for non-finite points, and
     the curvature-guarded history update. The masked loop over the K lanes
-    is ``ops/trajectory.py``'s, shared with the other optimizers.
+    is ``ops/trajectory.py``'s, shared with the other optimizers, which also
+    prints the progress lines of ``progress_every > 0``.
     """
     K, d = x0.shape
     dtype, dev = x0.dtype, x0.device
@@ -160,6 +164,7 @@ def minimize_lbfgs_trace(
         value_and_grad, x0, carry, direction_fn, update_fn,
         maxiters=maxiters, gtol=gtol, ftol=ftol, max_ls_evals=max_ls_evals,
         c1=c1, c2=c2, fail_on_nonfinite=fail_on_nonfinite, line_search=line_search,
+        progress_every=progress_every, name="L-BFGS",
     )
 
 
@@ -239,6 +244,18 @@ def _windows_at(acc_list, c_points, points, history_length):
     return torch.where(mask, idx, 0), mask
 
 
+def history_windows(accept: torch.Tensor, history_length: int):
+    """The history window of every trajectory point: for ``accept (K, L)``
+    flags of steps ``1..L``, the step indices (into the ``(K, L, d)`` step
+    arrays) of the at most ``J`` most recent accepted steps before each point
+    ``0..L``, oldest first, and their mask: ``(idx (K, L+1, J), mask (K, L+1,
+    J))``."""
+    K, L = accept.shape
+    acc_list, c_points = _accept_index(accept)
+    points = torch.arange(L + 1, device=accept.device).expand(K, L + 1)
+    return _windows_at(acc_list, c_points, points, history_length)
+
+
 def lbfgs_history_aux(
     trace: OptimizationTrace, epsilon_curvature: float = 1e-12
 ) -> LbfgsHistoryAux:
@@ -286,3 +303,15 @@ def lbfgs_fits_at(aux: LbfgsHistoryAux, points: torch.Tensor, history_length: in
     S_w = _gather_rows(aux.s_steps, idx)  # (K, P, J, d)
     Y_w = _gather_rows(aux.y_steps, idx)
     return lbfgs_inverse_hessian(_gather_rows(aux.alphas, points), S_w, Y_w, mask)
+
+
+def lbfgs_inverse_hessians(
+    trace: OptimizationTrace, history_length: int = 6, epsilon_curvature: float = 1e-12
+):
+    """The inverse-Hessian estimate at every trajectory point, rebuilt from
+    the trace: ``(fits, point_mask, num_rejected)`` with ``fits`` a
+    :class:`WoodburyPDMat` batched ``(K, L+1)`` over paths and points."""
+    aux = lbfgs_history_aux(trace, epsilon_curvature)
+    K, n = aux.point_mask.shape
+    points = torch.arange(n, device=aux.point_mask.device).expand(K, n)
+    return lbfgs_fits_at(aux, points, history_length), aux.point_mask, aux.num_rejected

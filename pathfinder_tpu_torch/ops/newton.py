@@ -40,6 +40,7 @@ def minimize_newton_trace(
     c2: float = 0.9,
     fail_on_nonfinite: bool = True,
     line_search: str = "hager_zhang",
+    progress_every: int = 0,
 ) -> OptimizationTrace:
     """Maximize ``logp`` from each row of ``x0 (K, d)`` with modified
     Newton, recording every trajectory.
@@ -84,4 +85,5 @@ def minimize_newton_trace(
         value_and_grad, x0, {}, direction_fn, lambda st, mid, direction, ls, x_new: {},
         maxiters=maxiters, gtol=gtol, ftol=ftol, max_ls_evals=max_ls_evals,
         c1=c1, c2=c2, fail_on_nonfinite=fail_on_nonfinite, line_search=line_search,
+        progress_every=progress_every, name="Newton",
     )

@@ -5,7 +5,7 @@ A trajectory optimizer is any callable with the **trace contract**
 
     minimize(value_and_grad, x0, *, maxiters, history_length, gtol, ftol,
              epsilon_curvature, max_ls_evals, c1, c2, fail_on_nonfinite,
-             line_search) -> OptimizationTrace
+             line_search[, progress_every]) -> OptimizationTrace
 
 (see :func:`pathfinder_tpu_torch.ops.lbfgs.minimize_lbfgs_trace` for every
 argument and for the fixed-shape trace; ``value_and_grad`` takes a batch
@@ -13,7 +13,8 @@ argument and for the fixed-shape trace; ``value_and_grad`` takes a batch
 trace records logp-view values). The fit, ELBO and draw stages read only the
 trace, so anything that keeps the contract plugs into ``optimizer=`` of both
 entry points. A custom optimizer may accept and ignore arguments it has no use
-for, as CG does with ``history_length``.
+for, as CG does with ``history_length``. ``progress_every`` is passed only
+when ``PathfinderConfig.progress_every`` is above 0.
 """
 
 from __future__ import annotations

@@ -69,17 +69,21 @@ def resample_draws(
     psis_result: Optional[PSISResult],
     ndraws: int,
     replace: bool = True,
+    device=None,
     **noise,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pool the ``(K, N, d)`` per-component draws (component-major) and
     sample ``ndraws`` of them by PSIS weight, or uniformly when
     ``psis_result`` is None. Returns ``(draws (d, ndraws), component_ids
-    (ndraws,))``."""
+    (ndraws,))`` on ``device`` (default: where the pool lies); the pool may
+    lie elsewhere, in host memory for instance, and only the chosen draws
+    move."""
     K, N, d = draws_per_component.shape
     lw = None if psis_result is None else psis_result.log_weights
     idx = resample_indices(
         stream, K * N, ndraws, lw, replace=replace,
-        device=draws_per_component.device, **noise,
+        device=draws_per_component.device if device is None else device, **noise,
     )
-    draws = draws_per_component.reshape(K * N, d)[idx].T
+    at = idx.to(draws_per_component.device)
+    draws = draws_per_component[at // N, at % N].to(idx.device).T
     return draws, idx // N

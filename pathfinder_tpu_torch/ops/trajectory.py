@@ -87,6 +87,8 @@ def minimize_trace(
     c2: float,
     fail_on_nonfinite: bool,
     line_search: str,
+    progress_every: int = 0,
+    name: str = "L-BFGS",
 ) -> OptimizationTrace:
     """Maximize ``logp`` from each row of ``x0 (K, d)``, recording every
     trajectory.
@@ -98,7 +100,9 @@ def minimize_trace(
     ``gs``; it may change the carry before the search. After the line
     search, ``update_fn(st, carry, direction, ls, x_new) -> carry`` gives
     the carry of lanes that ran. A ``nrej`` entry of the carry is reported
-    as the trace's ``num_bfgs_updates_rejected``.
+    as the trace's ``num_bfgs_updates_rejected``. With ``progress_every > 0``
+    each lane that reaches an iteration divisible by it prints
+    ``  {name} iter {it}/{maxiters} logp={logp}`` to standard output.
     """
     K, d = x0.shape
     dtype = x0.dtype
@@ -145,6 +149,10 @@ def minimize_trace(
         xs[lanes, it_new] = torch.where(wr[:, None], x_new, xs[lanes, it_new])
         fs[lanes, it_new] = torch.where(wr, -f_new, fs[lanes, it_new])
         gs[lanes, it_new] = torch.where(wr[:, None], -g_new, gs[lanes, it_new])
+        if progress_every > 0:
+            report = wr & (it_new % progress_every == 0)
+            for it_k, lp in zip(it_new[report].tolist(), (-f_new)[report].tolist()):
+                print(f"  {name} iter {it_k}/{maxiters} logp={lp:.4g}")
 
         converged = g_new.abs().amax(dim=-1) <= gtol_eff
         if ftol_rel > 0:

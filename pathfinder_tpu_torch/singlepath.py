@@ -13,6 +13,7 @@ result does not depend on which batch it runs in.
 from __future__ import annotations
 
 import dataclasses
+import sys
 import warnings
 from typing import Any, Callable, Optional, Union
 
@@ -23,11 +24,16 @@ from pathfinder_tpu_torch.integrations.transforms import (
     transformed_outputs,
 )
 from pathfinder_tpu_torch.models.protocol import LogDensity, as_log_density
-from pathfinder_tpu_torch.ops.elbo import maximize_elbo_chunked
+from pathfinder_tpu_torch.ops.elbo import (
+    ELBOEstimate,
+    elbo_and_samples,
+    maximize_elbo_chunked,
+)
 from pathfinder_tpu_torch.ops.lbfgs import (
     OptimizationTrace,
     lbfgs_fits_at,
     lbfgs_history_aux,
+    lbfgs_inverse_hessians,
 )
 from pathfinder_tpu_torch.ops.mvnormal import MvNormal, fit_mvnormal
 from pathfinder_tpu_torch.ops.optimizers import resolve_optimizer
@@ -65,6 +71,9 @@ class PathfinderConfig:
     # read only the trace it returns
     optimizer: Any = "lbfgs"
     line_search: str = "hager_zhang"  # a name ``ops.linesearch.resolve_line_search`` knows
+    # > 0: every lane prints a line each time its iteration count reaches a
+    # multiple of this (the optimizers' shared loop, ``ops/trajectory.py``)
+    progress_every: int = 0
 
     def __post_init__(self):
         if self.maxiters < 1:
@@ -115,6 +124,14 @@ def candidate_dists(trace: OptimizationTrace, aux, history_length: int) -> Calla
     return make
 
 
+def elbo_noise(seed: int, path_ids, round_idx, cand_idx, d: int, ndraws: int, dtype, device):
+    """The ELBO noise of candidates ``cand_idx (K, C)`` of paths ``path_ids
+    (K,)``: ``u (K, C, d, ndraws)``, one stream per (path, round, candidate)."""
+    stream = rng.Stream(seed, path_ids[:, None], round_idx, rng.ELBO, cand_idx)
+    z = stream.normal(d * ndraws, dtype, device)
+    return z.reshape(cand_idx.shape + (d, ndraws))
+
+
 def pathfinder_core(
     target: LogDensity,
     x0s: torch.Tensor,
@@ -128,9 +145,12 @@ def pathfinder_core(
     K, d = x0s.shape
     dtype = x0s.dtype
     minimize = resolve_optimizer(cfg.optimizer, target, dim=d)
+    # progress_every only where asked for: a user optimizer need not take it
+    progress = {"progress_every": cfg.progress_every} if cfg.progress_every > 0 else {}
     trace = minimize(
         target.value_and_grad,
         x0s,
+        **progress,
         maxiters=cfg.maxiters,
         history_length=cfg.history_length,
         gtol=cfg.gtol,
@@ -147,12 +167,8 @@ def pathfinder_core(
     N = cfg.ndraws_elbo
     make_chunk_dists = candidate_dists(trace, aux, cfg.history_length)
 
-    def elbo_stream(cand_idx):
-        return rng.Stream(seed, path_ids[:, None], round_idx, rng.ELBO, cand_idx)
-
     def noise(cand_idx):
-        z = elbo_stream(cand_idx).normal(d * N, dtype, x0s.device)
-        return z.reshape(cand_idx.shape + (d, N))
+        return elbo_noise(seed, path_ids, round_idx, cand_idx, d, N, dtype, x0s.device)
 
     best_idx, elbo_values, elbo_se, best_elbo = maximize_elbo_chunked(
         target.logp,
@@ -205,10 +221,30 @@ def uniform_init_sampler(scale: float = 2.0) -> Callable:
     return sampler
 
 
+_SLIM_TRACE = (
+    "the trajectory trace was dropped (multipathfinder ran with "
+    "keep_traces=False), so per-point fits cannot be rebuilt; re-run with "
+    "keep_traces=True to use fit_distributions / elbo_estimates"
+)
+
+
 @dataclasses.dataclass
 class PathfinderResult:
     """Single-path result (counterpart of the JAX package's
-    ``PathfinderResult``; the lazy replays are not ported yet)."""
+    ``PathfinderResult``).
+
+    ``fit_distributions`` (a normal at every trajectory point) and
+    ``elbo_estimates`` (every candidate's ELBO with its draws) are rebuilt on
+    demand from the trace, the latter from the same ``(seed, path, round,
+    ELBO, candidate)`` streams the core drew from, so that its values are the
+    stored ``elbo_values``. Both raise where the trace was dropped
+    (``multipathfinder(keep_traces=False)``).
+
+    ``launch_lanes`` is the lane count of the launch the path's last attempt
+    ran in. The ELBO replay runs the path at that lane count (the path's
+    trace repeated), because on a CUDA device a kernel's launch plan and a
+    library's algorithm, and so the order of their sums, follow the batch:
+    at the core's own batch shape the replay gives the core's bits."""
 
     input: Any
     config: PathfinderConfig
@@ -231,6 +267,68 @@ class PathfinderResult:
     fit_distribution_transformed: Any = None
     draws_transformed: Any = None
     transform: Any = None
+    launch_lanes: int = 1
+
+    def _batched_trace(self, lanes: int = 1) -> OptimizationTrace:
+        """The trace repeated on a leading path axis of ``lanes``, as the
+        batched ops take it."""
+        if self.optim_trace.xs.shape[-2] == 0:
+            raise ValueError(_SLIM_TRACE)
+        return tree_map(lambda t: t[None].repeat((lanes,) + (1,) * t.ndim), self.optim_trace)
+
+    @property
+    def fit_distributions(self) -> MvNormal:
+        """The normal fitted at every trajectory point ``0..maxiters``,
+        batched over points."""
+        tr = self._batched_trace()
+        cfg = self.config
+        fits, _, _ = lbfgs_inverse_hessians(tr, cfg.history_length, cfg.epsilon_curvature)
+        return tree_map(lambda t: t[0], fit_mvnormal(tr.xs, tr.gradients, fits))
+
+    @property
+    def elbo_estimates(self) -> ELBOEstimate:
+        """Every candidate's ELBO estimate with its draws, replayed chunk by
+        chunk as the core ran them, at the lane count of the path's launch;
+        NaN where the stored value is NaN (a candidate past the trajectory's
+        end)."""
+        lanes = self.launch_lanes
+        tr = self._batched_trace(lanes)
+        cfg = self.config
+        L, N = cfg.maxiters, cfg.ndraws_elbo
+        C = min(cfg.elbo_chunk, L)
+        d = tr.xs.shape[-1]
+        dev = tr.xs.device
+        make = candidate_dists(tr, lbfgs_history_aux(tr, cfg.epsilon_curvature), cfg.history_length)
+        path = self.state.path_id.reshape(-1)[:1].to(dev).expand(lanes)
+        rnd = int(self.state.round.reshape(-1)[0])
+        chunks = []
+        for c in range(-(-L // C)):
+            idx = (c * C + torch.arange(C, device=dev)).expand(lanes, C)
+            u = elbo_noise(self.seed, path, rnd, idx, d, N, tr.xs.dtype, dev)
+            # the first lane is the path; the others only give the batch its shape
+            chunks.append(tree_map(lambda t: t[0], elbo_and_samples(self.logp, make(idx), u)))
+        est = tree_map(lambda *ts: torch.cat(ts)[:L], *chunks)
+        invalid = torch.isnan(self.elbo_values).to(dev)
+        return dataclasses.replace(
+            est,
+            value=torch.where(invalid, torch.nan, est.value),
+            std_err=torch.where(invalid, torch.nan, est.std_err),
+        )
+
+    def __repr__(self):
+        n = int(self.optim_trace.num_valid) - 1
+        i = self.fit_iteration - 1
+        elbo_s = (
+            f"{float(self.elbo_values[i]):.2f} ± {float(self.elbo_se[i]):.2f}"
+            if 0 <= i < self.elbo_values.shape[-1] else "n/a"
+        )
+        return (
+            "Single-path Pathfinder result\n"
+            f"  tries: {self.num_tries}\n"
+            f"  draws: {self.draws.shape[1]}\n"
+            f"  fit iteration: {self.fit_iteration} (total: {n})\n"
+            f"  fit ELBO: {elbo_s}"
+        )
 
 
 def validate_dtype(dtype) -> None:
@@ -263,6 +361,7 @@ def pathfinder(
     gtol: float = 1e-8,
     dtype: Optional[torch.dtype] = None,
     device: Union[str, torch.device] = "cuda",
+    progress: bool = False,
     **config_overrides,
 ) -> PathfinderResult:
     """The ELBO-best normal approximation along one L-BFGS trajectory, with
@@ -278,7 +377,9 @@ def pathfinder(
     ``TransformedLogDensity``; or pass ``transform=`` a bijector, with ``fn``
     (and ``grad``) then in the constrained space. ``init`` is always in the
     unconstrained space; ``draws_transformed`` and
-    ``fit_distribution_transformed`` hold the constrained-space views."""
+    ``fit_distribution_transformed`` hold the constrained-space views.
+    ``progress=True`` prints ``Optimizing (try N)`` to standard error before
+    each try."""
     dev = resolve_device(device)
     if init is not None:
         init = torch.as_tensor(init, device=dev)
@@ -328,6 +429,8 @@ def pathfinder(
     path0 = torch.zeros(1, dtype=torch.int64, device=dev)
 
     def attempt(itry):
+        if progress:
+            print(f"Optimizing (try {itry})", file=sys.stderr)
         rnd = itry - 1
         if init is not None and itry == 1:
             x0 = init[None]

@@ -23,6 +23,10 @@ from pathfinder_tpu_torch.integrations import transforms as ttr
 from pathfinder_tpu_torch.models import bayes as tb
 from pathfinder_tpu_torch.utils import rng
 
+# one intra-op thread: the suite runs in several worker processes at once, and a
+# thread per core in each makes them contend for the cores
+torch.set_num_threads(1)
+
 TOL = 1e-12
 
 # (distribution name, parameters, points inside the support)

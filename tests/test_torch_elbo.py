@@ -27,6 +27,10 @@ from pathfinder_tpu_torch.ops.lbfgs import lbfgs_history_aux
 from pathfinder_tpu_torch.singlepath import candidate_dists
 from pathfinder_tpu_torch.utils.misc import findmax_skipnan
 
+# one intra-op thread: the suite runs in several worker processes at once, and a
+# thread per core in each makes them contend for the cores
+torch.set_num_threads(1)
+
 
 def test_elbo_values_and_winner_match_jax_with_injected_noise():
     d, K, L, N, chunk = 16, 3, 24, 5, 8

@@ -24,12 +24,16 @@ import torch
 from pathfinder_tpu.models import zoo as jzoo
 from pathfinder_tpu.ops.woodbury import WoodburyPDMat as JW
 from pathfinder_tpu_torch import interop, multipathfinder, pathfinder
-from pathfinder_tpu_torch.integrations import hmc as thmc
 from pathfinder_tpu_torch.models import bayes as tb
 from pathfinder_tpu_torch.models import zoo as tzoo
 
+# one intra-op thread: the suite runs in several worker processes at once, and a
+# thread per core in each makes them contend for the cores
+torch.set_num_threads(1)
+
 # the JAX package's ``integrations`` exports functions named like its modules
 jhmc = importlib.import_module("pathfinder_tpu.integrations.hmc")
+thmc = importlib.import_module("pathfinder_tpu_torch.integrations.hmc")
 
 
 def _parts(rng, n=6, m=4):
@@ -246,8 +250,8 @@ def test_devices_and_inputs():
 
 def test_warm_started_hmc_posterior_agreement():
     """Pathfinder → HMC recovers the mean and covariance of a correlated
-    Gaussian within Monte-Carlo error; four chains share the work of the JAX
-    test's one chain of 4000."""
+    Gaussian within Monte-Carlo error; four chains of 600 draws in place of
+    the JAX test's one chain of 4000."""
     d = 5
     target = tzoo.CorrelatedGaussian(d, seed=3)
     res = pathfinder(target, seed=0, ndraws=10, maxiters=80, history_length=d, device="cpu",
@@ -256,7 +260,7 @@ def test_warm_started_hmc_posterior_agreement():
     metric = thmc.WoodburyMetric.from_result(res)
     assert metric.minv is res.fit_distribution.cov
     vg = thmc.resolve_result_value_and_grad(res)
-    out = thmc.hmc(1, vg, metric, res.draws[:, :4].mT, num_samples=1000, num_warmup=300, num_leapfrog=8)
+    out = thmc.hmc(1, vg, metric, res.draws[:, :4].mT, num_samples=600, num_warmup=200, num_leapfrog=8)
     xs = out.samples.reshape(-1, d).numpy()
     assert float(out.accept_prob.mean()) > 0.6
     np.testing.assert_allclose(xs.mean(axis=0), target.mean, atol=0.15)

@@ -33,6 +33,10 @@ from pathfinder_tpu_torch.models.protocol import batched_hessian
 from pathfinder_tpu_torch.ops.lbfgs import minimize_lbfgs_trace
 from pathfinder_tpu_torch.ops.psis import PSISResult
 
+# one intra-op thread: the suite runs in several worker processes at once, and a
+# thread per core in each makes them contend for the cores
+torch.set_num_threads(1)
+
 CPU = dict(device="cpu")
 
 
@@ -256,9 +260,9 @@ def test_auto_custom_set_perfect_fit_rank_and_early_exit(monkeypatch):
     # the second candidate's weights come out exactly uniform, k̂ not computed
     real, calls = tmp._compute_psis_result, []
 
-    def second_is_perfect(logp, components, draws_knd, denominator="component"):
+    def second_is_perfect(logp, components, draws_knd, denominator="component", **options):
         calls.append(1)
-        out = real(logp, components, draws_knd, denominator)
+        out = real(logp, components, draws_knd, denominator, **options)
         if len(calls) < 2:
             return out
         w = torch.full_like(out.weights, 1.0 / out.weights.shape[0])
@@ -375,7 +379,7 @@ def test_auto_validation_messages_equal_jax():
 
 def test_only_the_winner_warns_with_an_adapted_hint(monkeypatch):
     def bad_psis(khat):
-        def fake(logp, components, draws_knd, denominator="component"):
+        def fake(logp, components, draws_knd, denominator="component", **options):
             n = draws_knd.shape[0] * draws_knd.shape[1]
             w = torch.full((n,), 1.0 / n, dtype=draws_knd.dtype)
             return PSISResult(torch.log(w), w, torch.tensor(khat), n // 5, 1.0)

@@ -19,6 +19,10 @@ from pathfinder_tpu_torch.interop import trace_from_numpy
 from pathfinder_tpu_torch.models import zoo as tzoo
 from pathfinder_tpu_torch.ops import lbfgs as tl
 
+# one intra-op thread: the suite runs in several worker processes at once, and a
+# thread per core in each makes them contend for the cores
+torch.set_num_threads(1)
+
 MAXITERS = 40
 K = 6
 

@@ -21,6 +21,10 @@ import torch
 from pathfinder_tpu.ops import linesearch as jls
 from pathfinder_tpu_torch.ops import linesearch as tls
 
+# one intra-op thread: the suite runs in several worker processes at once, and a
+# thread per core in each makes them contend for the cores
+torch.set_num_threads(1)
+
 SEARCHES = ["hager_zhang", "more_thuente", "wolfe", "backtracking"]
 ALPHA0S = [1.0, 1e-3, 0.3, 7.0, 60.0]
 LAM = np.logspace(-2, 2, 8)

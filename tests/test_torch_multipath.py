@@ -18,6 +18,7 @@
   ``nuts_chains``, on the negative-binomial model against the JAX package.
 """
 
+import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -31,12 +32,18 @@ import torch
 from pathfinder_tpu import multipathfinder as jmultipathfinder
 from pathfinder_tpu.models import zoo as jzoo
 from pathfinder_tpu_torch import laplace_resample, multipathfinder, resample
-from pathfinder_tpu_torch.integrations import nuts as tnuts
 from pathfinder_tpu_torch.integrations import transforms as ttr
 from pathfinder_tpu_torch.models import bayes as tb
 from pathfinder_tpu_torch.models import zoo as tzoo
 from pathfinder_tpu_torch.singlepath import PathfinderConfig, pathfinder_core, pathfinder
 from pathfinder_tpu_torch.utils import rng
+
+# one intra-op thread: the suite runs in several worker processes at once, and a
+# thread per core in each makes them contend for the cores
+torch.set_num_threads(1)
+
+# the submodule: the package exports the function ``nuts`` under its name
+tnuts = importlib.import_module("pathfinder_tpu_torch.integrations.nuts")
 
 
 def _moment_err(draws, mean_t, sd_t):
@@ -199,7 +206,10 @@ def test_importing_the_port_loads_no_jax():
         "import sys, pathfinder_tpu_torch, pathfinder_tpu_torch.interop, "
         "pathfinder_tpu_torch.ops.kernels.woodbury_kernels, "
         "pathfinder_tpu_torch.integrations.nuts, pathfinder_tpu_torch.integrations.ppl, "
-        "pathfinder_tpu_torch.models.bayes, pathfinder_tpu_torch.models.zoo; "
+        "pathfinder_tpu_torch.models.bayes, pathfinder_tpu_torch.models.zoo, "
+        "pathfinder_tpu_torch.models, pathfinder_tpu_torch.integrations, "
+        "pathfinder_tpu_torch.parallel.sharding, pathfinder_tpu_torch.utils.serialize, "
+        "pathfinder_tpu_torch.utils.progress; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pathfinder_tpu')]; "
         "assert not bad, bad"
     )
@@ -208,10 +218,14 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_unported_options_raise():
+    """Only the device mesh is still to port; the serving-scale options of
+    the JAX entry point are taken."""
     t = tzoo.StandardNormal(4)
-    for name in ("mesh", "max_paths_per_launch", "keep_traces", "offload_launches", "progress"):
-        with pytest.raises(NotImplementedError, match=name):
-            multipathfinder(t, 10, nruns=2, maxiters=3, device="cpu", **{name: None})
+    with pytest.raises(NotImplementedError, match="mesh"):
+        multipathfinder(t, 10, nruns=2, maxiters=3, device="cpu", mesh=None)
+    r = multipathfinder(t, 10, nruns=3, maxiters=3, device="cpu", max_paths_per_launch=2,
+                        keep_traces=False, offload_launches=True, progress=False, progress_every=0)
+    assert r.max_paths_per_launch == 2 and r.states.trace.xs.shape == (3, 0, 4)
 
 
 @pytest.mark.parametrize("options", [
@@ -253,8 +267,9 @@ def test_config_carried_over_from_jax():
     for name in PathfinderConfig.__dataclass_fields__:
         assert getattr(tc, name) == getattr(jc, name), name
     assert config_from_fields(dict(maxiters=3)) == PathfinderConfig(maxiters=3)
-    with pytest.raises(NotImplementedError, match="progress_every"):
-        config_from_fields(JConfig(progress_every=5))
+    assert config_from_fields(JConfig(progress_every=5)).progress_every == 5
+    with pytest.raises(NotImplementedError, match="no_such_field"):
+        config_from_fields(dict(maxiters=3, no_such_field=1))
 
 
 def test_cuda_request_without_cuda_raises():
@@ -427,8 +442,6 @@ def test_transform_run_follows_the_jax_trajectories():
 
 
 def _jnuts():
-    import importlib
-
     return importlib.import_module("pathfinder_tpu.integrations.nuts")
 
 
@@ -442,7 +455,7 @@ def test_slice_as_a_whole_negative_binomial_against_jax():
     jt, tt = jzoo.NegativeBinomialRegression(X, y), tzoo.NegativeBinomialRegression(X, y)
     jres = jmultipathfinder(jt, 200, key=jax.random.key(1), nruns=8, maxiters=80)
     jvg, jmetric, jx0 = _jnuts().warm_start_chains(jres, 4)
-    jout, jsum = _jnuts().nuts_chains(jax.random.key(2), jvg, jmetric, jx0, num_samples=300,
+    jout, jsum = _jnuts().nuts_chains(jax.random.key(2), jvg, jmetric, jx0, num_samples=200,
                                    num_warmup=100, max_depth=6)
     # the port, with the constrained density and the bijector given apart
     res = multipathfinder(tt.logp_constrained, 200, transform=tt.bijector, dim=tt.dim, seed=1,
@@ -450,7 +463,7 @@ def test_slice_as_a_whole_negative_binomial_against_jax():
     assert bool(res.states.success.all()) and float(res.psis_result.pareto_shape) < 0.7
     assert bool((res.draws_transformed[d] > 0).all())
     vg, metric, x0s = tnuts.warm_start_chains(res, 4)
-    out, summ = tnuts.nuts_chains(2, vg, metric, x0s, num_samples=300, num_warmup=100, max_depth=6)
+    out, summ = tnuts.nuts_chains(2, vg, metric, x0s, num_samples=200, num_warmup=100, max_depth=6)
     assert not bool(out.diverging.any())
     assert float(summ["rhat"].max()) < 1.05 and float(np.max(np.asarray(jsum["rhat"]))) < 1.05
     jmean, jsd = np.asarray(jsum["mean"]), np.asarray(jsum["sd"])

@@ -19,6 +19,10 @@ from pathfinder_tpu_torch.ops.kernels import woodbury_kernels as wk
 from pathfinder_tpu_torch.ops.mvnormal import MvNormal, UniformMixture
 from pathfinder_tpu_torch.utils.misc import tree_map
 
+# one intra-op thread: the suite runs in several worker processes at once, and a
+# thread per core in each makes them contend for the cores
+torch.set_num_threads(1)
+
 RTOL = 1e-10
 
 

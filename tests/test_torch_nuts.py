@@ -26,11 +26,15 @@ import torch
 from pathfinder_tpu.models import zoo as jzoo
 from pathfinder_tpu.ops.woodbury import WoodburyPDMat as JW
 from pathfinder_tpu_torch import interop
-from pathfinder_tpu_torch.integrations import nuts as tnuts
 from pathfinder_tpu_torch.models import zoo as tzoo
+
+# one intra-op thread: the suite runs in several worker processes at once, and a
+# thread per core in each makes them contend for the cores
+torch.set_num_threads(1)
 
 jnuts = importlib.import_module("pathfinder_tpu.integrations.nuts")
 jhmc = importlib.import_module("pathfinder_tpu.integrations.hmc")
+tnuts = importlib.import_module("pathfinder_tpu_torch.integrations.nuts")
 
 
 def _jax_nuts_noise(key, W, N, d, max_depth):

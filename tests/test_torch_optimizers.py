@@ -32,6 +32,10 @@ from pathfinder_tpu_torch.ops.cg import minimize_cg_trace
 from pathfinder_tpu_torch.ops.lbfgs import minimize_lbfgs_trace
 from pathfinder_tpu_torch.ops.newton import minimize_newton_trace
 
+# one intra-op thread: the suite runs in several worker processes at once, and a
+# thread per core in each makes them contend for the cores
+torch.set_num_threads(1)
+
 MAXITERS = 40
 K, D = 6, 12
 

@@ -18,6 +18,10 @@ from pathfinder_tpu_torch.ops.psis import pareto_k_verdict, psis
 from pathfinder_tpu_torch.ops.resample import resample_draws, resample_indices
 from pathfinder_tpu_torch.utils.rng import RESAMPLE, Stream
 
+# one intra-op thread: the suite runs in several worker processes at once, and a
+# thread per core in each makes them contend for the cores
+torch.set_num_threads(1)
+
 
 def _ratios(case, S=400):
     rng = np.random.default_rng(len(case) + S)

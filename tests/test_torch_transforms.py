@@ -19,6 +19,10 @@ from pathfinder_tpu_torch.ops.mvnormal import MvNormal
 from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat
 from pathfinder_tpu_torch.utils import rng
 
+# one intra-op thread: the suite runs in several worker processes at once, and a
+# thread per core in each makes them contend for the cores
+torch.set_num_threads(1)
+
 TOL = 1e-12
 K, D = 16, 5
 

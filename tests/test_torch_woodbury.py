@@ -20,6 +20,10 @@ from pathfinder_tpu.ops.woodbury import (
 from pathfinder_tpu_torch.interop import woodbury_from_numpy
 from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat, pdfactorize, pdunfactorize
 
+# one intra-op thread: the suite runs in several worker processes at once, and a
+# thread per core in each makes them contend for the cores
+torch.set_num_threads(1)
+
 RTOL = 1e-10
 
 

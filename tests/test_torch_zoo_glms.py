@@ -19,6 +19,10 @@ from pathfinder_tpu_torch.integrations.transforms import TransformedLogDensity
 from pathfinder_tpu_torch.models import zoo as tzoo
 from pathfinder_tpu_torch.models.protocol import batched_hessian
 
+# one intra-op thread: the suite runs in several worker processes at once, and a
+# thread per core in each makes them contend for the cores
+torch.set_num_threads(1)
+
 GENERATORS = [
     ("poisson_synthetic", dict(n=50, d=4, seed=3)),
     ("student_t_synthetic", dict(n=40, d=5, seed=1)),
@@ -108,7 +112,7 @@ def test_ordered_logistic_far_out_is_finite_in_f32():
     assert torch.isfinite(v).all() and torch.isfinite(g).all()
 
 
-def _jax_referee(jtarget, d, key, num_samples=3000, num_warmup=600):
+def _jax_referee(jtarget, d, key, num_samples=1500, num_warmup=400):
     out = jnuts(key, jtarget.value_and_grad, None, jnp.zeros(d), num_samples=num_samples,
                 num_warmup=num_warmup, adapt_mass_matrix=True)
     xs = np.asarray(out.samples)

@@ -25,6 +25,7 @@ from the device time of its kernels.
 Needs a CUDA card and ``nvcc``; prints the card's name and power limit first.
 """
 
+import importlib
 import statistics
 import subprocess
 import sys
@@ -37,7 +38,9 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 import pathfinder_tpu_torch as pt  # noqa: E402
-from pathfinder_tpu_torch.integrations import hmc, nuts  # noqa: E402
+# the submodules: the package exports the functions hmc and nuts under their names
+hmc = importlib.import_module("pathfinder_tpu_torch.integrations.hmc")
+nuts = importlib.import_module("pathfinder_tpu_torch.integrations.nuts")
 from pathfinder_tpu_torch.models import zoo  # noqa: E402
 from pathfinder_tpu_torch.utils import diagnostics  # noqa: E402
 
