@@ -762,7 +762,7 @@ def serving_phase(pt, wk, zoo, headline):
     def run(K, **options):
         wk.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        free = sharding.free_device_bytes(torch.device("cuda"))
+        card = sharding.device_memory_bytes(torch.device("cuda"))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = pt.multipathfinder(target, 1000, nruns=K, maxiters=64, elbo_chunk=8, seed=0,
@@ -781,7 +781,7 @@ def serving_phase(pt, wk, zoo, headline):
         print(f"serving K={K} options={options}: cap={res.max_paths_per_launch} offloaded={offloaded} "
               f"paths_ok={n_ok}/{K} tries_max={int(res.num_tries.max())} khat={khat:.4f} "
               f"moment_err_mean_sd_units={merr:.4f} wall_s={secs:.3f} paths_per_s={K / secs:.1f} "
-              f"peak_device_bytes={torch.cuda.max_memory_allocated()} free_bytes_at_start={free} "
+              f"peak_device_bytes={torch.cuda.max_memory_allocated()} device_bytes={card} "
               f"logp_grad_evals={int(res.states.num_fn_evals.sum())} launches_by_shape={by_shape}",
               flush=True)
         if n_ok != K or not np.isfinite(draws).all() or khat != khat:

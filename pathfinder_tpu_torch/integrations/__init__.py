@@ -3,6 +3,12 @@ export (counterpart of ``pathfinder_tpu/integrations``, with the same names).
 
 ``from_numpyro`` is not here: NumPyro is a JAX library with no meaning for
 torch models.
+
+As in the JAX package, the functions ``hmc`` and ``nuts`` are exported
+under the names of their submodules, so ``from pathfinder_tpu_torch.integrations
+import nuts`` (and ``import pathfinder_tpu_torch.integrations.nuts as m``)
+give the function. Reach a submodule itself with
+``importlib.import_module("pathfinder_tpu_torch.integrations.nuts")``.
 """
 
 from pathfinder_tpu_torch.integrations.hmc import (

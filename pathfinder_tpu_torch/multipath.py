@@ -7,11 +7,15 @@ The K paths run as one batch on one device, or, at serving scale, as
 launches of ``max_paths_per_launch`` lanes each (``parallel/sharding.py``),
 whose outputs may stream into host memory as each launch completes
 (``offload_launches``) and may drop their trajectory arrays
-(``keep_traces=False``); the defaults come from the card's free memory.
+(``keep_traces=False``); the defaults come from the card's total memory.
 Failed paths are retried in bounded rounds that re-run only the failed
 lanes, compacted and padded to a power of two. Path ``i`` in round ``r``
-draws everything from the streams ``(seed, i, r, ...)``, so results do not
-depend on batch layout, launch cap or offload.
+draws everything from the streams ``(seed, i, r, ...)``, so batch layout,
+launch cap and offload change no random number. Offload changes no bit. The
+batch layout and the cap can change the last bits (on a CUDA device a
+kernel's launch plan and a library's algorithm follow the batch), and
+through them, rarely, a decision that sits on a tie, such as the step at
+which a path's ``ftol`` test stops it.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from pathfinder_tpu_torch.ops.resample import resample_draws
 from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat
 from pathfinder_tpu_torch.parallel.sharding import (
     chunk_launches,
-    free_device_bytes,
+    device_memory_bytes,
     lane_bytes,
     plan_launches,
     state_bytes,
@@ -222,17 +226,6 @@ class MultiPathfinderResult:
     def nruns(self) -> int:
         return self.states.draws.shape[0]
 
-    def _launch_lanes(self, k: int) -> int:
-        """Lanes of the launch that ran path ``k``'s last attempt: round
-        ``r`` ran the paths tried more than ``r`` times, padded to a power
-        of two after round 0, in launches of at most the cap."""
-        r = int(self.states.round[k])
-        n = int((self.num_tries > r).sum())
-        if r > 0:
-            n = 1 << max(0, math.ceil(math.log2(n)))
-        cap = self.max_paths_per_launch
-        return n if cap is None else min(cap, n)
-
     def path_result(self, k: int) -> PathfinderResult:
         """Path ``k``'s own :class:`PathfinderResult` on the run's device,
         with its constrained-space views where the run had a transform."""
@@ -260,7 +253,6 @@ class MultiPathfinderResult:
             fit_distribution_transformed=fit_t,
             draws_transformed=draws_t,
             transform=self.transform,
-            launch_lanes=self._launch_lanes(k),
         )
 
     @property
@@ -326,11 +318,14 @@ def multipathfinder(
     that they never accumulate on the card (``result.states`` then holds
     host tensors, read back one block at a time by the PSIS tail,
     ``resample`` and ``laplace_resample``). None of them changes a random
-    number or a decision. On a CUDA device the defaults follow the card's
-    free memory (``parallel.sharding.plan_launches``): one launch while
-    its estimated peak fits in half of it, else the fewest even launches
-    that fit; offload when a chunked run's states would pass a quarter of
-    it. On the CPU the defaults are one launch and no offload.
+    number; offload changes no bit, the cap may change the last bits
+    (see the module docstring). On a CUDA device the defaults follow the
+    card's total memory (``parallel.sharding.plan_launches``), so a card
+    and a set of options always give the same cap: one launch while its
+    estimated peak fits in half of it, else the fewest even launches that
+    fit; offload when a chunked run's states would pass a quarter of it.
+    Where other work holds memory on the card, pass the cap. On the CPU the
+    defaults are one launch and no offload.
     ``progress=True`` prints a throttled line of succeeded paths after each
     round of launches.
 
@@ -453,7 +448,7 @@ def multipathfinder(
             lane_bytes(d, maxiters, history_length, ndraws_elbo, config.elbo_chunk,
                        ndraws_per_run, dtype),
             state_bytes(d, maxiters, history_length, ndraws_per_run, dtype, keep_traces),
-            free_device_bytes(dev), cap=cap, offload=offload,
+            device_memory_bytes(dev), cap=cap, offload=offload,
         )
 
     def run_round(path_ids: torch.Tensor, round_idx: int) -> SinglePathState:

@@ -10,9 +10,14 @@ its ``(seed, path id, round)`` streams, so the cap and the offload change no
 random number and no decision.
 
 The defaults come from this card's memory: :func:`plan_launches` takes the
-free device memory, a per-lane estimate of one launch's peak
+card's total memory, a per-lane estimate of one launch's peak
 (:func:`lane_bytes`) and of the state a lane keeps (:func:`state_bytes`),
-both pure functions of the configuration.
+all three fixed for a card and a configuration. The plan is taken from the
+total, not the free memory, because the cap can change a result's last bits
+(a kernel's launch plan and a library's algorithm follow the batch), so the
+same card and the same options always choose the same cap. Memory that
+other work holds on the card is the caller's to leave room for, by passing
+``max_paths_per_launch``.
 """
 
 from __future__ import annotations
@@ -29,15 +34,15 @@ __all__ = [
     "lane_bytes",
     "state_bytes",
     "plan_launches",
-    "free_device_bytes",
+    "device_memory_bytes",
     "LAUNCH_SHARE",
     "OFFLOAD_SHARE",
 ]
 
-# Of the free device memory: what one launch's estimated peak may take (the
-# rest is for the caching allocator's fragmentation, the accumulated states
-# and the PSIS tail), and what the accumulated states of all launches may
-# take before they are streamed to the host instead.
+# Of the card's memory: what one launch's estimated peak may take (the rest
+# is for the caching allocator's fragmentation, the accumulated states and
+# the PSIS tail), and what the accumulated states of all launches may take
+# before they are streamed to the host instead.
 LAUNCH_SHARE = 0.5
 OFFLOAD_SHARE = 0.25
 
@@ -124,13 +129,13 @@ def state_bytes(d: int, maxiters: int, history_length: int, ndraws: int,
                 dtype=torch.float32, keep_traces: bool = True) -> int:
     """Bytes of one lane's ``SinglePathState``: the trace (none with
     ``keep_traces=False``), the ELBO values, the fitted normal and its
-    factor, the draws, nine int64 counters and ids, and the success flag.
+    factor, the draws, ten int64 counters and ids, and the success flag.
     ``ndraws`` is the draws per path."""
     m, L = 2 * history_length, maxiters
     trace = (2 * (L + 1) * d + (L + 1)) if keep_traces else 0
     fit = d + (d + d * m + m * m) + (d + d * m + 2 * m * m + 1)  # mean; A, B, D; the factor
     floats = trace + 2 * L + fit + d * ndraws
-    return floats * (torch.finfo(dtype).bits // 8) + 8 * 9 + 1
+    return floats * (torch.finfo(dtype).bits // 8) + 8 * 10 + 1
 
 
 def lane_bytes(d: int, maxiters: int, history_length: int, ndraws_elbo: int,
@@ -157,28 +162,26 @@ def lane_bytes(d: int, maxiters: int, history_length: int, ndraws_elbo: int,
     return held + max(C * f * 11 * J * d, C * sample(ndraws_elbo), sample(ndraws))
 
 
-def plan_launches(K: int, peak_per_lane: int, state_per_lane: int, free_bytes: int,
+def plan_launches(K: int, peak_per_lane: int, state_per_lane: int, device_bytes: int,
                   cap: Optional[int] = None, offload: Optional[bool] = None):
-    """``(cap, offload)`` for ``K`` paths given ``free_bytes`` of device
+    """``(cap, offload)`` for ``K`` paths on a card of ``device_bytes`` of
     memory. A ``cap`` or ``offload`` that is given is kept.
 
     Without a cap the paths run in the fewest launches whose estimated peak
-    fits in ``LAUNCH_SHARE`` of the free memory, split evenly (``None``: one
-    launch). Without an offload choice the states go to the host when the
-    run is chunked and the states of all ``K`` lanes would pass
-    ``OFFLOAD_SHARE`` of the free memory."""
+    fits in ``LAUNCH_SHARE`` of the card's memory, split evenly (``None``:
+    one launch). Without an offload choice the states go to the host when
+    the run is chunked and the states of all ``K`` lanes would pass
+    ``OFFLOAD_SHARE`` of it."""
     if cap is None:
-        fit = max(1, int(LAUNCH_SHARE * free_bytes) // max(1, peak_per_lane))
+        fit = max(1, int(LAUNCH_SHARE * device_bytes) // max(1, peak_per_lane))
         n_chunks = -(-K // fit)
         cap = None if n_chunks == 1 else -(-K // n_chunks)
     if offload is None:
         chunked = cap is not None and cap < K
-        offload = chunked and K * state_per_lane > OFFLOAD_SHARE * free_bytes
+        offload = chunked and K * state_per_lane > OFFLOAD_SHARE * device_bytes
     return cap, bool(offload)
 
 
-def free_device_bytes(device) -> int:
-    """Device memory this process could still allocate: the free memory the
-    CUDA runtime reports and what the caching allocator holds unused."""
-    free, _ = torch.cuda.mem_get_info(device)
-    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+def device_memory_bytes(device) -> int:
+    """The card's total memory, as the CUDA runtime reports it."""
+    return torch.cuda.mem_get_info(device)[1]

@@ -89,6 +89,7 @@ class SinglePathState:
     success: torch.Tensor  # (K,) bool
     path_id: torch.Tensor  # (K,) stream path ids
     round: torch.Tensor  # (K,) stream round of each path's attempt
+    launch_lanes: torch.Tensor  # (K,) lanes of the launch that ran each attempt
     trace: OptimizationTrace
     fit_iteration: torch.Tensor  # (K,) 1-based trajectory iteration
     elbo_values: torch.Tensor  # (K, maxiters) per candidate (NaN = invalid)
@@ -198,6 +199,7 @@ def pathfinder_core(
         success=success,
         path_id=path_ids,
         round=torch.full_like(path_ids, round_idx),
+        launch_lanes=torch.full_like(path_ids, K),
         trace=trace,
         fit_iteration=best_idx + 1,
         elbo_values=elbo_values,
@@ -238,13 +240,7 @@ class PathfinderResult:
     demand from the trace, the latter from the same ``(seed, path, round,
     ELBO, candidate)`` streams the core drew from, so that its values are the
     stored ``elbo_values``. Both raise where the trace was dropped
-    (``multipathfinder(keep_traces=False)``).
-
-    ``launch_lanes`` is the lane count of the launch the path's last attempt
-    ran in. The ELBO replay runs the path at that lane count (the path's
-    trace repeated), because on a CUDA device a kernel's launch plan and a
-    library's algorithm, and so the order of their sums, follow the batch:
-    at the core's own batch shape the replay gives the core's bits."""
+    (``multipathfinder(keep_traces=False)``)."""
 
     input: Any
     config: PathfinderConfig
@@ -267,7 +263,6 @@ class PathfinderResult:
     fit_distribution_transformed: Any = None
     draws_transformed: Any = None
     transform: Any = None
-    launch_lanes: int = 1
 
     def _batched_trace(self, lanes: int = 1) -> OptimizationTrace:
         """The trace repeated on a leading path axis of ``lanes``, as the
@@ -288,10 +283,17 @@ class PathfinderResult:
     @property
     def elbo_estimates(self) -> ELBOEstimate:
         """Every candidate's ELBO estimate with its draws, replayed chunk by
-        chunk as the core ran them, at the lane count of the path's launch;
-        NaN where the stored value is NaN (a candidate past the trajectory's
-        end)."""
-        lanes = self.launch_lanes
+        chunk as the core ran them; NaN where the stored value is NaN (a
+        candidate past the trajectory's end).
+
+        The replay runs at the lane count of the launch that ran the path
+        (``state.launch_lanes``, the path's trace repeated), because on a
+        CUDA device a kernel's launch plan and a library's algorithm, and so
+        the order of their sums, follow the batch: at the core's own batch
+        shape the replay gives the core's bits. So each call costs the ELBO
+        stage of one whole launch, up to ``max_paths_per_launch`` lanes, and
+        replaying every path of a run costs about one launch per path."""
+        lanes = int(self.state.launch_lanes.reshape(-1)[0])
         tr = self._batched_trace(lanes)
         cfg = self.config
         L, N = cfg.maxiters, cfg.ndraws_elbo

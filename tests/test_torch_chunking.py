@@ -8,7 +8,7 @@ to 1e-10 on every lane, except that one lane may take one more or one fewer
 step where the ``ftol`` stall test at the f64 noise floor is decided by
 summation order. Offload, a slim trace and the block-wise PSIS tail move
 bits only, so they are compared bitwise. The memory rule is a pure function
-of the configuration and a free-memory figure, checked without a card.
+of the configuration and the card's memory, checked without a card.
 """
 
 import warnings
@@ -110,11 +110,19 @@ def test_retries_merge_into_offloaded_states():
         single = multipathfinder(_flaky, 40, offload_launches=True, **kw)
     assert int(plain.num_tries.max()) > 2  # retry rounds ran
     assert bool(plain.states.success.all())
-    for res in (chunked, single):
+    for res, cap in ((chunked, 4), (single, None)):
         assert torch.equal(res.num_tries, plain.num_tries)
         assert torch.equal(res.states.round, plain.states.round)
         assert torch.equal(res.states.fit_distribution.mean, plain.states.fit_distribution.mean)
         assert torch.equal(res.draws, plain.draws)
+        # each path keeps the width of the launch that ran its last attempt:
+        # round 0 ran all K paths, a retry round its failed paths padded to a
+        # power of two, in launches of at most the cap
+        for k in range(K):
+            r = int(res.states.round[k])
+            n = int((res.num_tries > r).sum())
+            n = n if r == 0 else 1 << (n - 1).bit_length()
+            assert int(res.states.launch_lanes[k]) == (n if cap is None else min(cap, n))
 
 
 def test_keep_traces_false(target, one_launch):
@@ -160,25 +168,25 @@ def test_resample_and_laplace_resample_on_an_offloaded_chunked_result(target, on
                                    rtol=1e-10)
 
 
-def test_memory_rule_is_a_pure_function_of_free_memory():
+def test_memory_rule_is_a_pure_function_of_device_memory():
     peak = sharding.lane_bytes(1000, 64, 6, 5, 8, 5)
     slim = sharding.state_bytes(1000, 64, 6, 5, keep_traces=False)
     full = sharding.state_bytes(1000, 64, 6, 5)
     assert peak == sharding.lane_bytes(1000, 64, 6, 5, 8, 5) and peak > full > slim
-    free = 80 * 10**9
-    fit = int(sharding.LAUNCH_SHARE * free) // peak
+    card = 80 * 10**9
+    fit = int(sharding.LAUNCH_SHARE * card) // peak
     # one launch where it fits; else the fewest even launches that fit
-    assert sharding.plan_launches(fit, peak, slim, free) == (None, False)
-    cap, off = sharding.plan_launches(32768, peak, slim, free)
+    assert sharding.plan_launches(fit, peak, slim, card) == (None, False)
+    cap, off = sharding.plan_launches(32768, peak, slim, card)
     n = -(-32768 // cap)
     assert cap <= fit and n == -(-32768 // fit) and n * cap - 32768 < n and not off
     # traces kept: 32768 states pass a quarter of the card, so they go to the host
-    assert sharding.plan_launches(32768, peak, full, free)[1]
+    assert sharding.plan_launches(32768, peak, full, card)[1]
     # what the caller gives is kept
-    assert sharding.plan_launches(32768, peak, full, free, cap=8192, offload=False) == (8192, False)
-    assert sharding.plan_launches(100, peak, full, free, offload=True) == (None, True)
+    assert sharding.plan_launches(32768, peak, full, card, cap=8192, offload=False) == (8192, False)
+    assert sharding.plan_launches(100, peak, full, card, offload=True) == (None, True)
     # a smaller card, a smaller cap; f64 doubles the floats
-    assert sharding.plan_launches(32768, peak, slim, free // 4)[0] < cap
+    assert sharding.plan_launches(32768, peak, slim, card // 4)[0] < cap
     assert sharding.lane_bytes(1000, 64, 6, 5, 8, 5, torch.float64) > peak
     assert sharding.pad_paths(9) == 9 and sharding.pad_paths(9, 4) == 12 and sharding.pad_paths(9, 9) == 9
 

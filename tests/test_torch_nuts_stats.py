@@ -56,24 +56,24 @@ def test_nuts_windowed_mass_matrix_adaptation():
     """Windowed adaptation learns a badly scaled target's variances from the
     identity: per chain, the adapted diagonal M⁻¹ matches the marginal
     variances, and the trees get shallower than with the identity."""
-    scales = np.asarray([0.2, 1.0, 5.0, 2.0])  # sd spread 25:1
+    scales = np.asarray([0.05, 1.0, 20.0, 5.0])  # sd spread 400:1
     d = 4
     st = torch.tensor(scales)
     vg = tzoo.LogDensity(lambda x: -0.5 * torch.sum((x / st) ** 2, dim=-1), d).value_and_grad
     x0 = torch.zeros(6, d, dtype=torch.float64)
-    out = tnuts.nuts(5, vg, None, x0, num_samples=150, num_warmup=300, max_depth=7,
+    out = tnuts.nuts(5, vg, None, x0, num_samples=150, num_warmup=300, max_depth=8,
                      adapt_mass_matrix=True)
     assert out.inv_mass_diag.shape == (6, d)
     # each chain's estimate comes from its last window's correlated draws:
     # the mean over the 6 chains is held to the JAX test's 0.5, every single
-    # chain to a factor of 3 (the spread to learn is 625:1)
+    # chain to a factor of 3 (the spread to learn is 160,000:1)
     np.testing.assert_allclose(out.inv_mass_diag.mean(0).numpy(), scales**2, rtol=0.5)
     ratio = out.inv_mass_diag.numpy() / scales**2
     assert ratio.min() > 1 / 3 and ratio.max() < 3
     xs = out.samples.reshape(-1, d).numpy()
     np.testing.assert_allclose(xs.std(axis=0), scales, rtol=0.15)
     assert np.abs(xs.mean(axis=0) / scales).max() < 0.15
-    fixed = tnuts.nuts(5, vg, None, x0[:2], num_samples=20, num_warmup=20, max_depth=7)
+    fixed = tnuts.nuts(5, vg, None, x0[:2], num_samples=40, num_warmup=60, max_depth=8)
     assert float(out.tree_depths.double().mean()) < float(fixed.tree_depths.double().mean())
     dense = WoodburyMetric(interop.woodbury_from_numpy(np.eye(d), np.zeros((d, 0)), np.zeros((0, 0))))
     with pytest.raises(ValueError, match="requires a diagonal-A metric"):

@@ -12,7 +12,7 @@ history_length=6, ndraws_elbo=5, elbo_chunk=8, 5 draws a path, f32) it runs
 * ``torch.cuda.max_memory_allocated()`` after ``reset_peak_memory_stats()``,
   less what was allocated before, in all and per lane, beside
   ``parallel.sharding.lane_bytes``, the estimate that ``multipathfinder``'s
-  memory rule divides the free memory by;
+  memory rule divides the card's memory by;
 * the bytes of the state one lane keeps, traces kept and slim, beside
   ``parallel.sharding.state_bytes``.
 
