@@ -17,7 +17,13 @@ Phases, each of which fails the run (exit code 1) on any error:
    odd, wide, large and row-tiled ones, with random factors from a seeded
    numpy RNG; a repeated launch must give the same bits. Prints each one's launch plan, its L2-cold time beside
    the plain version's and its bound, and the registers and spills of the
-   main path's kernel instantiations (``ptxas -v`` at build time).
+   main path's kernel instantiations (``ptxas -v`` at build time). Then the
+   general kernel (every dtype and rank the fast one does not take) in its
+   three modes against its plain version at float64, float32, bfloat16 and
+   float16 and ranks 0, 12, 40, 100 and 258 (d = 1000 timed L2-cold beside
+   its bound; d = 999 unaligned; d = 25), at float32 against the fast
+   kernel, with its sums in the global workspace, and its registers and
+   spills.
 3. The main path: ``multipathfinder`` on ``HierarchicalGaussian(1000)`` with
    100 paths for 5 seeds (the headline configuration), with every path
    succeeding, finite draws and k̂, both kernels launched in every run (the
@@ -59,6 +65,17 @@ Phases, each of which fails the run (exit code 1) on any error:
    run (launches of 1024) whose ``resample`` is bitwise equal; the
    ``elbo_estimates`` replay of a headline path against its stored
    ``elbo_values``; and ``fit_distributions`` of a slim path raising.
+8. Dtypes and ranks, the general kernel's paths: BASELINE config 2
+   (``pathfinder(CorrelatedGaussian(100), history_length=20)``) on 5 seeds
+   with its moment errors inside the JAX band, ``history_length=50``, the
+   headline at ``history_length=20`` and in float64 on 5 seeds (k̂ and moment
+   error inside the JAX-x64 band), and one headline call each in bfloat16
+   and float16 with the JAX package's warning and outcome; each run launches
+   the general kernel and never the fast one, and the earlier float32 phases
+   never launch the general one.
+9. The memory rule: a chunked BFGS run and a blocked ``laplace_resample``
+   at d = 1000 under the rule's own choice, each estimate at least the
+   measured peak and at most twice it.
 
 The second-to-last lines are a JSON summary of the kernels and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -121,6 +138,10 @@ X_TOL = (1e-5, 1e-5)
 SUM_TOL = (1e-4, 1e-4)
 
 D, K, M = 1000, 100, 12
+# the fast kernel (float32, rank <= 32: every phase before the dtype and rank
+# phases) and the general one (every other dtype or rank)
+FAST_KERNELS = ("sample_and_logq", "whiten_sumsq")
+GENERAL_KERNELS = ("sample_and_logq_general", "whiten_sumsq_general")
 SEEDS = (0, 1, 2, 3, 4)
 # the auto runs of the remedy phase: the first three seeds, since the
 # warm-start and constrained-model phases share the run's time
@@ -144,9 +165,11 @@ def check_close(name, got, want, tol):
 
 
 # Hopper peaks the bounds are taken against (NVIDIA's H100 SXM data sheet):
-# HBM bytes/s and float32 FLOP/s outside the tensor cores
+# HBM bytes/s, float32 FLOP/s outside the tensor cores (the rate of the
+# float32 accumulation the 16-bit cases run in) and float64 FLOP/s outside them
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+F64_FLOPS_PER_S = 34e12
 FLUSH_BYTES = 256 * 2**20  # more than the 50 MB L2: written before each timed launch
 
 
@@ -172,17 +195,19 @@ def time_cold_ms(fn, reps=20):
     return statistics.median(times)
 
 
-def bound_us(name, B, d, m, N, shared=False):
+def bound_us(name, B, d, m, N, shared=False, itemsize=4):
     """Least time for the function's work on this card: each input read
-    once, each output written once (f32), or its flops at the f32 rate,
-    whichever is larger; and which of the two it is. A ``shared`` x of N
-    columns is one input of d·N floats, whatever the number of factors."""
+    once, each output written once (``itemsize`` bytes a value), or its
+    flops at the rate of its accumulation type (float64 for 8-byte values,
+    float32 otherwise), whichever is larger; and which of the two it is. A
+    ``shared`` x of N columns is one input of d·N values, whatever the number
+    of factors."""
     x_floats = d * N if shared else B * d * N
     reads = x_floats + B * (d * m + 2 * d + m * m) + (B if name == "sample_and_logq" else 0)
     writes = B * N + (B * d * N if name == "sample_and_logq" else 0)
     flops = B * N * (4 * d * m + 2 * m * m + 6 * d)
-    t_bytes = 4 * (reads + writes) / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOPS_PER_S
+    t_bytes = itemsize * (reads + writes) / HBM_BYTES_PER_S
+    t_ops = flops / (F64_FLOPS_PER_S if itemsize == 8 else F32_FLOPS_PER_S)
     return 1e6 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -329,6 +354,189 @@ def kernel_phase(wk):
     return results
 
 
+# The general kernel (float16, bfloat16, float32, float64; any rank) against
+# its plain version: both accumulate in float64 for float64 and in float32
+# otherwise, and round each output to the storage dtype once. Tolerances:
+# float64 rtol = atol = 1e-12 (the same arithmetic summed in another order);
+# float32 as the fast kernel's, X_TOL on x and SUM_TOL on the sums; float16
+# and bfloat16 4 ulps of the storage dtype at the output's magnitude,
+# |got − want| <= 4·eps·max(|want|, mean |want|): the float32 sums of the two
+# versions differ in their last bits, and rounding once to 16 bits can then
+# land one ulp apart; the floor at the mean magnitude covers values that
+# cancel to near zero. The general kernel at float32 and rank 12 against the
+# fast kernel: rtol = atol = 1e-5 on everything.
+GENERAL_DTYPES = ("float64", "float32", "bfloat16", "float16")
+GENERAL_RANKS = (0, 12, 40, 100, 258)
+GENERAL_F64_TOL = (1e-12, 1e-12)
+GENERAL_VS_FAST_TOL = (1e-5, 1e-5)
+ULPS_16 = 4
+# (label, B, d, N): B1's ELBO chunk, B2's PSIS ratios and B2 over a shared x
+# of 1000 columns at the headline width (timed); the same at d = 999, one
+# value off 16-byte alignment, and at d = 25, the constrained models' width
+GENERAL_B1 = (("elbo", K * 8, D, 5), ("odd-elbo", 8, 999, 5), ("glm-elbo", 128, 25, 5))
+GENERAL_B2 = (("psis", K, D, 10), ("odd-psis", 8, 999, 10), ("glm-psis", K, 25, 10))
+GENERAL_SHARED = (("mixture", K, D, 1000), ("odd-mixture", 8, 999, 1000),
+                  ("glm-mixture", 8, 25, 1000))
+# the main paths of the general kernel: the float64 headline (d = 1000, m =
+# 12) and BASELINE config 2 (CorrelatedGaussian(100), history_length = 20:
+# m = 40, single path: an ELBO chunk of 16 candidates × 100 draws, 2000
+# output draws)
+GENERAL_MAIN = {"sample_and_logq": ("float64", "elbo", 12), "whiten_sumsq": ("float64", "psis", 12)}
+CONFIG2_B1 = (("config2-elbo", 16, 100, 40, 100), ("config2-draws", 1, 100, 40, 2000))
+
+
+def _seeded_inputs(rng, B, d, m, N, dtype, shared=False, offset=0):
+    """``(u or x, a_half, X, C, mu, logdet)`` on the card in ``dtype``:
+    numpy's ``rng`` up to 10⁷ values of u and X, a seeded card generator
+    above.
+    ``offset`` starts every tensor that many values into its allocation."""
+    import numpy as np
+    import torch
+
+    if B * d * (m + N) > 10**7:
+        g = torch.Generator("cuda").manual_seed(B * 7 + m)
+        r = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+        u = r(d, N).mT.contiguous().mT if shared else r(B, d, N)
+        out = (u, 0.5 + torch.rand((B, d), generator=g, device="cuda"), r(B, d, m) / d**0.5,
+               0.1 * r(B, m, m), r(B, d), 10.0 * r(B))
+        return tuple(a.to(dtype) for a in out)
+
+    def t(a):
+        a = torch.tensor(a, dtype=dtype)
+        store = torch.empty(a.numel() + offset, dtype=dtype, device="cuda")
+        view = store[offset:].view(a.shape)
+        view.copy_(a)
+        return view
+
+    u = t(rng.standard_normal((N, d))).mT if shared else t(rng.standard_normal((B, d, N)))
+    return (u, t(rng.uniform(0.5, 1.5, (B, d))), t(rng.standard_normal((B, d, m)) / np.sqrt(d)),
+            t(0.1 * rng.standard_normal((B, m, m))), t(rng.standard_normal((B, d))),
+            t(10.0 * rng.standard_normal(B)))
+
+
+def check_general(name, got, want, dtype):
+    """The general kernel's output against its plain version at the
+    tolerance of ``dtype`` (above); the max abs error."""
+    import torch
+
+    if dtype == torch.float64:
+        return check_close(name, got, want, GENERAL_F64_TOL)
+    if dtype == torch.float32:
+        return check_close(name, got, want, X_TOL if name.endswith(" x") else SUM_TOL)
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    floor = w.abs().mean()
+    bad = err > ULPS_16 * torch.finfo(dtype).eps * torch.maximum(w.abs(), floor)
+    if not torch.isfinite(g).all() or bool(bad.any()):
+        fail(f"{name}: kernel disagrees with its plain version (max abs err {float(err.max())})")
+    return float(err.max())
+
+
+def general_kernel_phase(wk):
+    """The general kernel in its three modes against its plain version, for
+    each dtype and rank, repeat launches bitwise equal; the general kernel
+    at float32 against the fast kernel; a plan with its sums in the global
+    workspace; the ptxas registers and spills of each instantiation."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(2025)
+    rows = []
+    for dt_name in GENERAL_DTYPES:
+        dtype = getattr(torch, dt_name)
+        for m in GENERAL_RANKS:
+            for name, shapes, shared in (("sample_and_logq", GENERAL_B1, False),
+                                         ("whiten_sumsq", GENERAL_B2, False),
+                                         ("whiten_sumsq", GENERAL_SHARED, True)):
+                for label, B, d, N in shapes:
+                    row = _general_case(wk, rng, name, label, B, d, m, N, dtype, shared,
+                                        timed=d == D)
+                    rows.append(row)
+    for label, B, d, m, N in CONFIG2_B1:
+        rows.append(_general_case(wk, rng, "sample_and_logq", label, B, d, m, N, torch.float32,
+                                  False, timed=True))
+    # the general kernel at float32, rank 12, against the fast kernel
+    for name, B, N, shared in (("sample_and_logq", K * 8, 5, False), ("whiten_sumsq", K, 10, False),
+                               ("whiten_sumsq", K, 1000, True)):
+        args = _seeded_inputs(rng, B, D, M, N, torch.float32, shared)
+        if name == "sample_and_logq":
+            fast = wk._sample_and_logq_cuda(*args, general=False)
+            gen = wk._sample_and_logq_cuda(*args, general=True)
+            err = max(check_close(f"general vs fast B1 x B={B}", gen[0], fast[0], GENERAL_VS_FAST_TOL),
+                      check_close(f"general vs fast B1 logq B={B}", gen[1], fast[1], GENERAL_VS_FAST_TOL))
+        else:
+            fast = wk._whiten_sumsq_cuda(*args[:5], general=False)
+            gen = wk._whiten_sumsq_cuda(*args[:5], general=True)
+            err = check_close(f"general vs fast B2 B={B} N={N}", gen, fast, GENERAL_VS_FAST_TOL)
+        print(f"general kernel vs fast kernel {name} [B={B} d={D} m={M} N={N}"
+              f"{' shared x' if shared else ''} float32]: max_abs_err={err:.3e} "
+              f"tol={GENERAL_VS_FAST_TOL}", flush=True)
+    # the global workspace: a plan whose sums do not fit a 16 KB CTA
+    for name, shared in (("sample_and_logq", False), ("whiten_sumsq", False), ("whiten_sumsq", True)):
+        B, d, m, N = 4, 999, 1000, 5
+        plan = wk._general_plan(d, m, N, torch.float32, smem_limit=16384)
+        if not plan[-1]:
+            fail(f"the 16 KB plan {plan} did not put its sums in the workspace")
+        args = _seeded_inputs(rng, B, d, m, N, torch.float32, shared, offset=1)
+        if name == "sample_and_logq":
+            got = wk._sample_and_logq_cuda(*args, general=True, plan=plan)
+            want = wk.sample_and_logq_torch(*args)
+            err = max(check_general("workspace B1 x", got[0], want[0], torch.float32),
+                      check_general("workspace B1 logq", got[1], want[1], torch.float32))
+        else:
+            got = wk._whiten_sumsq_cuda(*args[:5], general=True, plan=plan)
+            err = check_general("workspace B2", got, wk.whiten_sumsq_torch(*args[:5]), torch.float32)
+        print(f"general kernel {name} with its sums in the workspace [B={B} d={d} m={m} N={N}"
+              f"{' shared x' if shared else ''} float32] plan={plan}: max_abs_err={err:.3e}",
+              flush=True)
+    for (name, dt_name), r in sorted(wk.general_kernel_resources().items()):
+        print(f"kernel {name} {dt_name}: registers={r.get('registers')} "
+              f"spill_stores={r.get('spill_stores')}B spill_loads={r.get('spill_loads')}B", flush=True)
+    return rows
+
+
+def _general_case(wk, rng, name, label, B, d, m, N, dtype, shared, timed):
+    """One case of the general kernel's phase; returns its row."""
+    import torch
+
+    offset = 1 if label.startswith("odd") else 0
+    args = _seeded_inputs(rng, B, d, m, N, dtype, shared, offset)
+    dt_name = str(dtype).replace("torch.", "")
+    tag = f"{label} B={B} d={d} m={m} N={N} {dt_name}"
+    if name == "sample_and_logq":
+        kernel, plain = wk._sample_and_logq_cuda, wk.sample_and_logq_torch
+        got, want = kernel(*args, general=True), plain(*args)
+        torch.cuda.synchronize()
+        err = max(check_general(f"general B1 [{tag}] x", got[0], want[0], dtype),
+                  check_general(f"general B1 [{tag}] logq", got[1], want[1], dtype))
+        again = kernel(*args, general=True)
+        same = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    else:
+        args = args[:5]
+        kernel, plain = wk._whiten_sumsq_cuda, wk.whiten_sumsq_torch
+        got, want = kernel(*args, general=True), plain(*args)
+        torch.cuda.synchronize()
+        err = check_general(f"general B2 [{tag}]", got, want, dtype)
+        same = torch.equal(got, kernel(*args, general=True))
+    if not same:
+        fail(f"general {name} [{tag}]: a repeated launch gave other bits")
+    row = dict(label=label, name=name, dtype=dt_name, B=B, d=d, m=m, N=N, shared=shared, err=err,
+               plan=wk._general_plan(d, m, N, dtype))
+    line = (f"kernel {name}_general [{tag}{' shared x' if shared else ''}] plan(threads,nt,rows,pk,"
+            f"smem,ws)={row['plan']} max_abs_err={err:.3e}")
+    if timed:
+        itemsize = torch.finfo(dtype).bits // 8
+        row["ms"] = time_cold_ms(lambda: kernel(*args, general=True))
+        row["plain_ms"] = time_cold_ms(lambda: plain(*args))
+        row["bound_us"], row["bound_by"] = bound_us(name, B, d, m, N, shared, itemsize)
+        line += (f" kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                 f"bound_us={row['bound_us']:.2f} ({row['bound_by']}) "
+                 f"share={row['bound_us'] / (1e3 * row['ms']):.3f}")
+    print(line, flush=True)
+    del args, got, want
+    return row
+
+
 def _check_result(label, res, mean_t, sd_t):
     """Paths, draws and k̂ of one result; returns ``(k̂, moment error)``."""
     import numpy as np
@@ -372,7 +580,7 @@ def main_path_phase(pt, wk, zoo):
     for seed in SEEDS:
         res, secs, grew, by_shape = run(seed)
         khat, merr = _check_result(f"seed {seed}", res, mean_t, sd_t)
-        if min(grew.values()) <= 0:
+        if min(grew[n] for n in FAST_KERNELS) <= 0:
             fail(f"seed {seed}: a kernel was not launched on the main path: {grew}")
         draws = res.draws.double().cpu().numpy()
         sderr = float(np.max(np.abs(draws.std(axis=1) - sd_t) / sd_t))
@@ -437,7 +645,7 @@ def remedy_phase(pt, wk, zoo, main_khats):
         kept = res.fit_distribution.components.cov.B.shape[-1] == 0
         # the correction is tried exactly when no candidate got below 0.7
         tried = kept or khat >= 0.7
-        at_rank0 = {n: rank0(by_shape, n) for n in by_shape}
+        at_rank0 = {n: rank0(by_shape, n) for n in FAST_KERNELS}
         if tried and min(at_rank0.values()) <= 0:
             fail(f"auto seed {seed}: Laplace tried, but launches at rank 0 are {at_rank0}")
         if not tried and max(at_rank0.values()) > 0:
@@ -859,6 +1067,235 @@ def serving_phase(pt, wk, zoo, headline):
     return totals
 
 
+# BASELINE config 2 with the JAX package on the CPU (f32, x64 off) for keys
+# 0..9 (``tests/reference_bands_dtype_rank.py config2``): every key succeeds,
+# fit iterations 2..7, moment error of the means 0.1906..2.7440 sd, of the
+# sds 0.2318..0.4948 (relative). Bands [min − r/2, max + r/2], the lower end
+# of the mean error at its ideal.
+CONFIG2_MEAN_ERR_BAND = (0.0, 4.0207)
+CONFIG2_SD_ERR_BAND = (0.1004, 0.6263)
+# The headline in float64 with the JAX package on the CPU (x64 on) for keys
+# 0..9 (``... headline64``): 100/100 paths on every key, k̂ 1.3819..2.0863,
+# moment error 1.8879..3.3218.
+F64_KHAT_BAND = (1.0297, 2.4385)
+F64_MOMENT_ERR_BAND = (1.1709, 4.0388)
+# The headline at 16 bits with the JAX package on the CPU (x64 off), ntries=2,
+# keys 0..2 (``... lowp``): bfloat16 runs to its end with 0/100 paths
+# succeeding and a NaN k̂; float16 raises NotImplementedError (no float16
+# triangular solve); both warn that their optimization state is unusable.
+LOW_PRECISION_OUTCOME = {"bfloat16": 0, "float16": NotImplementedError}
+# the memory rule's runs: BFGS paths at d = 1000, more than one launch of the
+# rule's cap holds; a chunked result whose Laplace correction the rule blocks
+MEM_BFGS_K = 2048
+MEM_LAPLACE_K, MEM_LAPLACE_CAP = 4096, 1024
+
+
+def _counted(wk, fn):
+    """``fn()`` with the launch counts set to 0 before and read after."""
+    wk.reset_launch_counts()
+    out = fn()
+    return out, wk.launch_counts()
+
+
+def _uses_general_only(label, grew, names):
+    if min(grew[n] for n in names) <= 0:
+        fail(f"{label}: the general kernel was not launched ({grew})")
+    if max(grew[n] for n in FAST_KERNELS) > 0:
+        fail(f"{label}: the fast kernel was launched off its case ({grew})")
+
+
+def config2_phase(pt, wk, zoo):
+    """BASELINE config 2 (rank 40) on 5 seeds, then history_length 50 (rank
+    100) single-path and 20 on the multipath headline; the launches."""
+    import numpy as np
+    import torch
+
+    target = zoo.CorrelatedGaussian(100, seed=0)
+    sd_t = np.sqrt(np.diag(target.cov))
+    totals = {n: 0 for n in wk.launch_counts()}
+
+    def add(grew):
+        for n, c in grew.items():
+            totals[n] += c
+
+    mean_errs, sd_errs = [], []
+    for seed in SEEDS:
+        t0 = time.perf_counter()
+        r, grew = _counted(wk, lambda: pt.pathfinder(
+            target, seed=seed, ndraws=2000, maxiters=128, history_length=20, ndraws_elbo=100))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        add(grew)
+        x = r.draws.double().cpu().numpy()
+        me = float(np.max(np.abs(x.mean(axis=1) - target.mean) / sd_t))
+        se = float(np.max(np.abs(x.std(axis=1) - sd_t) / sd_t))
+        print(f"config2 seed={seed}: success={r.success} tries={r.num_tries} "
+              f"fit_iteration={r.fit_iteration} moment_err_mean_sd_units={me:.4f} "
+              f"moment_err_sd_rel={se:.4f} wall_s={secs:.3f} launches={grew}", flush=True)
+        if not r.success or tuple(r.draws.shape) != (100, 2000) or not np.isfinite(x).all():
+            fail(f"config2 seed {seed}: no success, or draws not finite")
+        _uses_general_only(f"config2 seed {seed}", grew, ("sample_and_logq_general",))
+        mean_errs.append(me)
+        sd_errs.append(se)
+    med_m, med_s = statistics.median(mean_errs), statistics.median(sd_errs)
+    print(f"config2: median moment error of the means {med_m:.4f} band={CONFIG2_MEAN_ERR_BAND}, "
+          f"of the sds {med_s:.4f} band={CONFIG2_SD_ERR_BAND}", flush=True)
+    if not (CONFIG2_MEAN_ERR_BAND[0] <= med_m <= CONFIG2_MEAN_ERR_BAND[1]
+            and CONFIG2_SD_ERR_BAND[0] <= med_s <= CONFIG2_SD_ERR_BAND[1]):
+        fail("config2: median moment errors outside the JAX band")
+
+    r, grew = _counted(wk, lambda: pt.pathfinder(
+        target, seed=0, ndraws=2000, maxiters=128, history_length=50, ndraws_elbo=100))
+    add(grew)
+    print(f"config2 history_length=50: success={r.success} fit_iteration={r.fit_iteration} "
+          f"launches_by_shape={wk.launch_counts_by_shape()['sample_and_logq_general']}", flush=True)
+    if not r.success or not torch.isfinite(r.draws).all():
+        fail("history_length=50: no success, or draws not finite")
+    _uses_general_only("history_length=50", grew, ("sample_and_logq_general",))
+
+    head = zoo.HierarchicalGaussian(D, seed=0)
+    mean_t, sd_h = zoo.hierarchical_gaussian_truth(D, seed=0)
+    res, grew = _counted(wk, lambda: pt.multipathfinder(
+        head, 1000, nruns=K, maxiters=64, elbo_chunk=8, history_length=20, seed=0))
+    add(grew)
+    khat, merr = _check_result("headline history_length=20", res, mean_t, sd_h)
+    print(f"headline history_length=20: paths_ok={K}/{K} khat={khat:.4f} "
+          f"moment_err_mean_sd_units={merr:.4f} launches={grew}", flush=True)
+    _uses_general_only("headline history_length=20", grew, GENERAL_KERNELS)
+    return totals
+
+
+def float64_phase(pt, wk, zoo):
+    """The headline in float64 on 5 seeds: every path, k̂ and moment error
+    in the JAX-x64 band, the general kernel only."""
+    import torch
+
+    target = zoo.HierarchicalGaussian(D, seed=0)
+    mean_t, sd_t = zoo.hierarchical_gaussian_truth(D, seed=0)
+    totals = {n: 0 for n in wk.launch_counts()}
+    khats, merrs = [], []
+    for seed in SEEDS:
+        t0 = time.perf_counter()
+        res, grew = _counted(wk, lambda: pt.multipathfinder(
+            target, 1000, nruns=K, maxiters=64, elbo_chunk=8, seed=seed, dtype=torch.float64))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for n, c in grew.items():
+            totals[n] += c
+        if res.draws.dtype != torch.float64:
+            fail(f"float64 seed {seed}: draws are {res.draws.dtype}")
+        khat, merr = _check_result(f"float64 seed {seed}", res, mean_t, sd_t)
+        _uses_general_only(f"float64 seed {seed}", grew, GENERAL_KERNELS)
+        print(f"float64 headline seed={seed}: paths_ok={K}/{K} khat={khat:.4f} "
+              f"moment_err_mean_sd_units={merr:.4f} "
+              f"logp_grad_evals={int(res.states.num_fn_evals.sum())} wall_s={secs:.3f} "
+              f"launches={grew}", flush=True)
+        khats.append(khat)
+        merrs.append(merr)
+    med_k, med_m = statistics.median(khats), statistics.median(merrs)
+    print(f"float64 headline: median khat={med_k:.4f} band={F64_KHAT_BAND}; median moment "
+          f"error={med_m:.4f} band={F64_MOMENT_ERR_BAND}", flush=True)
+    if not (F64_KHAT_BAND[0] <= med_k <= F64_KHAT_BAND[1]
+            and F64_MOMENT_ERR_BAND[0] <= med_m <= F64_MOMENT_ERR_BAND[1]):
+        fail("float64 headline: median k-hat or moment error outside the JAX-x64 band")
+    return totals
+
+
+def low_precision_phase(pt, wk, zoo):
+    """One headline call each in bfloat16 and float16 (ntries=2): the
+    warning and the outcome of the JAX package on the CPU."""
+    import warnings
+
+    import torch
+
+    target = zoo.HierarchicalGaussian(D, seed=0)
+    totals = {n: 0 for n in wk.launch_counts()}
+    for dt_name, want in LOW_PRECISION_OUTCOME.items():
+        wk.reset_launch_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                res = pt.multipathfinder(target, 1000, nruns=K, maxiters=64, elbo_chunk=8,
+                                         ntries=2, dtype=getattr(torch, dt_name), seed=0)
+                outcome, note = int(res.states.success.sum()), f"k-hat {float(res.psis_result.pareto_shape)}"
+            except Exception as e:  # the outcome is the exception's type
+                outcome, note = type(e), str(e)[:120]
+        torch.cuda.synchronize()
+        grew = wk.launch_counts()
+        for n, c in grew.items():
+            totals[n] += c
+        warned = any("optimization state is almost always" in str(w.message) for w in caught)
+        shown = outcome.__name__ if isinstance(outcome, type) else f"{outcome}/{K} paths ok"
+        print(f"{dt_name} headline: {shown} ({note}) warned={warned} "
+              f"wall_s={time.perf_counter() - t0:.3f} launches={grew}; the JAX package on the "
+              f"CPU: {getattr(want, '__name__', f'{want}/{K} paths ok')}", flush=True)
+        if outcome != want or not warned:
+            fail(f"{dt_name}: outcome {shown} (warned {warned}) differs from the JAX package's")
+        if dt_name == "bfloat16":
+            _uses_general_only("bfloat16 headline", grew, GENERAL_KERNELS)
+    return totals
+
+
+def memory_rule_phase(pt, zoo):
+    """A chunked BFGS run and a Laplace correction of a chunked result at
+    d = 1000, each under the rule's own choice: its estimate of the peak
+    against the measured one."""
+    import torch
+
+    from pathfinder_tpu_torch.parallel import sharding
+
+    target = zoo.HierarchicalGaussian(D, seed=0)
+    f = 4
+    card = sharding.device_memory_bytes(torch.device("cuda"))
+
+    def measured(fn):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base, time.perf_counter() - t0
+
+    def held_to(label, estimate, peak):
+        print(f"memory rule [{label}]: estimate={estimate} measured_peak={peak} "
+              f"estimate/measured={estimate / peak:.3f} (card {card} B)", flush=True)
+        if not peak <= estimate <= 2 * peak:
+            fail(f"memory rule [{label}]: estimate {estimate} not within [1, 2] x the peak {peak}")
+
+    res, peak, secs = measured(lambda: pt.multipathfinder(
+        target, 1000, nruns=MEM_BFGS_K, maxiters=64, elbo_chunk=8, seed=0, optimizer="bfgs",
+        keep_traces=False))
+    cap = res.max_paths_per_launch
+    ok = int(res.states.success.sum())
+    print(f"memory rule BFGS K={MEM_BFGS_K}: cap={cap} offloaded={res.states.draws.device.type == 'cpu'} "
+          f"paths_ok={ok}/{MEM_BFGS_K} khat={float(res.psis_result.pareto_shape):.4f} "
+          f"wall_s={secs:.3f}", flush=True)
+    if cap is None or cap >= MEM_BFGS_K or ok != MEM_BFGS_K:
+        fail("memory rule: the BFGS run was not chunked, or paths failed")
+    lanes = min(cap, MEM_BFGS_K)
+    states = MEM_BFGS_K * sharding.state_bytes(D, 64, 6, 5, keep_traces=False)
+    held_to(f"BFGS, launches of {cap}",
+            lanes * sharding.lane_bytes(D, 64, 6, 5, 8, 5, torch.float32, "bfgs") + states, peak)
+    del res
+
+    res = pt.multipathfinder(target, 1000, nruns=MEM_LAPLACE_K, maxiters=64, elbo_chunk=8, seed=0,
+                             max_paths_per_launch=MEM_LAPLACE_CAP, keep_traces=False)
+    N = res.draws_per_component.shape[1]
+    block = sharding.laplace_block(MEM_LAPLACE_K, D, N, torch.float32, "diag", "cuda")
+    lap, peak, secs = measured(lambda: pt.laplace_resample(res, 1000))
+    print(f"memory rule laplace_resample of K={MEM_LAPLACE_K} (launches of {MEM_LAPLACE_CAP}): "
+          f"block={block} khat {float(res.psis_result.pareto_shape):.4f} -> "
+          f"{float(lap.psis_result.pareto_shape):.4f} wall_s={secs:.3f}", flush=True)
+    if block is None or block >= MEM_LAPLACE_K or not torch.isfinite(lap.draws).all():
+        fail("memory rule: laplace_resample was not blocked, or its draws are not finite")
+    pool = MEM_LAPLACE_K * f * (D * N + 4 * D)  # the corrected components and their draws
+    held_to(f"laplace_resample, blocks of {block}",
+            block * sharding.laplace_lane_bytes(D, N, torch.float32) + pool, peak)
+
+
 def main():
     try:
         import torch
@@ -892,35 +1329,43 @@ def main():
     print(f"build: kernels built and loaded in {time.perf_counter() - t0:.2f}s", flush=True)
 
     kernels = kernel_phase(wk)
+    general_rows = general_kernel_phase(wk)
     if "--kernels-only" in sys.argv[1:]:  # for work on the kernels: stop after their phase
         print("kernel phase passed; stopping before the model phases", flush=True)
         return
     counts, main_khats, headline = main_path_phase(pt, wk, zoo)
-    for name, c in remedy_phase(pt, wk, zoo, main_khats).items():
-        counts[name] += c
+    old_phases = [remedy_phase(pt, wk, zoo, main_khats)]
     remedy_stage_times(pt, zoo)
     warm_start_phase(pt, zoo, headline)
-    for name, c in constrained_phase(pt, wk, zoo).items():
-        if c <= 0:
+    old_phases.append(constrained_phase(pt, wk, zoo))
+    for name, c in old_phases[-1].items():
+        if name in FAST_KERNELS and c <= 0:
             fail(f"{name} was not launched on the constrained-model path")
-        counts[name] += c
-    for name, c in serving_phase(pt, wk, zoo, headline).items():
-        counts[name] += c
+    old_phases.append(serving_phase(pt, wk, zoo, headline))
+    for phase in old_phases:
+        for name, c in phase.items():
+            counts[name] += c
+    if max(counts[n] for n in GENERAL_KERNELS) > 0:
+        fail(f"a float32 phase at rank <= {wk.MAX_RANK} left the fast kernel: {counts}")
+    t_new = time.perf_counter()
+    for phase in (config2_phase, float64_phase, low_precision_phase):
+        for name, c in phase(pt, wk, zoo).items():
+            counts[name] += c
+    memory_rule_phase(pt, zoo)
+    print(f"dtype, rank and memory phases: {time.perf_counter() - t_new:.1f}s", flush=True)
 
-    source = "pathfinder_tpu_torch/csrc/woodbury_kernels.cu"
     replaces = {
         "sample_and_logq": "pathfinder_tpu/ops/pallas/woodbury_kernels.py:70",
         "whiten_sumsq": "pathfinder_tpu/ops/pallas/woodbury_kernels.py:146",
     }
     summary = []
-    for name, rows in kernels.items():
-        main = [r for r in rows if r["label"] in MAIN_PATH[name]]
-        head = main[0]  # the largest main-path shape
-        summary.append({
+
+    def entry(name, source, rows, head, replaced):
+        return {
             "name": name,
             "route": "cuda",
             "source": source,
-            "replaces": replaces[name],
+            "replaces": replaces[replaced],
             "launches": counts[name],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": head["ms"],
@@ -928,9 +1373,22 @@ def main():
             "bound_ms": head["bound_us"] / 1e3,
             "bound_by": head["bound_by"],
             "library_ms": None,  # no single PyTorch call computes it
-        })
-        if counts[name] <= 0:
-            fail(f"{name} was not launched on the main path")
+        }
+
+    for name, rows in kernels.items():
+        main = [r for r in rows if r["label"] in MAIN_PATH[name]]
+        head = main[0]  # the largest main-path shape
+        summary.append(entry(name, "pathfinder_tpu_torch/csrc/woodbury_kernels.cu", rows, head, name))
+    for name, (dt_name, label, m) in GENERAL_MAIN.items():
+        # the head: the float64 headline's shape; the error: the largest over
+        # that dtype's cases (a 16-bit error is at its own scale)
+        rows = [r for r in general_rows if r["name"] == name and r["dtype"] == dt_name]
+        head = next(r for r in rows if r["label"] == label and r["m"] == m)
+        summary.append(entry(name + "_general", "pathfinder_tpu_torch/csrc/woodbury_general.cu",
+                             rows, head, name))
+    for item in summary:
+        if item["launches"] <= 0:
+            fail(f"{item['name']} was not launched on its path")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

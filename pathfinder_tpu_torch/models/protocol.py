@@ -43,11 +43,19 @@ def batched_hessian(logp: Callable) -> Callable:
     ``torch.func.hessian`` (forward over reverse) under ``torch.func.vmap``.
     ``logp`` is called on one row as a batch of one, so it must be free of
     in-place updates and of ``.item()``. The derived function is kept on
-    ``logp`` itself, as the JAX package's ``cached_hessian`` is."""
+    ``logp`` itself, as the JAX package's ``cached_hessian`` is. It works on
+    a copy of ``x``, so that a view (a block of a larger batch) costs no more
+    than its own rows."""
     h = getattr(logp, "_pf_cached_hess", None)
     if h is None:
-        one = torch.func.hessian(lambda x: logp(x[None])[0])
-        h = torch.func.vmap(one)
+        rows = torch.func.vmap(torch.func.hessian(lambda x: logp(x[None])[0]))
+
+        def h(x):
+            # forward mode gives a view a tangent the size of its whole base:
+            # a block of a batch of K rows would cost K·d values for each of
+            # the d basis directions
+            return rows(x.clone())
+
         try:
             logp._pf_cached_hess = h
         except (AttributeError, TypeError):

@@ -46,6 +46,7 @@ from pathfinder_tpu_torch.parallel.sharding import (
     chunk_launches,
     device_memory_bytes,
     lane_bytes,
+    laplace_block,
     plan_launches,
     state_bytes,
 )
@@ -123,11 +124,17 @@ def _log_importance_ratios_mixture(components: MvNormal, draws_knd: torch.Tensor
     distributed as the mixture, so these weights have no more variance than
     the own-component ones (the balance heuristic). It needs every
     component at every pooled draw, K²·N densities: kernel B2 in one launch
-    over (component, draw tile), reading the pooled draws where they lie."""
-    K, N, d = draws_knd.shape
-    flat = draws_knd.reshape(K * N, d)
-    logq_all = components.logpdf(flat.mT)  # (K components, K·N draws)
-    return (torch.logsumexp(logq_all, dim=0) - math.log(K)).reshape(K, N)
+    over (component, draw tile), reading the pooled draws where they lie.
+    ``draws_knd`` may be a block ``(k, N, d)`` of the pool: each draw's
+    logsumexp runs over all K components whatever the block, along the last
+    axis of a ``(k·N, K)`` copy, a reduction that runs in the same order for
+    every row whatever the number of rows, so blocks give the unblocked
+    values."""
+    k, N, d = draws_knd.shape
+    flat = draws_knd.reshape(k * N, d)
+    logq_all = components.logpdf(flat.mT)  # (K components, k·N draws)
+    K = components.mean.shape[0]
+    return (torch.logsumexp(logq_all.mT.contiguous(), dim=-1) - math.log(K)).reshape(k, N)
 
 
 def _slim_traces(states: SinglePathState) -> SinglePathState:
@@ -170,21 +177,25 @@ def _compute_psis_result(
 
     The components and draws may lie in host memory (an offloaded run);
     they are computed on ``device`` (default: where they lie). With
-    ``chunk``, the own-component ratios are computed one block of ``chunk``
-    paths at a time, reading the blocks from where they lie; the ratios are
-    per path, so the result is the unchunked one. The mixture needs every
-    component at every draw and is not chunked."""
+    ``chunk``, the ratios are computed for one block of ``chunk`` paths'
+    draws at a time, reading the blocks from where they lie: under their
+    own components, or under every component (moved to ``device`` once) for
+    the mixture, whose ``(K, chunk·N)`` densities are what the block bounds.
+    A ratio depends on its draw alone, so the result is the unchunked one
+    (bitwise on the CPU; on a CUDA device a kernel's launch plan follows the
+    block's width and can move the last bits)."""
     K, N, d = draws_knd.shape
     dev = draws_knd.device if device is None else device
     if denominator not in ("component", "mixture"):
         raise ValueError(f"unknown importance_denominator {denominator!r}")
+    every = _rows(components, 0, K, dev) if denominator == "mixture" else None
     ratios = []
-    for lo, hi in _blocks(K, chunk if denominator == "component" else None):
-        comps, dk = _rows(components, lo, hi, dev), draws_knd[lo:hi].to(dev)
+    for lo, hi in _blocks(K, chunk):
+        dk = draws_knd[lo:hi].to(dev)
         if denominator == "component":
-            log_q = _log_importance_ratios_fit(comps, dk)
+            log_q = _log_importance_ratios_fit(_rows(components, lo, hi, dev), dk)
         else:
-            log_q = _log_importance_ratios_mixture(comps, dk)
+            log_q = _log_importance_ratios_mixture(every, dk)
         log_p = logp(dk.reshape(-1, d)).to(log_q.dtype).reshape(hi - lo, N)
         ratios.append((log_p - log_q).reshape(-1))
     return psis(torch.cat(ratios))
@@ -446,7 +457,7 @@ def multipathfinder(
         cap, offload = plan_launches(
             nruns,
             lane_bytes(d, maxiters, history_length, ndraws_elbo, config.elbo_chunk,
-                       ndraws_per_run, dtype),
+                       ndraws_per_run, dtype, config.optimizer, importance_denominator, nruns),
             state_bytes(d, maxiters, history_length, ndraws_per_run, dtype, keep_traces),
             device_memory_bytes(dev), cap=cap, offload=offload,
         )
@@ -823,9 +834,10 @@ def laplace_resample(
     ``states.fit_distribution`` hold the corrected components, with fresh
     draws from each, a recomputed PSIS diagnostic and ``ndraws`` resampled
     draws. ``elbo_values`` still describe the uncorrected candidate fits.
-    Chain with :func:`resample` to re-resample without correcting again. A
-    serving-scale result is corrected in blocks of its launch cap, and the
-    corrected components and draws stay where the pool lies.
+    Chain with :func:`resample` to re-resample without correcting again. On
+    a CUDA device the components are corrected in blocks sized by the
+    correction's own memory estimate (``parallel.sharding.laplace_block``),
+    and the corrected components and draws stay where the pool lies.
 
     Not a universal win: where the fitted covariances already match the
     local curvature the correction can be a slight negative. Let the Pareto
@@ -849,8 +861,11 @@ def laplace_resample(
         hess = getattr(result.target, "hess", None)
     N = ndraws_per_run if ndraws_per_run is not None else result.draws_per_component.shape[1]
     dev, cap, pool = result.draws.device, result.max_paths_per_launch, components.mean.device
+    # blocks from the correction's own estimate (Hessians, factors, draws),
+    # not the run's cap, which was sized for the optimizer's lanes
+    block = laplace_block(K, d, N, components.dtype, method, dev)
     parts, pool_draws = [], []
-    for lo, hi in _blocks(K, cap):
+    for lo, hi in _blocks(K, block):
         stream = rng.Stream(result.seed, torch.arange(lo, hi, device=dev), count, rng.LAPLACE_DRAWS)
         part, dk = laplace_corrected_components_and_draws(
             result.logp, _rows(components, lo, hi, dev), stream, N, method, hess_fn=hess

@@ -3,17 +3,28 @@ plain torch versions.
 
 They replace the JAX package's Pallas TPU kernels ``_sample_kernel`` and
 ``_whiten_kernel`` (``pathfinder_tpu/ops/pallas/woodbury_kernels.py`` at
-commit ``c548d16^``). The CUDA source, with the notes on what bounds the
-kernels and how they are laid out, is ``pathfinder_tpu_torch/csrc/
-woodbury_kernels.cu``.
+commit ``c548d16^``). Two CUDA sources carry them, with the notes on what
+bounds each and how it is laid out:
+
+* ``pathfinder_tpu_torch/csrc/woodbury_kernels.cu``, the fast kernel:
+  float32 and rank ``m <= MAX_RANK`` (32), the main path's case;
+* ``pathfinder_tpu_torch/csrc/woodbury_general.cu``, the general kernel:
+  float16, bfloat16, float32 and float64 at any rank, accumulating in
+  float64 for float64 and in float32 otherwise, as the TPU kernels did
+  (``promote_types(dtype, float32)``).
+
+The route is chosen from the dtype and the rank before the launch
+(:func:`uses_fast_kernel`); nothing is caught and retried on another route.
 
 Each wrapper takes tensors on the CPU through the plain version, and
-tensors on a CUDA device through the kernel; on a CUDA tensor it launches
-the kernel or raises, and never falls back. The kernel is built with
-``nvcc`` at first use, from the sources in the package, into the ``build/``
-directory beside the package, and bound with ``ctypes``. How a launch is
-cut into clusters, threads and row tiles is decided here, by
-:func:`_launch_plan`, and checked by the kernel against its own layout.
+tensors on a CUDA device through a kernel; on a CUDA tensor it launches
+the kernel or raises, and never falls back. The kernels are built with
+``nvcc`` at first use, both sources at once, from the sources in the
+package, into the ``build/`` directory beside the package, and bound with
+``ctypes``. How a launch is cut is decided here, by :func:`_launch_plan`
+and :func:`_launch_plan_shared` for the fast kernel and
+:func:`_general_plan` for the general one, and checked by each kernel
+against its own layout.
 
 Shapes (batch ``B`` of independent factors, dimension ``d``, rank ``m``,
 ``N`` draws): ``u``/``x`` ``(B, d, N)``, ``a_half``/``mu`` ``(B, d)``,
@@ -48,18 +59,22 @@ __all__ = [
     "launch_counts_by_shape",
     "reset_launch_counts",
     "load_library",
+    "load_general_library",
     "kernel_resources",
+    "general_kernel_resources",
+    "uses_fast_kernel",
 ]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _PKG_DIR = Path(__file__).resolve().parents[2]
 _SOURCE = _PKG_DIR / "csrc" / "woodbury_kernels.cu"
+_GENERAL_SOURCE = _PKG_DIR / "csrc" / "woodbury_general.cu"
 _BUILD_DIR = _PKG_DIR.parent / "build" / "pathfinder_tpu_torch"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-MAX_RANK = 32
+MAX_RANK = 32  # the fast kernel's rank cap; the general kernel takes any rank
 
 # Hopper limits the launch plan works within (H100 SXM)
 NUM_SMS = 132
@@ -73,12 +88,25 @@ _MIN_PAIR_TILE = 10  # narrower tiles are not worth a second CTA on the SM
 # an SM, 1 KB of it reserved per CTA)
 _SMEM_PAIR = 233_472 // 2 - 1024
 
+# the general kernel's plan: threads a CTA, the widest column tile, the most
+# rows staged at once, the rows staged at the least before the column tile
+# is narrowed, and the bytes of a panel of M
+_G_THREADS = 256
+_G_MAX_COLS = 16
+_G_MAX_ROWS = 256
+_G_MIN_ROWS = 32
+_G_PANEL_BYTES = 16 * 1024
+# the general kernel's dtype codes (csrc/woodbury_general.cu: kF32 ...)
+_DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfloat16: 3}
+
 # launches of each kernel since the last reset, in all and per shape
-# ``(B, m, N, shared)`` (plain-version calls on CPU tensors do not count)
-_launches = {"sample_and_logq": 0, "whiten_sumsq": 0}
+# ``(B, m, N, shared)`` (plain-version calls on CPU tensors do not count);
+# ``*_general`` are the general kernel's
+_launches = {"sample_and_logq": 0, "whiten_sumsq": 0,
+             "sample_and_logq_general": 0, "whiten_sumsq_general": 0}
 _launches_by_shape = {name: collections.Counter() for name in _launches}
-_lib = None
-_lib_log = ""  # what nvcc (ptxas -v) said when it built the library
+_libs = {}  # source name -> the loaded library
+_lib_logs = {}  # source name -> what nvcc (ptxas -v) said when it built it
 _lib_lock = threading.Lock()
 
 
@@ -101,23 +129,34 @@ def reset_launch_counts() -> None:
 # -- plain versions -----------------------------------------------------------
 
 
+def _upcast(*ts):
+    """16-bit inputs in float32, as the kernels accumulate them; float32 and
+    float64 as they are."""
+    return [t.float() if torch.finfo(t.dtype).bits < 32 else t for t in ts]
+
+
 def sample_and_logq_torch(u, a_half, X, C, mu, logdet):
     """``x = a½ ∘ (u + X (C (Xᵀ u))) + μ`` and
-    ``logq = −(d·log2π + logdet + ‖u‖²)/2`` per column."""
-    d = u.shape[-2]
+    ``logq = −(d·log2π + logdet + ‖u‖²)/2`` per column. 16-bit inputs are
+    computed in float32 and the outputs rounded to their dtype once."""
+    dtype, d = u.dtype, u.shape[-2]
+    u, a_half, X, C, mu, logdet = _upcast(u, a_half, X, C, mu, logdet)
     core = u + X @ (C @ (X.mT @ u))
     x = a_half[..., None] * core + mu[..., None]
     usq = torch.sum(u * u, dim=-2)
     logq = -0.5 * (d * _LOG_2PI + logdet[..., None] + usq)
-    return x, logq
+    return x.to(dtype), logq.to(dtype)
 
 
 def whiten_sumsq_torch(x, a_half, X, Ci, mu):
     """``‖v + X (Ci (Xᵀ v))‖²`` per column, ``v = (x − μ)/a½``; ``x`` is
-    ``(..., d, N)``, or ``(d, P)`` shared by all factors."""
+    ``(..., d, N)``, or ``(d, P)`` shared by all factors. 16-bit inputs are
+    computed in float32 and the result rounded to their dtype once."""
+    dtype = x.dtype
+    x, a_half, X, Ci, mu = _upcast(x, a_half, X, Ci, mu)
     v = (x - mu[..., None]) / a_half[..., None]
     w = v + X @ (Ci @ (X.mT @ v))
-    return torch.sum(w * w, dim=-2)
+    return torch.sum(w * w, dim=-2).to(dtype)
 
 
 # -- launch plan --------------------------------------------------------------
@@ -249,6 +288,68 @@ def _launch_plan_shared(B: int, d: int, m: int, P: int, num_sms: int = NUM_SMS) 
     return cluster, threads, _smem_bytes(tile, m, width, threads, True), tile, width
 
 
+def _general_layout(m: int, nt: int, rows: int, pk: int, threads: int, ws: bool) -> int:
+    """Values (of the accumulation type) of the general kernel's dynamic
+    shared memory; mirrors ``GLayout`` in ``csrc/woodbury_general.cu``. With
+    ``ws`` the pass-1 sums and ``s`` live in a global workspace instead."""
+    p = m * nt
+    g = threads // p if 0 < p < threads else 1
+    return ((0 if ws else 2 * p + g * p) + threads + pk * m
+            + rows * (m + 1) + rows * nt + 2 * rows)
+
+
+def _general_workspace(m: int, nt: int, threads: int = _G_THREADS) -> int:
+    """Workspace values a CTA needs where ``t``, ``s`` and the pass-1
+    partials do not fit in shared memory."""
+    p = m * nt
+    g = threads // p if 0 < p < threads else 1
+    return 2 * p + g * p
+
+
+def _general_plan(d: int, m: int, N: int, dtype, smem_limit: int = SMEM_LIMIT) -> tuple:
+    """``(threads, nt, rows, pk, smem_bytes, ws)`` for the general kernel
+    over factors of ``d`` rows and rank ``m``, ``N`` columns each (or a
+    shared ``x`` of ``N`` columns), in ``dtype``.
+
+    The column tile ``nt`` is ``N`` rounded up to a power of two, at most
+    16, halved while the rank's sums and a tile of ``_G_MIN_ROWS`` rows do
+    not fit in the shared memory that leaves room for a second CTA on the
+    SM; where they do not fit at ``nt = 1``, the whole of the CTA's limit is
+    used, and where the sums alone do not fit even so they go to a global
+    workspace (``ws``). ``pk`` rows of M make a panel of about 16 KB (an
+    eighth of the limit, where that is less).
+    ``rows`` fills what is left, up to ``_G_MAX_ROWS``."""
+    if min(d, N) < 1 or m < 0:
+        raise ValueError(f"no launch plan for d={d}, m={m}, N={N}")
+    acc = 8 if dtype == torch.float64 else 4
+    threads = _G_THREADS
+    nt = min(_G_MAX_COLS, 1 << (N - 1).bit_length())
+    pk = max(1, min(m, min(_G_PANEL_BYTES, smem_limit // 8) // (acc * max(m, 1))))
+    budget = min(_SMEM_PAIR, smem_limit)
+
+    def need(nt, rows, ws):
+        return acc * _general_layout(m, nt, rows, pk, threads, ws)
+
+    least = min(d, _G_MIN_ROWS)
+    while nt > 1 and need(nt, least, False) > budget:
+        nt //= 2
+    ws = False
+    if need(nt, least, False) > budget:
+        budget = smem_limit
+        ws = need(nt, 1, False) > budget
+    per_row = acc * (m + 1 + nt + 2)
+    rows = min(d, _G_MAX_ROWS, (budget - need(nt, 0, ws)) // per_row)
+    if rows < 1:
+        raise ValueError(f"one row of X at rank m={m} does not fit in shared memory")
+    return threads, nt, rows, pk, need(nt, rows, ws), ws
+
+
+def uses_fast_kernel(dtype, m: int) -> bool:
+    """Whether B1/B2 on the card take the fast kernel (float32 at rank
+    ``m <= MAX_RANK``) or the general one (every other dtype or rank)."""
+    return dtype == torch.float32 and m <= MAX_RANK
+
+
 # -- build and bind -----------------------------------------------------------
 
 
@@ -260,59 +361,122 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (once per source and flags) and load the kernels' library."""
-    global _lib, _lib_log
+def _library_path(source: Path) -> Path:
+    """Where the library of ``source`` is built: named by a hash of the
+    source and the flags."""
+    tag = hashlib.sha256(source.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    return _BUILD_DIR / f"{source.stem}_{tag}.so"
+
+
+def _build(sources) -> None:
+    """Build the libraries of ``sources`` not built yet, one ``nvcc`` each,
+    all started together."""
+    todo = [src for src in sources if not _library_path(src).exists()]
+    if not todo:
+        return
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(src)]
+        procs.append((src, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, tmp, proc in procs:
+        out, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
+            continue
+        so_path = _library_path(src)
+        so_path.with_suffix(".log").write_text(out)
+        os.replace(tmp, so_path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _load_all() -> None:
+    """Build (once per source and flags) and load both kernels' libraries."""
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        src = _SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-        so_path = _BUILD_DIR / f"woodbury_kernels_{tag}.so"
-        log_path = so_path.with_suffix(".log")
-        if not so_path.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-                )
-            log_path.write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, so_path)
-        _lib_log = log_path.read_text() if log_path.exists() else ""
-        lib = ctypes.CDLL(str(so_path))
+        if _libs:
+            return
+        _build((_SOURCE, _GENERAL_SOURCE))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pf_sample_logq.argtypes = [p] * 8 + [i] * 8 + [p]
-        lib.pf_sample_logq.restype = i
-        lib.pf_whiten_sumsq.argtypes = [p] * 6 + [i] * 8 + [p]
-        lib.pf_whiten_sumsq.restype = i
-        lib.pf_whiten_sumsq_shared.argtypes = [p] * 6 + [i] * 9 + [p]
-        lib.pf_whiten_sumsq_shared.restype = i
-        lib.pf_max_rank.argtypes = []
-        lib.pf_max_rank.restype = i
-        if lib.pf_max_rank() != MAX_RANK:
+        fast = ctypes.CDLL(str(_library_path(_SOURCE)))
+        fast.pf_sample_logq.argtypes = [p] * 8 + [i] * 8 + [p]
+        fast.pf_sample_logq.restype = i
+        fast.pf_whiten_sumsq.argtypes = [p] * 6 + [i] * 8 + [p]
+        fast.pf_whiten_sumsq.restype = i
+        fast.pf_whiten_sumsq_shared.argtypes = [p] * 6 + [i] * 9 + [p]
+        fast.pf_whiten_sumsq_shared.restype = i
+        fast.pf_max_rank.argtypes = []
+        fast.pf_max_rank.restype = i
+        if fast.pf_max_rank() != MAX_RANK:
             raise RuntimeError("kernel library and wrapper disagree on MAX_RANK")
-        _lib = lib
-        return lib
+        general = ctypes.CDLL(str(_library_path(_GENERAL_SOURCE)))
+        general.pfg_sample_logq.argtypes = [i] + [p] * 8 + [i] * 9 + [p, p]
+        general.pfg_sample_logq.restype = i
+        general.pfg_whiten_sumsq.argtypes = [i] + [p] * 6 + [i] * 9 + [p, p]
+        general.pfg_whiten_sumsq.restype = i
+        general.pfg_whiten_sumsq_shared.argtypes = [i] + [p] * 6 + [i] * 9 + [p, p]
+        general.pfg_whiten_sumsq_shared.restype = i
+        general.pfg_max_col_tile.argtypes = []
+        general.pfg_max_col_tile.restype = i
+        if general.pfg_max_col_tile() != _G_MAX_COLS:
+            raise RuntimeError("general kernel library and wrapper disagree on the column tile")
+        for src, lib in ((_SOURCE, fast), (_GENERAL_SOURCE, general)):
+            log = _library_path(src).with_suffix(".log")
+            _lib_logs[src.name] = log.read_text() if log.exists() else ""
+            _libs[src.name] = lib
+
+
+def load_library() -> ctypes.CDLL:
+    """Build and load the kernels' libraries; returns the fast kernel's."""
+    _load_all()
+    return _libs[_SOURCE.name]
+
+
+def load_general_library() -> ctypes.CDLL:
+    """Build and load the kernels' libraries; returns the general kernel's."""
+    _load_all()
+    return _libs[_GENERAL_SOURCE.name]
 
 
 def kernel_resources() -> dict:
-    """Registers and spills of each kernel instantiation as ``ptxas -v``
-    reported them at build time: ``{(name, MR, NT): {"registers": r,
+    """Registers and spills of each fast-kernel instantiation as ``ptxas
+    -v`` reported them at build time: ``{(name, MR, NT): {"registers": r,
     "spill_stores": bytes, "spill_loads": bytes}}``; B2 over a shared ``x``
     is listed as ``whiten_sumsq_shared``."""
     load_library()
+    names = ("sample_and_logq", "whiten_sumsq", "whiten_sumsq_shared")
+    return _ptxas_resources(
+        _lib_logs[_SOURCE.name], r"woodbury_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+        lambda mr, nt, mode: (names[int(mode)], int(mr), int(nt)))
+
+
+# the storage types of the general kernel as the compiler mangles them
+_MANGLED_DTYPES = {"f": "float32", "d": "float64", "6__half": "float16",
+                   "13__nv_bfloat16": "bfloat16"}
+
+
+def general_kernel_resources() -> dict:
+    """The same for the general kernel: ``{(name, dtype): {...}}`` with
+    ``name`` one of ``sample_and_logq_general``, ``whiten_sumsq_general``,
+    ``whiten_sumsq_shared_general`` and ``dtype`` the storage dtype's name."""
+    load_general_library()
+    names = ("sample_and_logq_general", "whiten_sumsq_general", "whiten_sumsq_shared_general")
+    return _ptxas_resources(
+        _lib_logs[_GENERAL_SOURCE.name], r"general_kernelI(f|d|6__half|13__nv_bfloat16)Li(\d)E",
+        lambda t, mode: (names[int(mode)], _MANGLED_DTYPES[t]))
+
+
+def _ptxas_resources(log: str, pattern: str, key_of) -> dict:
     out, key = {}, None
-    for line in _lib_log.splitlines():
-        found = re.search(r"woodbury_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
+    for line in log.splitlines():
+        found = re.search(pattern, line)
         if "Compiling entry function" in line and found:
-            mr, nt, mode = found.groups()
-            name = ("sample_and_logq", "whiten_sumsq", "whiten_sumsq_shared")[int(mode)]
-            key = (name, int(mr), int(nt))
+            key = key_of(*found.groups())
             out[key] = {}
         elif key is not None and "spill stores" in line:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
@@ -331,11 +495,16 @@ def _num_sms(index: int) -> int:
 
 
 def _check_cuda_args(names_shapes, device):
+    """Each tensor on ``device``, of the first one's dtype (one the kernels
+    take), of its shape and contiguous."""
+    dtype = names_shapes[0][1].dtype
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the kernels take {tuple(_DTYPE_CODES)}, got {dtype}")
     for name, t, shape in names_shapes:
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32 on CUDA, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}, expected {dtype} as the first argument")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
@@ -353,25 +522,54 @@ def _flat_shapes(u, X):
     m = X.shape[-1]
     if d == 0:
         raise ValueError("the kernels need d >= 1")
-    if m > MAX_RANK:
-        raise ValueError(f"rank m={m} exceeds the kernel's cap of {MAX_RANK}")
     return batch, math.prod(batch), d, m, N
 
 
-def _launch(name, entry, tensors, plan, device, B, d, m, N, shared=False):
-    """Launch ``entry`` on the current stream with ``plan`` and count it. A
-    tensor without elements (``X`` and the core at m = 0) may have no
-    address of its own; the kernel never reads it and gets a valid one."""
-    pointers = [t.data_ptr() or tensors[1].data_ptr() for t in tensors]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = entry(*pointers, B, d, m, N, *plan, stream)
+def _pointers(tensors):
+    """Addresses of ``tensors``. A tensor without elements (``X`` and the
+    core at m = 0) may have no address of its own; the kernels never read
+    it and get a valid one."""
+    return [t.data_ptr() or tensors[1].data_ptr() for t in tensors]
+
+
+def _check_code(name, code, plan):
     if code == -1:
         raise RuntimeError(f"{name} kernel rejected the launch plan {plan}")
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError {code}")
+
+
+def _launch(name, entry, tensors, plan, device, B, d, m, N, shared=False):
+    """Launch the fast kernel's ``entry`` on the current stream with
+    ``plan`` and count it."""
+    pointers = _pointers(tensors)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = entry(*pointers, B, d, m, N, *plan, stream)
+    _check_code(name, code, plan)
     _launches[name] += 1
     _launches_by_shape[name][(B, m, N, shared)] += 1
+
+
+def _launch_general(name, entry, tensors, device, B, d, m, N, shared=False, plan=None):
+    """Launch the general kernel's ``entry`` on the current stream and count
+    it under ``name + "_general"``; ``plan`` defaults to :func:`_general_plan`.
+    The workspace, where the plan asks for one, is allocated here."""
+    dtype = tensors[0].dtype
+    threads, nt, rows, pk, smem, ws = plan or _general_plan(d, m, N, dtype)
+    work = None
+    if ws:
+        acc = torch.float64 if dtype == torch.float64 else torch.float32
+        ctas = B * min(-(-N // nt), 65535)
+        work = torch.empty(ctas * _general_workspace(m, nt, threads), dtype=acc, device=device)
+    pointers = _pointers(tensors)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = entry(_DTYPE_CODES[dtype], *pointers, B, d, m, N, threads, nt, rows, pk, smem,
+                     None if work is None else work.data_ptr(), stream)
+    _check_code(name + "_general", code, (threads, nt, rows, pk, smem, ws))
+    _launches[name + "_general"] += 1
+    _launches_by_shape[name + "_general"][(B, m, N, shared)] += 1
 
 
 def sample_and_logq(u, a_half, X, C, mu, logdet):
@@ -380,6 +578,13 @@ def sample_and_logq(u, a_half, X, C, mu, logdet):
         return sample_and_logq_torch(u, a_half, X, C, mu, logdet)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
+    return _sample_and_logq_cuda(u, a_half, X, C, mu, logdet)
+
+
+def _sample_and_logq_cuda(u, a_half, X, C, mu, logdet, general=None, plan=None):
+    """B1 on the card: the fast kernel where :func:`uses_fast_kernel`, else
+    the general one (``general=True`` takes the general kernel whatever the
+    case; ``plan`` overrides its plan)."""
     batch, B, d, m, N = _flat_shapes(u, X)
     _check_cuda_args(
         [
@@ -396,9 +601,16 @@ def sample_and_logq(u, a_half, X, C, mu, logdet):
     logq = torch.empty(batch + (N,), dtype=u.dtype, device=u.device)
     if B == 0 or N == 0:
         return x, logq
-    plan = _launch_plan(B, d, m, N, _num_sms(u.device.index))
-    _launch("sample_and_logq", load_library().pf_sample_logq,
-            (u, a_half, X, C, mu, logdet, x, logq), plan, u.device, B, d, m, N)
+    tensors = (u, a_half, X, C, mu, logdet, x, logq)
+    if general is None:
+        general = not uses_fast_kernel(u.dtype, m)
+    if general:
+        _launch_general("sample_and_logq", load_general_library().pfg_sample_logq, tensors,
+                        u.device, B, d, m, N, plan=plan)
+    else:
+        plan = _launch_plan(B, d, m, N, _num_sms(u.device.index))
+        _launch("sample_and_logq", load_library().pf_sample_logq, tensors, plan, u.device,
+                B, d, m, N)
     return x, logq
 
 
@@ -411,8 +623,13 @@ def whiten_sumsq(x, a_half, X, Ci, mu):
         return whiten_sumsq_torch(x, a_half, X, Ci, mu)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    return _whiten_sumsq_cuda(x, a_half, X, Ci, mu)
+
+
+def _whiten_sumsq_cuda(x, a_half, X, Ci, mu, general=None, plan=None):
+    """B2 on the card, routed as :func:`_sample_and_logq_cuda`."""
     if x.ndim == 2 and X.ndim > 2:
-        return _whiten_sumsq_shared(x, a_half, X, Ci, mu)
+        return _whiten_sumsq_shared(x, a_half, X, Ci, mu, general, plan)
     batch, B, d, m, N = _flat_shapes(x, X)
     _check_cuda_args(
         [
@@ -427,15 +644,22 @@ def whiten_sumsq(x, a_half, X, Ci, mu):
     maha = torch.empty(batch + (N,), dtype=x.dtype, device=x.device)
     if B == 0 or N == 0:
         return maha
-    plan = _launch_plan(B, d, m, N, _num_sms(x.device.index))
-    _launch("whiten_sumsq", load_library().pf_whiten_sumsq,
-            (x, a_half, X, Ci, mu, maha), plan, x.device, B, d, m, N)
+    tensors = (x, a_half, X, Ci, mu, maha)
+    if general is None:
+        general = not uses_fast_kernel(x.dtype, m)
+    if general:
+        _launch_general("whiten_sumsq", load_general_library().pfg_whiten_sumsq, tensors,
+                        x.device, B, d, m, N, plan=plan)
+    else:
+        plan = _launch_plan(B, d, m, N, _num_sms(x.device.index))
+        _launch("whiten_sumsq", load_library().pf_whiten_sumsq, tensors, plan, x.device,
+                B, d, m, N)
     return maha
 
 
-def _whiten_sumsq_shared(x, a_half, X, Ci, mu):
+def _whiten_sumsq_shared(x, a_half, X, Ci, mu, general=None, plan=None):
     """B2 with ``x (d, P)`` shared by the factors ``X (..., d, m)``. The
-    kernel reads ``x`` in the ``(P, d)`` layout, a column's rows side by
+    kernels read ``x`` in the ``(P, d)`` layout, a column's rows side by
     side: an ``x`` that is the transpose of a contiguous ``(P, d)`` block
     (pooled draws) goes in as it is, any other is transposed once."""
     batch = tuple(X.shape[:-2])
@@ -444,8 +668,6 @@ def _whiten_sumsq_shared(x, a_half, X, Ci, mu):
     P = x.shape[1]
     if d == 0:
         raise ValueError("the kernels need d >= 1")
-    if m > MAX_RANK:
-        raise ValueError(f"rank m={m} exceeds the kernel's cap of {MAX_RANK}")
     xt = x.mT if x.mT.is_contiguous() else x.mT.contiguous()
     _check_cuda_args(
         [
@@ -460,7 +682,14 @@ def _whiten_sumsq_shared(x, a_half, X, Ci, mu):
     maha = torch.empty(batch + (P,), dtype=x.dtype, device=x.device)
     if B == 0 or P == 0:
         return maha
-    plan = _launch_plan_shared(B, d, m, P, _num_sms(x.device.index))
-    _launch("whiten_sumsq", load_library().pf_whiten_sumsq_shared,
-            (xt, a_half, X, Ci, mu, maha), plan, x.device, B, d, m, P, shared=True)
+    tensors = (xt, a_half, X, Ci, mu, maha)
+    if general is None:
+        general = not uses_fast_kernel(x.dtype, m)
+    if general:
+        _launch_general("whiten_sumsq", load_general_library().pfg_whiten_sumsq_shared, tensors,
+                        x.device, B, d, m, P, shared=True, plan=plan)
+    else:
+        plan = _launch_plan_shared(B, d, m, P, _num_sms(x.device.index))
+        _launch("whiten_sumsq", load_library().pf_whiten_sumsq_shared, tensors, plan, x.device,
+                B, d, m, P, shared=True)
     return maha

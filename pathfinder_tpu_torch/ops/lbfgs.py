@@ -26,7 +26,7 @@ from pathfinder_tpu_torch.ops.trajectory import (
     scale_aware_gtol,
     should_abort_nonfinite,
 )
-from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat
+from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat, solve_triangular
 
 __all__ = [
     "OptimizationTrace",
@@ -82,9 +82,9 @@ def _two_loop_direction(g, alpha, S, Y, pos, hlen):
 
     u1 = (Y_ord @ (alpha * g)[..., None])[..., 0]  # B₁ᵀ g
     u2 = (S_ord @ g[..., None])[..., 0]  # B₂ᵀ g
-    w = torch.linalg.solve_triangular(R, u2[..., None], upper=True)  # R⁻¹ u2
+    w = solve_triangular(R, u2[..., None], upper=True)  # R⁻¹ u2
     inner = -u1[..., None] + E[..., None] * w + YaY @ w
-    d2 = torch.linalg.solve_triangular(R.mT, inner, upper=False)  # R⁻ᵀ(...)
+    d2 = solve_triangular(R.mT, inner, upper=False)  # R⁻ᵀ(...)
     Hg = alpha * g - alpha * (Y_ord.mT @ w)[..., 0] + (S_ord.mT @ d2)[..., 0]
     return -Hg
 
@@ -192,7 +192,7 @@ def lbfgs_inverse_hessian(alpha, S, Y, row_mask) -> WoodburyPDMat:
     Y = Y * mask[..., None]
     B = torch.cat([(alpha[..., None, :] * Y).mT, S.mT], dim=-1)  # (..., d, 2J)
     R, E, YaY, eyeJ = _compact_pieces(S, Y, alpha, mask)
-    nRinv = torch.linalg.solve_triangular(R, -eyeJ.expand_as(R), upper=True)
+    nRinv = solve_triangular(R, -eyeJ.expand_as(R), upper=True)
     inner = torch.diag_embed(E) + YaY
     D22 = nRinv.mT @ inner @ nRinv
     Dtop = torch.cat([torch.zeros_like(nRinv), nRinv], dim=-1)

@@ -21,6 +21,12 @@ and downstream logic (``is_finite_pd``, the success predicate, the NaN-
 skipping ELBO argmax) depends on the NaNs. So every Cholesky here is
 ``cholesky_ex`` with NaN written where ``info != 0``, which also avoids a
 host sync on the card.
+
+torch has no Cholesky or triangular solve in bfloat16 on any device; the
+JAX package's XLA has them. A bfloat16 factor therefore runs those two in
+float32 and rounds each result to bfloat16 once. float16 has neither in
+torch nor in the JAX package's CPU LAPACK, and raises ``NotImplementedError``
+in both.
 """
 
 from __future__ import annotations
@@ -36,23 +42,36 @@ __all__ = [
     "pdfactorize",
     "pdunfactorize",
     "cholesky_or_nan",
+    "solve_triangular",
 ]
+
+
+def _linalg_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype torch's Cholesky and triangular solves run in for
+    ``dtype``: float32 for bfloat16 (see the module docstring)."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
 def cholesky_or_nan(M: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor, all-NaN for matrices that are not PD."""
-    L, info = torch.linalg.cholesky_ex(M)
-    return torch.where((info != 0)[..., None, None], torch.nan, L)
+    L, info = torch.linalg.cholesky_ex(M.to(_linalg_dtype(M.dtype)))
+    return torch.where((info != 0)[..., None, None], torch.nan, L).to(M.dtype)
+
+
+def solve_triangular(L: torch.Tensor, B: torch.Tensor, *, upper: bool) -> torch.Tensor:
+    """``L⁻¹ B`` for triangular ``L``, in the dtype of :func:`_linalg_dtype`."""
+    work = _linalg_dtype(B.dtype)
+    return torch.linalg.solve_triangular(L.to(work), B.to(work), upper=upper).to(B.dtype)
 
 
 def _solve_lower(L, B):
     """``L⁻¹ B`` for lower-triangular ``L``."""
-    return torch.linalg.solve_triangular(L, B, upper=False)
+    return solve_triangular(L, B, upper=False)
 
 
 def _solve_lower_t(L, B):
     """``L⁻ᵀ B`` for lower-triangular ``L`` (``trans=1`` in SciPy terms)."""
-    return torch.linalg.solve_triangular(L.mT, B, upper=True)
+    return solve_triangular(L.mT, B, upper=True)
 
 
 @dataclasses.dataclass(frozen=True)

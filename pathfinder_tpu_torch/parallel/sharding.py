@@ -7,17 +7,22 @@ of paths as launches of one fixed lane count, and can stream each launch's
 output into host memory as it completes, so that the card holds one or two
 launches and never the whole pool. Every random number of a path comes from
 its ``(seed, path id, round)`` streams, so the cap and the offload change no
-random number and no decision.
+random number. Offload changes no bit. The cap can change the last bits (on
+a CUDA device a kernel's launch plan and a library's algorithm follow the
+batch), and through them, rarely, a decision that sits on a tie, such as
+the step at which a path's ``ftol`` test stops it.
 
 The defaults come from this card's memory: :func:`plan_launches` takes the
 card's total memory, a per-lane estimate of one launch's peak
 (:func:`lane_bytes`) and of the state a lane keeps (:func:`state_bytes`),
 all three fixed for a card and a configuration. The plan is taken from the
-total, not the free memory, because the cap can change a result's last bits
-(a kernel's launch plan and a library's algorithm follow the batch), so the
-same card and the same options always choose the same cap. Memory that
-other work holds on the card is the caller's to leave room for, by passing
-``max_paths_per_launch``.
+total, not the free memory, because the cap can change a result's last bits,
+so the same card and the same options always choose the same cap. Memory
+that other work holds on the card is the caller's to leave room for, by
+passing ``max_paths_per_launch``. The estimates know the optimizer (BFGS
+and Newton hold ``(d, d)`` matrices a lane) and the mixture denominator
+(whose pooled-draw blocks are sized by the same cap); ``laplace_resample``
+sizes its blocks by its own estimate, :func:`laplace_lane_bytes`.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ __all__ = [
     "lane_bytes",
     "state_bytes",
     "plan_launches",
+    "laplace_lane_bytes",
+    "laplace_block",
     "device_memory_bytes",
     "LAUNCH_SHARE",
     "OFFLOAD_SHARE",
@@ -138,20 +145,46 @@ def state_bytes(d: int, maxiters: int, history_length: int, ndraws: int,
     return floats * (torch.finfo(dtype).bits // 8) + 8 * 10 + 1
 
 
-def lane_bytes(d: int, maxiters: int, history_length: int, ndraws_elbo: int,
-               elbo_chunk: int, ndraws: int, dtype=torch.float32) -> int:
-    """An upper estimate of one lane's share of a launch's peak device
-    memory, for L-BFGS with the component denominator.
+# (d, d) matrices of the working dtype a lane holds at once at its peak.
+# HESSIAN_COPIES: torch.func's forward-over-reverse Hessian of a lane with
+# its intermediates (``models/protocol.batched_hessian``): 7.0–7.3 measured
+# for ``HierarchicalGaussian(1000)`` (``tools/serving_memory.py``, PERF.md
+# §5); a target whose gradient builds larger intermediates needs more.
+# "newton" (``ops/newton.py``): the Hessian sets the peak; its negation,
+# symmetrized and masked copies and eigh's vectors that follow hold fewer.
+# "bfgs" (``ops/bfgs.py``): counted from the code, eight at the rank-two
+# update (the first H, which the caller's carry keeps, the carried H, the
+# direction's H, H_base, s·(Hy)ᵀ and three temporaries of the update);
+# measured, nine (``tools/serving_memory.py``); the estimate takes ten.
+HESSIAN_COPIES = 8
+DENSE_COPIES = {"bfgs": 10, "newton": HESSIAN_COPIES}
+# (K, columns) arrays of the mixture denominator's block at once: the
+# Mahalanobis terms, the densities and their temporaries, and logsumexp's
+MIXTURE_COPIES = 5
 
-    The peak falls in the ELBO stage: the trace and the history arrays that
-    rebuild a fit at any point (steps, gradient differences, diagonals and
-    their stack) are held while one chunk of ``C`` candidates is either
-    built (history windows, factors and their temporaries, about ``11·J·d``
-    floats a candidate) or sampled (the factors kept, ``(4·J + 3)·d``
-    floats, the noise, the draws and the target's temporaries, ``4·d·N``,
-    and the noise's Philox words, int64, about 40 bytes a normal at the
-    stream's peak). The winner's ``ndraws`` draws are sampled alike, one
-    candidate a lane. Measured on the card: ``tools/serving_memory.py``."""
+
+def lane_bytes(d: int, maxiters: int, history_length: int, ndraws_elbo: int,
+               elbo_chunk: int, ndraws: int, dtype=torch.float32, optimizer="lbfgs",
+               importance_denominator: str = "component", nruns: int = 0) -> int:
+    """An upper estimate of one lane's share of a launch's peak device
+    memory.
+
+    For L-BFGS (and CG, and any optimizer not named below) the peak falls in
+    the ELBO stage: the trace and the history arrays that rebuild a fit at
+    any point (steps, gradient differences, diagonals and their stack) are
+    held while one chunk of ``C`` candidates is either built (history
+    windows, factors and their temporaries, about ``11·J·d`` floats a
+    candidate) or sampled (the factors kept, ``(4·J + 3)·d`` floats, the
+    noise, the draws and the target's temporaries, ``4·d·N``, and the
+    noise's Philox words, int64, about 40 bytes a normal at the stream's
+    peak). The winner's ``ndraws`` draws are sampled alike, one candidate a
+    lane. ``optimizer="bfgs"`` or ``"newton"`` holds ``DENSE_COPIES`` dense
+    ``(d, d)`` matrices a lane during the trajectory, which then sets the
+    peak where it is larger. With ``importance_denominator="mixture"`` a
+    lane's ``N`` pooled draws also take a column of each of the ``nruns``
+    components in the denominator's block (``MIXTURE_COPIES`` arrays of
+    them), since those blocks are a launch's paths. Measured on the card:
+    ``tools/serving_memory.py``."""
     f = torch.finfo(dtype).bits // 8
     J, L, C = history_length, maxiters, min(elbo_chunk, maxiters)
     held = f * (2 * (L + 1) * d + (L + 1) + (2 * L + 2 * (L + 1)) * d)
@@ -159,7 +192,37 @@ def lane_bytes(d: int, maxiters: int, history_length: int, ndraws_elbo: int,
     def sample(n):
         return f * ((4 * J + 3) * d + 4 * d * n) + 40 * d * n
 
-    return held + max(C * f * 11 * J * d, C * sample(ndraws_elbo), sample(ndraws))
+    stages = [C * f * 11 * J * d, C * sample(ndraws_elbo), sample(ndraws)]
+    if isinstance(optimizer, str) and optimizer in DENSE_COPIES:
+        stages.append(DENSE_COPIES[optimizer] * f * d * d)
+    mixture = MIXTURE_COPIES * f * ndraws * nruns if importance_denominator == "mixture" else 0
+    return held + max(stages) + mixture
+
+
+def laplace_lane_bytes(d: int, ndraws_per_run: int, dtype=torch.float32,
+                       method: str = "diag") -> int:
+    """An upper estimate of one component's share of a ``laplace_resample``
+    block's peak device memory: its Hessian with torch.func's intermediates
+    (``HESSIAN_COPIES``) and the negated copy; the corrected factor (a dense
+    covariance with ``method="full"``, whose eigh and scaled copies come
+    after the Hessian's peak and stay below it); and its draws with their
+    noise and Philox words (as :func:`lane_bytes`)."""
+    f = torch.finfo(dtype).bits // 8
+    dense = HESSIAN_COPIES + 1
+    factor = (d * d if method == "full" else 0) + 4 * d
+    draws = f * 4 * d * ndraws_per_run + 40 * d * ndraws_per_run
+    return f * (dense * d * d + factor) + draws
+
+
+def laplace_block(K: int, d: int, ndraws_per_run: int, dtype, method: str, device) -> Optional[int]:
+    """Components per ``laplace_resample`` block on ``device``: on a CUDA
+    device the fewest even blocks whose estimated peak fits in
+    ``LAUNCH_SHARE`` of the card (:func:`plan_launches`), ``None`` (one
+    block) on the CPU."""
+    if torch.device(device).type != "cuda":
+        return None
+    per = laplace_lane_bytes(d, ndraws_per_run, dtype, method)
+    return plan_launches(K, per, 0, device_memory_bytes(device), offload=False)[0]
 
 
 def plan_launches(K: int, peak_per_lane: int, state_per_lane: int, device_bytes: int,

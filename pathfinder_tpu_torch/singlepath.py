@@ -363,6 +363,7 @@ def pathfinder(
     gtol: float = 1e-8,
     dtype: Optional[torch.dtype] = None,
     device: Union[str, torch.device] = "cuda",
+    core: Optional[Callable] = None,
     progress: bool = False,
     **config_overrides,
 ) -> PathfinderResult:
@@ -381,7 +382,16 @@ def pathfinder(
     unconstrained space; ``draws_transformed`` and
     ``fit_distribution_transformed`` hold the constrained-space views.
     ``progress=True`` prints ``Optimizing (try N)`` to standard error before
-    each try."""
+    each try.
+
+    ``core`` replaces :func:`pathfinder_core` for every try, with the port's
+    batched contract ``core(target, x0s, config, seed, path_ids, round_idx)
+    -> SinglePathState``, here on one lane: ``x0s (1, d)``, ``path_ids``
+    ``[0]`` and ``round_idx = t − 1`` for try ``t``. It is the counterpart
+    of the JAX package's single-path ``core(key, x0, target, config)``:
+    ``x0`` is ``x0s[0]``, and the key ``fold_in(key, t − 1)`` of try ``t``
+    is the streams ``(seed, path 0, round t − 1)``. The retry loop reads
+    ``state.success[0]`` after each try."""
     dev = resolve_device(device)
     if init is not None:
         init = torch.as_tensor(init, device=dev)
@@ -429,6 +439,7 @@ def pathfinder(
         **config_overrides,
     )
     path0 = torch.zeros(1, dtype=torch.int64, device=dev)
+    core = core or pathfinder_core
 
     def attempt(itry):
         if progress:
@@ -438,7 +449,7 @@ def pathfinder(
             x0 = init[None]
         else:
             x0 = sampler(rng.Stream(seed, path0, rnd, rng.INIT), d, dtype, dev)
-        return pathfinder_core(target, x0, config, seed, path0, rnd)
+        return core(target, x0, config, seed, path0, rnd)
 
     itry = 1
     state = attempt(itry)

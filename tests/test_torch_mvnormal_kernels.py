@@ -198,8 +198,10 @@ def test_wrapper_on_cpu_uses_the_plain_version_and_counts_nothing():
     comps = MvNormal(td.mean.expand(2, 16), _expand_cov(td.cov, 2))
     x, logq = comps.rand_and_logpdf(u=u)
     comps.logpdf(x)
-    assert wk.launch_counts() == {"sample_and_logq": 0, "whiten_sumsq": 0}
-    assert wk.launch_counts_by_shape() == {"sample_and_logq": {}, "whiten_sumsq": {}}
+    # the fast kernels' counts and the general kernel's (``*_general``)
+    names = ("sample_and_logq", "whiten_sumsq", "sample_and_logq_general", "whiten_sumsq_general")
+    assert wk.launch_counts() == {name: 0 for name in names}
+    assert wk.launch_counts_by_shape() == {name: {} for name in names}
     ref = wk.sample_and_logq_torch(
         u, comps.cov.factor.a_half, comps.cov.factor.X, comps.cov.factor.C,
         comps.mean, comps.cov.factor.log_det,

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Peak device memory and wall time of one launch of B lanes, on one card.
+"""Peak device memory of one launch of B lanes against the memory rule's
+estimates, on one card.
 
-    python3 tools/serving_memory.py [B ...]      # default: 512 1024 2048
+    python3 tools/serving_memory.py [B ...]          # default: 512 1024 2048
+    python3 tools/serving_memory.py --remedies [B]   # default B: 256
 
 At the headline configuration (``HierarchicalGaussian(1000)``, maxiters=64,
-history_length=6, ndraws_elbo=5, elbo_chunk=8, 5 draws a path, f32) it runs
-``pathfinder_core`` once on B paths (one launch, traces kept, as
-``multipathfinder`` runs each chunk) and prints, for each B:
+history_length=6, ndraws_elbo=5, elbo_chunk=8, 5 draws a path, f32) the
+first form runs ``pathfinder_core`` once on B paths (one launch, traces
+kept, as ``multipathfinder`` runs each chunk) and prints, for each B:
 
 * the wall time of the launch (host clock, a synchronize on each side);
 * ``torch.cuda.max_memory_allocated()`` after ``reset_peak_memory_stats()``,
@@ -15,6 +17,13 @@ history_length=6, ndraws_elbo=5, elbo_chunk=8, 5 draws a path, f32) it runs
   memory rule divides the card's memory by;
 * the bytes of the state one lane keeps, traces kept and slim, beside
   ``parallel.sharding.state_bytes``.
+
+The second form measures, per lane, one launch of B paths under each
+optimizer the rule names (``lbfgs``, ``cg``, ``bfgs``, ``newton``) against
+``lane_bytes(optimizer=...)``; ``laplace_resample``'s correction of B
+components (``diag`` and ``full``) against ``laplace_lane_bytes``; and the
+mixture denominator over a block of B paths' draws with every one of 4·B
+components against the term ``lane_bytes`` adds for it.
 
 Needs a CUDA card and ``nvcc``; prints the card's name and power limit first.
 """
@@ -30,7 +39,11 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 from pathfinder_tpu_torch.models import zoo  # noqa: E402
-from pathfinder_tpu_torch.multipath import _slim_traces  # noqa: E402
+from pathfinder_tpu_torch.multipath import (  # noqa: E402
+    _log_importance_ratios_mixture,
+    _slim_traces,
+    laplace_corrected_components_and_draws,
+)
 from pathfinder_tpu_torch.parallel import sharding  # noqa: E402
 from pathfinder_tpu_torch.singlepath import PathfinderConfig, pathfinder_core  # noqa: E402
 from pathfinder_tpu_torch.utils import rng  # noqa: E402
@@ -45,28 +58,30 @@ def leaf_bytes(state) -> int:
     return sum(total)
 
 
-def main():
-    if not torch.cuda.is_available():
-        sys.exit("a CUDA card is required")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(f"card: {smi}", flush=True)
-    target = zoo.HierarchicalGaussian(D, seed=0)
+def peak_of(fn):
+    """``(fn(), peak bytes above what was allocated before, seconds)``."""
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before, time.perf_counter() - t0
+
+
+def starts(B):
+    ids = torch.arange(B, device="cuda")
+    return ids, rng.Stream(0, ids, 0, rng.INIT).uniform(D, torch.float32, "cuda") * 4.0 - 2.0
+
+
+def launches(target, sizes):
     cfg = PathfinderConfig(maxiters=MAXITERS, history_length=J, ndraws_elbo=N_ELBO,
                            ndraws=NDRAWS, elbo_chunk=CHUNK)
     estimate = sharding.lane_bytes(D, MAXITERS, J, N_ELBO, CHUNK, NDRAWS)
-    sizes = [int(a) for a in sys.argv[1:]] or [512, 1024, 2048]
     for B in [64] + sizes:  # the first launch builds the kernels and warms up
-        ids = torch.arange(B, device="cuda")
-        x0s = rng.Stream(0, ids, 0, rng.INIT).uniform(D, torch.float32, "cuda") * 4.0 - 2.0
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        state = pathfinder_core(target, x0s, cfg, 0, ids, 0)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() - before
+        ids, x0s = starts(B)
+        state, peak, secs = peak_of(lambda: pathfinder_core(target, x0s, cfg, 0, ids, 0))
         if B == 64:
             continue
         full, slim = leaf_bytes(state) / B, leaf_bytes(_slim_traces(state)) / B
@@ -78,6 +93,56 @@ def main():
               f"(state_bytes {sharding.state_bytes(D, MAXITERS, J, NDRAWS, keep_traces=False)})",
               flush=True)
         del state
+
+
+def remedies(target, B):
+    for opt in ("lbfgs", "cg", "bfgs", "newton"):
+        cfg = PathfinderConfig(maxiters=MAXITERS, history_length=J, ndraws_elbo=N_ELBO,
+                               ndraws=NDRAWS, elbo_chunk=CHUNK, optimizer=opt)
+        ids, x0s = starts(B)
+        pathfinder_core(target, x0s[:8], cfg, 0, ids[:8], 0)  # warm up
+        state, peak, secs = peak_of(lambda: pathfinder_core(target, x0s, cfg, 0, ids, 0))
+        est = sharding.lane_bytes(D, MAXITERS, J, N_ELBO, CHUNK, NDRAWS, torch.float32, opt)
+        print(f"optimizer={opt} B={B}: wall_s={secs:.3f} paths_ok={int(state.success.sum())}/{B} "
+              f"peak_per_lane={peak / B:.0f} lane_bytes_estimate={est} "
+              f"estimate/measured={est / (peak / B):.3f}", flush=True)
+        if opt == "lbfgs":
+            comps = state.fit_distribution
+            draws = state.draws.mT.contiguous()
+        del state
+    for method in ("diag", "full"):
+        stream = rng.Stream(0, torch.arange(B, device="cuda"), 1, rng.LAPLACE_DRAWS)
+        _, peak, secs = peak_of(lambda: laplace_corrected_components_and_draws(
+            target.logp, comps, stream, NDRAWS, method))
+        est = sharding.laplace_lane_bytes(D, NDRAWS, torch.float32, method)
+        print(f"laplace_resample method={method} block={B}: wall_s={secs:.3f} "
+              f"peak_per_component={peak / B:.0f} laplace_lane_bytes={est} "
+              f"estimate/measured={est / (peak / B):.3f}", flush=True)
+    # the mixture denominator over one block of B paths' draws, with every
+    # component of a pool of 4·B (the pool's components stacked four times)
+    every = tree_map(lambda t: torch.cat([t] * 4), comps)
+    _, peak, secs = peak_of(lambda: (_log_importance_ratios_mixture(every, draws),
+                                     target.logp(draws.reshape(-1, D))))
+    full = sharding.lane_bytes(D, MAXITERS, J, N_ELBO, CHUNK, NDRAWS, torch.float32,
+                               importance_denominator="mixture", nruns=4 * B)
+    est = full - sharding.lane_bytes(D, MAXITERS, J, N_ELBO, CHUNK, NDRAWS)
+    print(f"mixture denominator block={B} paths x {4 * B} components: wall_s={secs:.3f} "
+          f"peak_per_path={peak / B:.0f} lane_bytes_mixture_term={est} "
+          f"estimate/measured={est / (peak / B):.3f}", flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("a CUDA card is required")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    target = zoo.HierarchicalGaussian(D, seed=0)
+    args = sys.argv[1:]
+    if args and args[0] == "--remedies":
+        remedies(target, int(args[1]) if len(args) > 1 else 256)
+    else:
+        launches(target, [int(a) for a in args] or [512, 1024, 2048])
 
 
 if __name__ == "__main__":
