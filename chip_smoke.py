@@ -68,11 +68,12 @@ Phases, each of which fails the run (exit code 1) on any error:
 8. Dtypes and ranks, the general kernel's paths: BASELINE config 2
    (``pathfinder(CorrelatedGaussian(100), history_length=20)``) on 5 seeds
    with its moment errors inside the JAX band, ``history_length=50``, the
-   headline at ``history_length=20`` and in float64 on 5 seeds (k̂ and moment
-   error inside the JAX-x64 band), and one headline call each in bfloat16
-   and float16 with the JAX package's warning and outcome; each run launches
-   the general kernel and never the fast one, and the earlier float32 phases
-   never launch the general one.
+   headline at ``history_length`` 20 and 50, in float64 on 5 seeds (k̂ and
+   moment error inside the JAX-x64 band) and single-path, and one headline
+   and one single-path call each in bfloat16 and float16 with the JAX
+   package's warning and outcome; each run launches the general kernel and
+   never the fast one, and the earlier float32 phases never launch the
+   general one.
 9. The memory rule: a chunked BFGS run and a blocked ``laplace_resample``
    at d = 1000 under the rule's own choice, each estimate at least the
    measured peak and at most twice it.
@@ -1081,9 +1082,11 @@ F64_KHAT_BAND = (1.0297, 2.4385)
 F64_MOMENT_ERR_BAND = (1.1709, 4.0388)
 # The headline at 16 bits with the JAX package on the CPU (x64 off), ntries=2,
 # keys 0..2 (``... lowp``): bfloat16 runs to its end with 0/100 paths
-# succeeding and a NaN k̂; float16 raises NotImplementedError (no float16
-# triangular solve); both warn that their optimization state is unusable.
+# succeeding and a NaN k̂, and the single-path pathfinder fails both tries;
+# float16 raises NotImplementedError in both (no float16 triangular solve);
+# all warn that their optimization state is unusable.
 LOW_PRECISION_OUTCOME = {"bfloat16": 0, "float16": NotImplementedError}
+LOW_PRECISION_SINGLE = {"bfloat16": False, "float16": NotImplementedError}
 # the memory rule's runs: BFGS paths at d = 1000, more than one launch of the
 # rule's cap holds; a chunked result whose Laplace correction the rule blocks
 MEM_BFGS_K = 2048
@@ -1162,6 +1165,13 @@ def config2_phase(pt, wk, zoo):
     print(f"headline history_length=20: paths_ok={K}/{K} khat={khat:.4f} "
           f"moment_err_mean_sd_units={merr:.4f} launches={grew}", flush=True)
     _uses_general_only("headline history_length=20", grew, GENERAL_KERNELS)
+    res, grew = _counted(wk, lambda: pt.multipathfinder(
+        head, 1000, nruns=K, maxiters=64, elbo_chunk=8, history_length=50, seed=0))
+    add(grew)
+    khat, merr = _check_result("headline history_length=50", res, mean_t, sd_h)
+    print(f"headline history_length=50: paths_ok={K}/{K} khat={khat:.4f} "
+          f"moment_err_mean_sd_units={merr:.4f} launches={grew}", flush=True)
+    _uses_general_only("headline history_length=50", grew, GENERAL_KERNELS)
     return totals
 
 
@@ -1195,6 +1205,14 @@ def float64_phase(pt, wk, zoo):
     med_k, med_m = statistics.median(khats), statistics.median(merrs)
     print(f"float64 headline: median khat={med_k:.4f} band={F64_KHAT_BAND}; median moment "
           f"error={med_m:.4f} band={F64_MOMENT_ERR_BAND}", flush=True)
+    one, grew = _counted(wk, lambda: pt.pathfinder(target, seed=0, maxiters=64, dtype=torch.float64))
+    for n, c in grew.items():
+        totals[n] += c
+    print(f"float64 single path: success={one.success} tries={one.num_tries} "
+          f"draws={one.draws.dtype} launches={grew}", flush=True)
+    if not one.success or one.draws.dtype != torch.float64 or not torch.isfinite(one.draws).all():
+        fail("float64 single path: no success, or draws not finite float64")
+    _uses_general_only("float64 single path", grew, ("sample_and_logq_general",))
     if not (F64_KHAT_BAND[0] <= med_k <= F64_KHAT_BAND[1]
             and F64_MOMENT_ERR_BAND[0] <= med_m <= F64_MOMENT_ERR_BAND[1]):
         fail("float64 headline: median k-hat or moment error outside the JAX-x64 band")
@@ -1210,30 +1228,36 @@ def low_precision_phase(pt, wk, zoo):
 
     target = zoo.HierarchicalGaussian(D, seed=0)
     totals = {n: 0 for n in wk.launch_counts()}
-    for dt_name, want in LOW_PRECISION_OUTCOME.items():
-        wk.reset_launch_counts()
-        t0 = time.perf_counter()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            try:
-                res = pt.multipathfinder(target, 1000, nruns=K, maxiters=64, elbo_chunk=8,
-                                         ntries=2, dtype=getattr(torch, dt_name), seed=0)
-                outcome, note = int(res.states.success.sum()), f"k-hat {float(res.psis_result.pareto_shape)}"
-            except Exception as e:  # the outcome is the exception's type
-                outcome, note = type(e), str(e)[:120]
-        torch.cuda.synchronize()
-        grew = wk.launch_counts()
-        for n, c in grew.items():
-            totals[n] += c
-        warned = any("optimization state is almost always" in str(w.message) for w in caught)
-        shown = outcome.__name__ if isinstance(outcome, type) else f"{outcome}/{K} paths ok"
-        print(f"{dt_name} headline: {shown} ({note}) warned={warned} "
-              f"wall_s={time.perf_counter() - t0:.3f} launches={grew}; the JAX package on the "
-              f"CPU: {getattr(want, '__name__', f'{want}/{K} paths ok')}", flush=True)
-        if outcome != want or not warned:
-            fail(f"{dt_name}: outcome {shown} (warned {warned}) differs from the JAX package's")
-        if dt_name == "bfloat16":
-            _uses_general_only("bfloat16 headline", grew, GENERAL_KERNELS)
+    runs = (
+        ("headline", LOW_PRECISION_OUTCOME, GENERAL_KERNELS, lambda dtype: pt.multipathfinder(
+            target, 1000, nruns=K, maxiters=64, elbo_chunk=8, ntries=2, dtype=dtype, seed=0)),
+        ("single path", LOW_PRECISION_SINGLE, ("sample_and_logq_general",), lambda dtype: pt.pathfinder(
+            target, maxiters=64, ntries=2, dtype=dtype, seed=0)),
+    )
+    for label, outcomes, used, run in runs:
+        for dt_name, want in outcomes.items():
+            wk.reset_launch_counts()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                try:
+                    res = run(getattr(torch, dt_name))
+                    outcome = int(res.states.success.sum()) if label == "headline" else res.success
+                except Exception as e:  # the outcome is the exception's type
+                    outcome, res = type(e), e
+            torch.cuda.synchronize()
+            grew = wk.launch_counts()
+            for n, c in grew.items():
+                totals[n] += c
+            warned = any("optimization state is almost always" in str(w.message) for w in caught)
+            print(f"{dt_name} {label}: outcome={getattr(outcome, '__name__', outcome)} "
+                  f"({str(res)[:120] if isinstance(res, Exception) else 'ran to its end'}) "
+                  f"warned={warned} wall_s={time.perf_counter() - t0:.3f} launches={grew}; the JAX "
+                  f"package on the CPU: {getattr(want, '__name__', want)}", flush=True)
+            if outcome != want or not warned:
+                fail(f"{dt_name} {label}: outcome {outcome} (warned {warned}) differs from JAX's")
+            if dt_name == "bfloat16":
+                _uses_general_only(f"bfloat16 {label}", grew, used)
     return totals
 
 

@@ -12,9 +12,10 @@
   covariance (max over coordinates of |mean error| / sd and of
   |sd error| / sd, as ``bench.py`` ``_moment_errors``).
 * ``lowp``: the headline ``multipathfinder(HierarchicalGaussian(1000, seed=0),
-  1000, nruns=100, maxiters=64, elbo_chunk=8, ntries=2)`` with
-  ``dtype=bfloat16`` and ``float16`` (x64 off), keys 0..2: the warnings, and
-  the paths that succeed or the type of the exception raised.
+  1000, nruns=100, maxiters=64, elbo_chunk=8, ntries=2)`` and the single-path
+  ``pathfinder(HierarchicalGaussian(1000, seed=0), maxiters=64, ntries=2)``
+  with ``dtype=bfloat16`` and ``float16`` (x64 off), keys 0..2: the
+  warnings, and the paths that succeed or the type of the exception raised.
 * ``headline64``: the same headline with ``dtype=float64`` (x64 on), keys
   0..9: paths succeeding, k̂ and the moment error of the draw means.
 
@@ -76,21 +77,30 @@ def config2(keys):
 
 def lowp(keys):
     target = zoo.HierarchicalGaussian(D, seed=0)
-    for dt in (jnp.bfloat16, jnp.float16):
-        for k in keys:
-            t0 = time.perf_counter()
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                try:
-                    r = multipathfinder(target, 1000, key=jax.random.key(k), nruns=K, maxiters=64,
-                                        elbo_chunk=8, ntries=2, dtype=dt)
-                    outcome = (f"paths_ok={int(np.asarray(r.states.success).sum())}/{K} "
-                               f"khat={float(r.psis_result.pareto_shape)}")
-                except Exception as e:  # the outcome is the exception's type
-                    outcome = f"raised {type(e).__name__}"
-            below_32 = any("optimization state is almost always" in str(w.message) for w in caught)
-            print(f"lowp {jnp.dtype(dt).name} key={k}: {outcome} warned_below_32_bits={below_32} "
-                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    runs = {
+        "multipathfinder": lambda k, dt: multipathfinder(
+            target, 1000, key=jax.random.key(k), nruns=K, maxiters=64, elbo_chunk=8, ntries=2,
+            dtype=dt),
+        "pathfinder": lambda k, dt: pathfinder(
+            target, key=jax.random.key(k), maxiters=64, ntries=2, dtype=dt),
+    }
+    for entry, run in runs.items():
+        for dt in (jnp.bfloat16, jnp.float16):
+            for k in keys:
+                t0 = time.perf_counter()
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    try:
+                        r = run(k, dt)
+                        outcome = f"paths_ok={int(np.asarray(r.states.success).sum())}" if hasattr(
+                            r, "states") else f"success={bool(r.success)} tries={r.num_tries}"
+                    except Exception as e:  # the outcome is the exception's type
+                        outcome = f"raised {type(e).__name__}"
+                below_32 = any("optimization state is almost always" in str(w.message)
+                               for w in caught)
+                print(f"lowp {entry} {jnp.dtype(dt).name} key={k}: {outcome} "
+                      f"warned_below_32_bits={below_32} ({time.perf_counter() - t0:.1f}s)",
+                      flush=True)
 
 
 def headline64(keys):
