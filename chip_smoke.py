@@ -18,12 +18,14 @@ Phases, each of which fails the run (exit code 1) on any error:
    numpy RNG; a repeated launch must give the same bits. Prints each one's launch plan, its L2-cold time beside
    the plain version's and its bound, and the registers and spills of the
    main path's kernel instantiations (``ptxas -v`` at build time). Then the
-   general kernel (every dtype and rank the fast one does not take) in its
-   three modes against its plain version at float64, float32, bfloat16 and
-   float16 and ranks 0, 12, 40, 100 and 258 (d = 1000 timed L2-cold beside
-   its bound; d = 999 unaligned; d = 25), at float32 against the fast
-   kernel, with its sums in the global workspace, and its registers and
-   spills.
+   general kernels (every dtype and rank the fast one does not take) in
+   their three modes against their plain version at float64, float32,
+   bfloat16 and float16 and ranks 0, 12, 40, 100 and 258 (d = 1000 timed
+   L2-cold beside its bound; d = 999 unaligned; d = 25), each case's launch
+   plan printed, B1 at config 2's shapes and the float64 headline's winner
+   shape timed too, at float32 against the fast kernel, with their sums in
+   the global workspace (B1 and B2 per factor with their rows in tiles), and
+   their registers and spills.
 3. The main path: ``multipathfinder`` on ``HierarchicalGaussian(1000)`` with
    100 paths for 5 seeds (the headline configuration), with every path
    succeeding, finite draws and k̂, both kernels launched in every run (the
@@ -384,6 +386,8 @@ GENERAL_SHARED = (("mixture", K, D, 1000), ("odd-mixture", 8, 999, 1000),
 # output draws)
 GENERAL_MAIN = {"sample_and_logq": ("float64", "elbo", 12), "whiten_sumsq": ("float64", "psis", 12)}
 CONFIG2_B1 = (("config2-elbo", 16, 100, 40, 100), ("config2-draws", 1, 100, 40, 2000))
+# the float64 headline's other B1 launch: the K winners' replayed draws (timed)
+GENERAL_WINNER_B1 = (("winner", K, D, M, 5),)
 
 
 def _seeded_inputs(rng, B, d, m, N, dtype, shared=False, offset=0):
@@ -456,6 +460,9 @@ def general_kernel_phase(wk):
     for label, B, d, m, N in CONFIG2_B1:
         rows.append(_general_case(wk, rng, "sample_and_logq", label, B, d, m, N, torch.float32,
                                   False, timed=True))
+    for label, B, d, m, N in GENERAL_WINNER_B1:
+        rows.append(_general_case(wk, rng, "sample_and_logq", label, B, d, m, N, torch.float64,
+                                  False, timed=True))
     # the general kernel at float32, rank 12, against the fast kernel
     for name, B, N, shared in (("sample_and_logq", K * 8, 5, False), ("whiten_sumsq", K, 10, False),
                                ("whiten_sumsq", K, 1000, True)):
@@ -472,10 +479,12 @@ def general_kernel_phase(wk):
         print(f"general kernel vs fast kernel {name} [B={B} d={D} m={M} N={N}"
               f"{' shared x' if shared else ''} float32]: max_abs_err={err:.3e} "
               f"tol={GENERAL_VS_FAST_TOL}", flush=True)
-    # the global workspace: a plan whose sums do not fit a 16 KB CTA
+    # the global workspace: a plan whose sums do not fit a 16 KB CTA (per
+    # factor: rows in tiles, the sums of one column tile in the workspace)
     for name, shared in (("sample_and_logq", False), ("whiten_sumsq", False), ("whiten_sumsq", True)):
         B, d, m, N = 4, 999, 1000, 5
-        plan = wk._general_plan(d, m, N, torch.float32, smem_limit=16384)
+        plan = (wk._general_plan(d, m, N, torch.float32, smem_limit=16384) if shared else
+                wk._general_rows_plan(B, d, m, N, torch.float32, smem_limit=16384))
         if not plan[-1]:
             fail(f"the 16 KB plan {plan} did not put its sums in the workspace")
         args = _seeded_inputs(rng, B, d, m, N, torch.float32, shared, offset=1)
@@ -490,9 +499,10 @@ def general_kernel_phase(wk):
         print(f"general kernel {name} with its sums in the workspace [B={B} d={d} m={m} N={N}"
               f"{' shared x' if shared else ''} float32] plan={plan}: max_abs_err={err:.3e}",
               flush=True)
-    for (name, dt_name), r in sorted(wk.general_kernel_resources().items()):
-        print(f"kernel {name} {dt_name}: registers={r.get('registers')} "
-              f"spill_stores={r.get('spill_stores')}B spill_loads={r.get('spill_loads')}B", flush=True)
+    for (name, dt_name, nt), r in sorted(wk.general_kernel_resources().items(), key=str):
+        print(f"kernel {name} {dt_name}{'' if nt is None else f' NT={nt}'}: "
+              f"registers={r.get('registers')} spill_stores={r.get('spill_stores')}B "
+              f"spill_loads={r.get('spill_loads')}B", flush=True)
     return rows
 
 
@@ -521,10 +531,15 @@ def _general_case(wk, rng, name, label, B, d, m, N, dtype, shared, timed):
         same = torch.equal(got, kernel(*args, general=True))
     if not same:
         fail(f"general {name} [{tag}]: a repeated launch gave other bits")
+    if shared:
+        plan = wk._general_plan(d, m, N, dtype)
+        plan_text = f"plan(threads,nt,rows,pk,smem,ws)={plan}"
+    else:
+        plan = wk._general_rows_plan(B, d, m, N, dtype, wk._num_sms(0))
+        plan_text = f"plan(cluster,threads,tile,nc,colblk,whole,smem,ws)={tuple(plan)}"
     row = dict(label=label, name=name, dtype=dt_name, B=B, d=d, m=m, N=N, shared=shared, err=err,
-               plan=wk._general_plan(d, m, N, dtype))
-    line = (f"kernel {name}_general [{tag}{' shared x' if shared else ''}] plan(threads,nt,rows,pk,"
-            f"smem,ws)={row['plan']} max_abs_err={err:.3e}")
+               plan=tuple(plan))
+    line = f"kernel {name}_general [{tag}{' shared x' if shared else ''}] {plan_text} max_abs_err={err:.3e}"
     if timed:
         itemsize = torch.finfo(dtype).bits // 8
         row["ms"] = time_cold_ms(lambda: kernel(*args, general=True))

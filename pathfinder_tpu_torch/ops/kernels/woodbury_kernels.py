@@ -22,9 +22,10 @@ the kernel or raises, and never falls back. The kernels are built with
 ``nvcc`` at first use, both sources at once, from the sources in the
 package, into the ``build/`` directory beside the package, and bound with
 ``ctypes``. How a launch is cut is decided here, by :func:`_launch_plan`
-and :func:`_launch_plan_shared` for the fast kernel and
-:func:`_general_plan` for the general one, and checked by each kernel
-against its own layout.
+and :func:`_launch_plan_shared` for the fast kernel, and for the general
+source by :func:`_general_rows_plan` (B1 and B2 per factor,
+``factor_kernel``) and :func:`_general_plan` (B2 over a shared ``x``,
+``general_kernel``), and checked by each kernel against its own layout.
 
 Shapes (batch ``B`` of independent factors, dimension ``d``, rank ``m``,
 ``N`` draws): ``u``/``x`` ``(B, d, N)``, ``a_half``/``mu`` ``(B, d)``,
@@ -88,14 +89,21 @@ _MIN_PAIR_TILE = 10  # narrower tiles are not worth a second CTA on the SM
 # an SM, 1 KB of it reserved per CTA)
 _SMEM_PAIR = 233_472 // 2 - 1024
 
-# the general kernel's plan: threads a CTA, the widest column tile, the most
-# rows staged at once, the rows staged at the least before the column tile
-# is narrowed, and the bytes of a panel of M
+# the general source's kernels: threads a CTA (both); for general_kernel (B2
+# over a shared x) the widest column tile, the most rows staged at once, the
+# rows staged at the least before the column tile is narrowed, and the bytes
+# of a panel of M
 _G_THREADS = 256
 _G_MAX_COLS = 16
 _G_MAX_ROWS = 256
 _G_MIN_ROWS = 32
 _G_PANEL_BYTES = 16 * 1024
+# factor_kernel (B1, B2 per factor): the most columns of a round and the ranks
+# of a pass-1 register tile (csrc/woodbury_general.cu: kRound, kRK)
+_R_ROUND = 40
+_R_RK = 4
+_R_SPLIT_M = 64  # above this rank a cluster splits s = M t by rows (csrc: kSplitM)
+_WARPS = _G_THREADS // 32
 # the general kernel's dtype codes (csrc/woodbury_general.cu: kF32 ...)
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfloat16: 3}
 
@@ -344,6 +352,165 @@ def _general_plan(d: int, m: int, N: int, dtype, smem_limit: int = SMEM_LIMIT) -
     return threads, nt, rows, pk, need(nt, rows, ws), ws
 
 
+def _r16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _rows_col_tile(N: int) -> int:
+    """A thread's column tile in ``factor_kernel``: 5 where N is a multiple
+    of 5 (N = 5 and 10 run exactly), else 4."""
+    return 5 if N % 5 == 0 else 4
+
+
+def _rows_slots(m: int, nc: int, nt: int) -> int:
+    """Pass 1's slots: the (rank tile, column tile) pairs of a round rounded
+    up to a power of two, at most one a thread (csrc: ``pair_slots``)."""
+    pairs, slots = -(-m // _R_RK) * -(-nc // nt), 1
+    while slots < pairs and slots < _G_THREADS:
+        slots *= 2
+    return slots
+
+
+def _rows_parts(m: int, nc: int, nt: int) -> int:
+    """Pass 1's partial sums a value: one a warp where a warp holds whole row
+    parts of every slot, else one a row part (csrc: ``row_parts``)."""
+    slots = _rows_slots(m, nc, nt)
+    return _WARPS if slots <= 32 else _G_THREADS // slots
+
+
+def _rows_s_rows(m: int, cs: int) -> int:
+    """Rows of M (and of s) one CTA of a cluster of ``cs`` forms (csrc: ``s_rows``)."""
+    return -(-m // cs) if cs > 1 and m > _R_SPLIT_M else m
+
+
+def _rows_layout(esz: int, asz: int, tile: int, m: int, N: int, nc: int, nt: int, whole: int,
+                 mres: int, cs: int, ws: bool) -> int:
+    """Bytes of ``factor_kernel``'s dynamic shared memory; mirrors ``RLayout``
+    in ``csrc/woodbury_general.cu``. ``esz``/``asz``: bytes of the storage
+    and the accumulation type; ``whole``: the slab holds all ``N`` columns
+    of u (or x), else a block of a round's ``nc``; ``mres``: the CTA's rows
+    of M are staged too; ``cs``: the cluster; ``ws``: the sums live in the
+    workspace."""
+    al, mr, ncp = 16 // esz, _R_RK * -(-m // _R_RK), nt * -(-nc // nt)
+    ks, parts, keep = _rows_s_rows(m, cs), _rows_parts(m, nc, nt), 0 if ws else 1
+    split = ks < m
+    arrays = (
+        16,  # the mbarrier
+        esz * (whole * (tile * N + al) + (1 - whole) * tile * nc),  # u or x
+        esz * (tile * m + al), esz * (tile + al), esz * (tile + al),  # X, a½, μ
+        esz * mres * (ks * m + al),  # this CTA's rows of M
+        asz * keep * mr * ncp,  # this CTA's Xᵀv
+        asz * keep * (parts > 1) * parts * mr * ncp,  # its row parts'
+        asz * keep * (cs > 1) * mr * ncp,  # the cluster's
+        asz * keep * mr * ncp,  # s = M Xᵀv
+        asz * keep * split * ks * ncp,  # this CTA's rows of s
+        asz * _WARPS * ncp, asz * ncp,  # pass-3 sums a warp, the CTA's column sums
+    )
+    return sum(_r16(a) for a in arrays)
+
+
+def _rows_workspace(m: int, nc: int, nt: int, cs: int) -> int:
+    """Values of the accumulation type one CTA's slice of ``factor_kernel``'s
+    workspace holds (csrc: ``ws_values``)."""
+    mr, ncp, ks = _R_RK * -(-m // _R_RK), nt * -(-nc // nt), _rows_s_rows(m, cs)
+    parts = _rows_parts(m, nc, nt)
+    return mr * ncp * (2 + (parts > 1) * parts + (cs > 1)) + (ks < m) * _round4(ks * ncp)
+
+
+RowsPlan = collections.namedtuple("RowsPlan", "cluster threads tile nc colblk whole mres smem ws")
+
+
+def _general_rows_plan(B: int, d: int, m: int, N: int, dtype, num_sms: int = NUM_SMS,
+                       smem_limit: int = SMEM_LIMIT, cluster: int = None) -> RowsPlan:
+    """The plan of ``factor_kernel`` (B1, and B2 with a block of columns per
+    factor) over ``B`` factors of ``d`` rows, rank ``m``, ``N`` columns each.
+
+    The cluster splits each factor's rows over 1, 2, 4 or 8 CTAs: the fewest
+    that give every SM a CTA, never below ``_MIN_ROWS`` rows a CTA (or
+    ``cluster`` where given). Columns go in rounds of ``nc`` (at most
+    ``_R_ROUND``); with too few CTAs for the card, the columns are cut into
+    blocks of whole column tiles (``colblk``), one a cluster, as many as fill
+    the card, and a block is one round. Then the first that fits, growing the
+    cluster as far as 8 before the next:
+
+    1. ``whole``: all the CTA's rows of X, a½, μ and of u (or x), every
+       column, and its rows of M, staged once by bulk copy, in room for two
+       CTAs an SM, else in the CTA's whole limit; a launch of many waves
+       (``B · cluster >= 2 · num_sms``) takes one CTA alone over two where
+       that keeps one CTA a factor, or a cluster of 2 over 8 (measured,
+       ``tools/woodbury_general_bench.py --clusters``);
+    2. the rows of X, a½, μ and M staged once, u (or x) in blocks of a
+       round's columns;
+    3. the rows in tiles, staged for pass 1 and again for pass 3; where not
+       even one row fits beside the sums, the round narrows to one column
+       tile, then M is read from global memory (``mres = 0``), and then the
+       sums go to a global workspace (``ws``), with a cluster of one.
+
+    Raises where one row of X does not fit in shared memory.
+    """
+    if min(B, d, N) < 1 or m < 0 or dtype not in _DTYPE_CODES:
+        raise ValueError(f"no launch plan for B={B}, d={d}, m={m}, N={N}, {dtype}")
+    esz = torch.finfo(dtype).bits // 8
+    asz = 8 if dtype == torch.float64 else 4
+    nt = _rows_col_tile(N)
+    nc = min(N, _R_ROUND)
+    if cluster is None:
+        fill = 1
+        while fill < MAX_CLUSTER and B * fill < num_sms and -(-d // (2 * fill)) >= _MIN_ROWS:
+            fill *= 2
+        sizes = [c for c in (1, 2, 4, 8) if c >= fill]
+    elif cluster in (1, 2, 4, 8):
+        sizes = [cluster]
+    else:
+        raise ValueError(f"a cluster of {cluster} CTAs")
+    colblk = N
+    if B * sizes[0] < num_sms and N > nt:
+        per = -(-N // -(-num_sms // (B * sizes[0])))  # columns a block, for enough blocks
+        colblk = nc = min(nc, nt * -(-per // nt))
+
+    mres = 1
+
+    def need(tile, whole, cs, ws=False):
+        return _rows_layout(esz, asz, tile, m, N, nc, nt, whole, mres, cs, ws)
+
+    def plan(cs, tile, whole, ws=False):
+        return RowsPlan(cs, _G_THREADS, tile, nc, colblk, whole, mres, need(tile, whole, cs, ws), ws)
+
+    if colblk == N:
+        fits = [[cs for cs in sizes if need(-(-d // cs), 1, cs) <= limit]
+                for limit in (min(_SMEM_PAIR, smem_limit), smem_limit)]
+        pair, alone = (f[0] if f else None for f in fits)
+        # a launch of many waves keeps one CTA a factor where its slab fits
+        # alone, and a cluster of 2 alone rather than 8 in pairs: the cluster's
+        # barriers cost more there than the overlap of two CTAs an SM gains
+        if B * sizes[0] >= 2 * num_sms and alone is not None and (
+                alone == sizes[0] or alone <= 2 and pair in (None, MAX_CLUSTER)):
+            pair = alone
+        cs = pair or alone
+        if cs is not None:
+            return plan(cs, -(-d // cs), 1)
+    for cs in sizes:
+        if need(-(-d // cs), 0, cs) <= smem_limit:
+            return plan(cs, -(-d // cs), 0)
+    cs = sizes[-1]
+    for nc, mres, ws in ((nc, 1, False), (min(nc, nt), 1, False), (min(nc, nt), 0, False),
+                         (min(nc, nt), 0, True)):
+        if ws:  # the sums of a cluster of one: no CTA reads another's workspace
+            if cluster not in (None, 1):
+                raise ValueError(f"rank m={m} needs the workspace, and with it a cluster of one")
+            cs = 1
+        if need(1, 0, cs, ws) <= smem_limit:
+            break
+    else:
+        raise ValueError(f"one row of X at rank m={m} does not fit in shared memory")
+    rows = -(-d // cs)
+    lo, hi = 1, rows  # the most rows that fit
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if need(mid, 0, cs, ws) <= smem_limit else (lo, mid - 1)
+    return plan(cs, -(-rows // -(-rows // lo)), 0, ws)  # equal tiles
+
+
 def uses_fast_kernel(dtype, m: int) -> bool:
     """Whether B1/B2 on the card take the fast kernel (float32 at rank
     ``m <= MAX_RANK``) or the general one (every other dtype or rank)."""
@@ -396,50 +563,64 @@ def _build(sources) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def _load_all() -> None:
-    """Build (once per source and flags) and load both kernels' libraries."""
+def _bind_fast(fast) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fast.pf_sample_logq.argtypes = [p] * 8 + [i] * 8 + [p]
+    fast.pf_sample_logq.restype = i
+    fast.pf_whiten_sumsq.argtypes = [p] * 6 + [i] * 8 + [p]
+    fast.pf_whiten_sumsq.restype = i
+    fast.pf_whiten_sumsq_shared.argtypes = [p] * 6 + [i] * 9 + [p]
+    fast.pf_whiten_sumsq_shared.restype = i
+    fast.pf_max_rank.argtypes = []
+    fast.pf_max_rank.restype = i
+    if fast.pf_max_rank() != MAX_RANK:
+        raise RuntimeError("kernel library and wrapper disagree on MAX_RANK")
+
+
+def _bind_general(general) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    general.pfg_sample_logq.argtypes = [i] + [p] * 8 + [i] * 12 + [p, p]
+    general.pfg_sample_logq.restype = i
+    general.pfg_whiten_sumsq.argtypes = [i] + [p] * 6 + [i] * 12 + [p, p]
+    general.pfg_whiten_sumsq.restype = i
+    general.pfg_whiten_sumsq_shared.argtypes = [i] + [p] * 6 + [i] * 9 + [p, p]
+    general.pfg_whiten_sumsq_shared.restype = i
+    for name in ("pfg_max_col_tile", "pfg_round"):
+        getattr(general, name).argtypes = []
+        getattr(general, name).restype = i
+    if (general.pfg_max_col_tile(), general.pfg_round()) != (_G_MAX_COLS, _R_ROUND):
+        raise RuntimeError("general kernel library and wrapper disagree on the column tiles")
+
+
+_BINDERS = {_SOURCE: _bind_fast, _GENERAL_SOURCE: _bind_general}
+
+
+def _load_all(sources=(_SOURCE, _GENERAL_SOURCE)) -> None:
+    """Build (once per source and flags, all at once) and load the libraries
+    of ``sources`` not loaded yet."""
     with _lib_lock:
-        if _libs:
+        todo = [src for src in sources if src.name not in _libs]
+        if not todo:
             return
-        _build((_SOURCE, _GENERAL_SOURCE))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fast = ctypes.CDLL(str(_library_path(_SOURCE)))
-        fast.pf_sample_logq.argtypes = [p] * 8 + [i] * 8 + [p]
-        fast.pf_sample_logq.restype = i
-        fast.pf_whiten_sumsq.argtypes = [p] * 6 + [i] * 8 + [p]
-        fast.pf_whiten_sumsq.restype = i
-        fast.pf_whiten_sumsq_shared.argtypes = [p] * 6 + [i] * 9 + [p]
-        fast.pf_whiten_sumsq_shared.restype = i
-        fast.pf_max_rank.argtypes = []
-        fast.pf_max_rank.restype = i
-        if fast.pf_max_rank() != MAX_RANK:
-            raise RuntimeError("kernel library and wrapper disagree on MAX_RANK")
-        general = ctypes.CDLL(str(_library_path(_GENERAL_SOURCE)))
-        general.pfg_sample_logq.argtypes = [i] + [p] * 8 + [i] * 9 + [p, p]
-        general.pfg_sample_logq.restype = i
-        general.pfg_whiten_sumsq.argtypes = [i] + [p] * 6 + [i] * 9 + [p, p]
-        general.pfg_whiten_sumsq.restype = i
-        general.pfg_whiten_sumsq_shared.argtypes = [i] + [p] * 6 + [i] * 9 + [p, p]
-        general.pfg_whiten_sumsq_shared.restype = i
-        general.pfg_max_col_tile.argtypes = []
-        general.pfg_max_col_tile.restype = i
-        if general.pfg_max_col_tile() != _G_MAX_COLS:
-            raise RuntimeError("general kernel library and wrapper disagree on the column tile")
-        for src, lib in ((_SOURCE, fast), (_GENERAL_SOURCE, general)):
+        _build(todo)
+        for src in todo:
+            lib = ctypes.CDLL(str(_library_path(src)))
+            _BINDERS[src](lib)
             log = _library_path(src).with_suffix(".log")
             _lib_logs[src.name] = log.read_text() if log.exists() else ""
             _libs[src.name] = lib
 
 
 def load_library() -> ctypes.CDLL:
-    """Build and load the kernels' libraries; returns the fast kernel's."""
+    """Build and load both kernels' libraries (one ``nvcc`` each, started
+    together); returns the fast kernel's."""
     _load_all()
     return _libs[_SOURCE.name]
 
 
 def load_general_library() -> ctypes.CDLL:
-    """Build and load the kernels' libraries; returns the general kernel's."""
-    _load_all()
+    """Build and load the general kernel's library; returns it."""
+    _load_all((_GENERAL_SOURCE,))
     return _libs[_GENERAL_SOURCE.name]
 
 
@@ -461,23 +642,30 @@ _MANGLED_DTYPES = {"f": "float32", "d": "float64", "6__half": "float16",
 
 
 def general_kernel_resources() -> dict:
-    """The same for the general kernel: ``{(name, dtype): {...}}`` with
-    ``name`` one of ``sample_and_logq_general``, ``whiten_sumsq_general``,
-    ``whiten_sumsq_shared_general`` and ``dtype`` the storage dtype's name."""
+    """The same for the general source: ``{(name, dtype, NT): {...}}`` with
+    ``name`` one of ``sample_and_logq_general``, ``whiten_sumsq_general``
+    (``factor_kernel``, NT its column tile) and
+    ``whiten_sumsq_shared_general`` (``general_kernel``, NT None), and
+    ``dtype`` the storage dtype's name."""
     load_general_library()
     names = ("sample_and_logq_general", "whiten_sumsq_general", "whiten_sumsq_shared_general")
-    return _ptxas_resources(
-        _lib_logs[_GENERAL_SOURCE.name], r"general_kernelI(f|d|6__half|13__nv_bfloat16)Li(\d)E",
-        lambda t, mode: (names[int(mode)], _MANGLED_DTYPES[t]))
+    log = _lib_logs[_GENERAL_SOURCE.name]
+    dtypes = "(f|d|6__half|13__nv_bfloat16)"
+    out = _ptxas_resources(log, rf"factor_kernelI{dtypes}Li(\d)ELi(\d)E",
+                           lambda t, mode, nt: (names[int(mode)], _MANGLED_DTYPES[t], int(nt)))
+    out.update(_ptxas_resources(log, rf"general_kernelI{dtypes}E",
+                                lambda t: (names[2], _MANGLED_DTYPES[t], None)))
+    return out
 
 
 def _ptxas_resources(log: str, pattern: str, key_of) -> dict:
     out, key = {}, None
     for line in log.splitlines():
         found = re.search(pattern, line)
-        if "Compiling entry function" in line and found:
-            key = key_of(*found.groups())
-            out[key] = {}
+        if "Compiling entry function" in line:  # another function's lines belong to no key
+            key = key_of(*found.groups()) if found else None
+            if key is not None:
+                out[key] = {}
         elif key is not None and "spill stores" in line:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
             out[key].update(spill_stores=int(st), spill_loads=int(ld))
@@ -552,22 +740,33 @@ def _launch(name, entry, tensors, plan, device, B, d, m, N, shared=False):
 
 
 def _launch_general(name, entry, tensors, device, B, d, m, N, shared=False, plan=None):
-    """Launch the general kernel's ``entry`` on the current stream and count
-    it under ``name + "_general"``; ``plan`` defaults to :func:`_general_plan`.
-    The workspace, where the plan asks for one, is allocated here."""
+    """Launch the general source's ``entry`` on the current stream and count
+    it under ``name + "_general"``; ``plan`` defaults to
+    :func:`_general_rows_plan` (per factor) or :func:`_general_plan` (a
+    shared ``x``). The workspace, where the plan asks for one, is allocated
+    here."""
     dtype = tensors[0].dtype
-    threads, nt, rows, pk, smem, ws = plan or _general_plan(d, m, N, dtype)
+    if shared:
+        plan = plan or _general_plan(d, m, N, dtype)
+        threads, nt, rows, pk, smem, ws = plan
+        args, ctas = (threads, nt, rows, pk, smem), B * min(-(-N // nt), 65535)
+        words = _general_workspace(m, nt, threads)
+    else:
+        plan = plan or _general_rows_plan(B, d, m, N, dtype, _num_sms(device.index))
+        ws = plan.ws
+        args = tuple(plan)[:8]
+        ctas = B * plan.cluster * min(-(-N // plan.colblk), 65535)
+        words = _rows_workspace(m, plan.nc, _rows_col_tile(N), plan.cluster)
     work = None
     if ws:
         acc = torch.float64 if dtype == torch.float64 else torch.float32
-        ctas = B * min(-(-N // nt), 65535)
-        work = torch.empty(ctas * _general_workspace(m, nt, threads), dtype=acc, device=device)
+        work = torch.empty(ctas * words, dtype=acc, device=device)
     pointers = _pointers(tensors)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = entry(_DTYPE_CODES[dtype], *pointers, B, d, m, N, threads, nt, rows, pk, smem,
+        code = entry(_DTYPE_CODES[dtype], *pointers, B, d, m, N, *args,
                      None if work is None else work.data_ptr(), stream)
-    _check_code(name + "_general", code, (threads, nt, rows, pk, smem, ws))
+    _check_code(name + "_general", code, plan)
     _launches[name + "_general"] += 1
     _launches_by_shape[name + "_general"][(B, m, N, shared)] += 1
 
