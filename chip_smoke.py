@@ -12,20 +12,27 @@ Phases, each of which fails the run (exit code 1) on any error:
    builds the kernels from ``pathfinder_tpu_torch/csrc/`` and prints the
    build time.
 2. Kernels against their plain torch versions on the card, at the shapes
-   the main path and the remedy path give them (B2 over a shared x: the
-   mixture grid; both kernels at rank 0: the Laplace components) and at
-   odd, wide, large and row-tiled ones, with random factors from a seeded
-   numpy RNG; a repeated launch must give the same bits. Prints each one's launch plan, its L2-cold time beside
-   the plain version's and its bound, and the registers and spills of the
-   main path's kernel instantiations (``ptxas -v`` at build time). Then the
-   general kernels (every dtype and rank the fast one does not take) in
-   their three modes against their plain version at float64, float32,
-   bfloat16 and float16 and ranks 0, 12, 40, 100 and 258 (d = 1000 timed
-   L2-cold beside its bound; d = 999 unaligned; d = 25), each case's launch
-   plan printed, B1 at config 2's shapes and the float64 headline's winner
-   shape timed too, at float32 against the fast kernel, with their sums in
-   the global workspace (B1 and B2 per factor with their rows in tiles), and
-   their registers and spills.
+   the main path and the remedy path give them (both kernels at rank 0: the
+   Laplace components) and at odd, wide, large and row-tiled ones, with
+   random factors from a seeded numpy RNG; a repeated launch must give the
+   same bits. Prints each one's launch plan, its L2-cold time beside the
+   plain version's and its bound, and the registers and spills of the main
+   path's kernel instantiations (``ptxas -v`` at build time). Then the
+   general kernel (every dtype and rank the fast one does not take) in its
+   two modes against its plain version at float64, float32, bfloat16 and
+   float16 and ranks 0, 12, 40, 100 and 258 (d = 1000 timed L2-cold beside
+   its bound; d = 999 unaligned; d = 25), each case's launch plan printed,
+   B1 at config 2's shapes and the float64 headline's winner shape timed
+   too, at float32 against the fast kernel, with its sums in the global
+   workspace (B1 and B2 with their rows in tiles), and its registers and
+   spills. Then the shared-x kernel (B2 over an x shared by every factor:
+   the mixture denominator) at the same dtypes and ranks at the mixture
+   grid (timed L2-cold beside its plain version, the CUDA-core bound and
+   its tensor-core bound), at d = 999 and d = 25, at odd, wide and small
+   float32 shapes, with X's ranks in windows and its sums in the workspace,
+   where draws lie 30 sd out along a factor's widest direction, and at
+   serving scale, (1024, 12, 5120), checked in column blocks of 512 that
+   each give the whole launch's bits.
 3. The main path: ``multipathfinder`` on ``HierarchicalGaussian(1000)`` with
    100 paths for 5 seeds (the headline configuration), with every path
    succeeding, finite draws and k̂, both kernels launched in every run (the
@@ -36,10 +43,13 @@ Phases, each of which fails the run (exit code 1) on any error:
    auto_laplace=True`` for 3 seeds and ``importance_denominator="mixture"``
    for 2, with every path succeeding, finite draws and k̂, both kernels
    launched at rank 0 in each auto run that tried the Laplace correction,
-   B2 launched over a shared x in each mixture run, the auto run's k̂ not
-   above the main path's on any seed, its median k̂ and moment error inside
-   the band of the JAX package, and bitwise-identical draws when a seed is
-   repeated. Then the stages of one auto call, timed one by one.
+   the shared-x kernel launched over the pooled draws in each mixture run
+   and at rank 0 in ``laplace_resample`` of a mixture run, the auto run's k̂
+   not above the main path's on any seed, its median k̂ and moment error
+   inside the band of the JAX package, bitwise-identical draws when a seed
+   is repeated, and the mixture denominator in blocks of 7 paths' draws
+   bitwise the unblocked one (its log q, and the PSIS log weights over it).
+   Then the stages of one auto call, timed one by one.
 5. The warm start at full width: the headline result of seed 0 →
    ``warm_start_chains(result, 4)`` → ``nuts_chains`` (100 warm-up + 200
    sampling transitions, ``max_depth=10``, the fixed Pathfinder metric), with
@@ -59,8 +69,10 @@ Phases, each of which fails the run (exit code 1) on any error:
    acceptance in [0.6, 0.95].
 7. Serving scale on the headline target: 32768 paths with
    ``keep_traces=False`` in launches of 8192, states offloaded to pinned
-   host memory, then the same on the card (bitwise-equal draws, component
-   ids and k̂), then the memory rule's own cap and offload choice; every path
+   host memory, then the same on the card (bitwise equal at every stage:
+   states, pooled draws, log ratios, PSIS weights, resampled component ids
+   and draws; else the first stage that differs is named), then the memory
+   rule's own cap and offload choice; every path
    succeeding, k̂ and moment error inside the headline band, both kernels
    launched at the serving shapes; wall, paths/s and peak device memory of
    each run. A ``save_result``/``load_result`` round trip of a 4096-path
@@ -169,10 +181,13 @@ def check_close(name, got, want, tol):
 
 # Hopper peaks the bounds are taken against (NVIDIA's H100 SXM data sheet):
 # HBM bytes/s, float32 FLOP/s outside the tensor cores (the rate of the
-# float32 accumulation the 16-bit cases run in) and float64 FLOP/s outside them
+# float32 accumulation the 16-bit cases run in) and float64 FLOP/s outside
+# them; dense TF32 and float64 FLOP/s on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 F64_FLOPS_PER_S = 34e12
+TF32_TC_FLOPS_PER_S = 494.7e12
+F64_TC_FLOPS_PER_S = 67e12
 FLUSH_BYTES = 256 * 2**20  # more than the 50 MB L2: written before each timed launch
 
 
@@ -212,6 +227,25 @@ def bound_us(name, B, d, m, N, shared=False, itemsize=4):
     t_bytes = itemsize * (reads + writes) / HBM_BYTES_PER_S
     t_ops = flops / (F64_FLOPS_PER_S if itemsize == 8 else F32_FLOPS_PER_S)
     return 1e6 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def tc_bound_us(B, d, m, P, itemsize=4):
+    """The shared-x kernel's own bound for B2 over a shared x of P columns:
+    its two products (2·d·m each, a factor and column) on the tensor cores at
+    the rate of the split it uses (3 TF32 products each for float32; for
+    16-bit values 3 in the first and 2 in the second, whose X is exact in
+    TF32; DMMA for float64), the rest (s = Ci t, the whitening and the sums)
+    at the CUDA-core rate of ``bound_us``, or the bytes, whichever takes
+    longest; and which it is."""
+    pairs = B * P
+    if itemsize == 8:
+        t_mma = 4 * d * m * pairs / F64_TC_FLOPS_PER_S
+    else:
+        t_mma = (3 + (3 if itemsize == 4 else 2)) * 2 * d * m * pairs / TF32_TC_FLOPS_PER_S
+    t_rest = pairs * (2 * m * m + 6 * d) / (F64_FLOPS_PER_S if itemsize == 8 else F32_FLOPS_PER_S)
+    t_bytes = itemsize * (d * P + B * (d * m + 2 * d + m * m) + pairs) / HBM_BYTES_PER_S
+    t, by = max((t_mma, "tensor-core operations"), (t_rest, "operations"), (t_bytes, "bytes"))
+    return 1e6 * t, by
 
 
 # (label, B, d, m, N): the main path's shapes first, then the remedy path's
@@ -254,16 +288,6 @@ B2_SHAPES = (
     ("large", K, 10000, M, 10),
     ("tiled", 8, 30000, 32, 10),
 ) + SMALL_SHAPES + SERVE_B2
-# B2 over an x of N columns shared by the B factors (the mixture denominator)
-B2_SHARED_SHAPES = (
-    ("mixture", K, D, M, 1000),  # every component at every one of the K × 10 pooled draws
-    ("mixture-m0", K, D, 0, 1000),  # the same under the Laplace components
-    ("odd-shared", 3, 999, 7, 77),
-    ("wide-shared", 4, 20000, 12, 64),  # a factor's rows fit only split over a cluster
-    ("tiled-shared", 8, 30000, 32, 50),  # nor then: the rows are tiled as well
-    ("glm25-mixture", 8, 25, M, 1000),  # the constrained models under the mixture denominator
-    ("glm7-mixture", 8, 7, M, 1000),
-)
 MAIN_PATH = {"sample_and_logq": ("elbo", "winner", "fresh"), "whiten_sumsq": ("psis",)}
 
 
@@ -301,21 +325,15 @@ def kernel_phase(wk):
         )
 
     results = {"sample_and_logq": [], "whiten_sumsq": []}
-    for name, shapes, shared in (("sample_and_logq", B1_SHAPES, False),
-                                 ("whiten_sumsq", B2_SHAPES, False),
-                                 ("whiten_sumsq", B2_SHARED_SHAPES, True)):
+    for name, shapes in (("sample_and_logq", B1_SHAPES), ("whiten_sumsq", B2_SHAPES)):
         for label, B, d, m, N in shapes:
             offset = 1 if label.startswith("odd") else 0
             f = factors(B, d, m, offset)
             if B * d * m > 10**8:
                 u = torch.randn((B, d, N), generator=torch.Generator("cuda").manual_seed(N),
                                 device="cuda")
-            elif not shared:
+            else:
                 u = t(rng.standard_normal((B, d, N)), offset)
-            elif label == "mixture-m0":  # a contiguous (d, N) block: the wrapper transposes it once
-                u = t(rng.standard_normal((d, N)))
-            else:  # the transpose of a (N, d) block, as the pooled draws are: no copy
-                u = t(rng.standard_normal((N, d)), offset).mT
             if name == "sample_and_logq":
                 args = (u, f["a_half"], f["X"], f["C"], f["mu"], f["logdet"])
                 x, logq = wk.sample_and_logq(*args)
@@ -338,19 +356,19 @@ def kernel_phase(wk):
                 kernel, plain = wk.whiten_sumsq, wk.whiten_sumsq_torch
             ms = time_cold_ms(lambda: kernel(*args))
             plain_ms = time_cold_ms(lambda: plain(*args))
-            bound, bound_by = bound_us(name, B, d, m, N, shared)
-            plan = (wk._launch_plan_shared if shared else wk._launch_plan)(B, d, m, N)
+            bound, bound_by = bound_us(name, B, d, m, N)
+            plan = wk._launch_plan(B, d, m, N)
             row = dict(label=label, B=B, d=d, m=m, N=N, err=err, ms=ms, plain_ms=plain_ms,
                        bound_us=bound, bound_by=bound_by, plan=plan)
             results[name].append(row)
             del f, u, args
-            print(f"kernel {name} [{label}: B={B} d={d} m={m} N={N}{' shared x' if shared else ''}] "
-                  f"plan(cluster,threads,smem,tile{',col_tile' if shared else ''})={plan} "
+            print(f"kernel {name} [{label}: B={B} d={d} m={m} N={N}] "
+                  f"plan(cluster,threads,smem,tile)={plan} "
                   f"max_abs_err={err:.3e} "
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_us={bound:.2f} "
                   f"({bound_by}) share={bound / (1e3 * ms):.3f}", flush=True)
     for (name, mr, nt), r in sorted(wk.kernel_resources().items()):
-        if mr in (4, 12) and nt == 5:  # the instantiations of m = 12 and m = 0 at N = 5, 10, 1000
+        if mr in (4, 12) and nt == 5:  # the instantiations of m = 12 and m = 0 at N = 5, 10
             print(f"kernel {name} MR={mr} NT={nt}: registers={r.get('registers')} "
                   f"spill_stores={r.get('spill_stores')}B spill_loads={r.get('spill_loads')}B",
                   flush=True)
@@ -373,13 +391,16 @@ GENERAL_RANKS = (0, 12, 40, 100, 258)
 GENERAL_F64_TOL = (1e-12, 1e-12)
 GENERAL_VS_FAST_TOL = (1e-5, 1e-5)
 ULPS_16 = 4
-# (label, B, d, N): B1's ELBO chunk, B2's PSIS ratios and B2 over a shared x
-# of 1000 columns at the headline width (timed); the same at d = 999, one
-# value off 16-byte alignment, and at d = 25, the constrained models' width
+# (label, B, d, N): B1's ELBO chunk and B2's PSIS ratios at the headline
+# width (timed); the same at d = 999, one value off 16-byte alignment, and at
+# d = 25, the constrained models' width
 GENERAL_B1 = (("elbo", K * 8, D, 5), ("odd-elbo", 8, 999, 5), ("glm-elbo", 128, 25, 5))
 GENERAL_B2 = (("psis", K, D, 10), ("odd-psis", 8, 999, 10), ("glm-psis", K, 25, 10))
-GENERAL_SHARED = (("mixture", K, D, 1000), ("odd-mixture", 8, 999, 1000),
-                  ("glm-mixture", 8, 25, 1000))
+# (B, d, N) of the inputs drawn and not used after each rank's cases: B2 over
+# a shared x ran there until the shared-x phase took it, and the draws keep
+# every later case's inputs as they were (two cases at rank m >= d in float32
+# sit near their tolerance of cuBLAS, PERF.md §7)
+GENERAL_SHARED_DRAWS = ((K, D, 1000), (8, 999, 1000), (8, 25, 1000))
 # the main paths of the general kernel: the float64 headline (d = 1000, m =
 # 12) and BASELINE config 2 (CorrelatedGaussian(100), history_length = 20:
 # m = 40, single path: an ELBO chunk of 16 candidates × 100 draws, 2000
@@ -438,7 +459,7 @@ def check_general(name, got, want, dtype):
 
 
 def general_kernel_phase(wk):
-    """The general kernel in its three modes against its plain version, for
+    """The general kernel in its two modes against its plain version, for
     each dtype and rank, repeat launches bitwise equal; the general kernel
     at float32 against the fast kernel; a plan with its sums in the global
     workspace; the ptxas registers and spills of each instantiation."""
@@ -450,23 +471,23 @@ def general_kernel_phase(wk):
     for dt_name in GENERAL_DTYPES:
         dtype = getattr(torch, dt_name)
         for m in GENERAL_RANKS:
-            for name, shapes, shared in (("sample_and_logq", GENERAL_B1, False),
-                                         ("whiten_sumsq", GENERAL_B2, False),
-                                         ("whiten_sumsq", GENERAL_SHARED, True)):
+            for name, shapes in (("sample_and_logq", GENERAL_B1), ("whiten_sumsq", GENERAL_B2)):
                 for label, B, d, N in shapes:
-                    row = _general_case(wk, rng, name, label, B, d, m, N, dtype, shared,
-                                        timed=d == D)
-                    rows.append(row)
+                    rows.append(_general_case(wk, rng, name, label, B, d, m, N, dtype,
+                                              timed=d == D))
+            for B, d, N in GENERAL_SHARED_DRAWS:
+                _seeded_inputs(rng, B, d, m, N, dtype, True, int(d == 999))
     for label, B, d, m, N in CONFIG2_B1:
         rows.append(_general_case(wk, rng, "sample_and_logq", label, B, d, m, N, torch.float32,
-                                  False, timed=True))
+                                  timed=True))
     for label, B, d, m, N in GENERAL_WINNER_B1:
         rows.append(_general_case(wk, rng, "sample_and_logq", label, B, d, m, N, torch.float64,
-                                  False, timed=True))
+                                  timed=True))
     # the general kernel at float32, rank 12, against the fast kernel
-    for name, B, N, shared in (("sample_and_logq", K * 8, 5, False), ("whiten_sumsq", K, 10, False),
-                               ("whiten_sumsq", K, 1000, True)):
-        args = _seeded_inputs(rng, B, D, M, N, torch.float32, shared)
+    for name, B, N in (("sample_and_logq", K * 8, 5), ("whiten_sumsq", K, 10)):
+        args = _seeded_inputs(rng, B, D, M, N, torch.float32)
+        if name == "whiten_sumsq":
+            _seeded_inputs(rng, K, D, M, 1000, torch.float32, True)  # as GENERAL_SHARED_DRAWS
         if name == "sample_and_logq":
             fast = wk._sample_and_logq_cuda(*args, general=False)
             gen = wk._sample_and_logq_cuda(*args, general=True)
@@ -476,18 +497,16 @@ def general_kernel_phase(wk):
             fast = wk._whiten_sumsq_cuda(*args[:5], general=False)
             gen = wk._whiten_sumsq_cuda(*args[:5], general=True)
             err = check_close(f"general vs fast B2 B={B} N={N}", gen, fast, GENERAL_VS_FAST_TOL)
-        print(f"general kernel vs fast kernel {name} [B={B} d={D} m={M} N={N}"
-              f"{' shared x' if shared else ''} float32]: max_abs_err={err:.3e} "
-              f"tol={GENERAL_VS_FAST_TOL}", flush=True)
-    # the global workspace: a plan whose sums do not fit a 16 KB CTA (per
-    # factor: rows in tiles, the sums of one column tile in the workspace)
-    for name, shared in (("sample_and_logq", False), ("whiten_sumsq", False), ("whiten_sumsq", True)):
+        print(f"general kernel vs fast kernel {name} [B={B} d={D} m={M} N={N} float32]: "
+              f"max_abs_err={err:.3e} tol={GENERAL_VS_FAST_TOL}", flush=True)
+    # the global workspace: a plan whose sums do not fit a 16 KB CTA (rows in
+    # tiles, the sums of one column tile in the workspace)
+    for name in ("sample_and_logq", "whiten_sumsq"):
         B, d, m, N = 4, 999, 1000, 5
-        plan = (wk._general_plan(d, m, N, torch.float32, smem_limit=16384) if shared else
-                wk._general_rows_plan(B, d, m, N, torch.float32, smem_limit=16384))
-        if not plan[-1]:
+        plan = wk._general_rows_plan(B, d, m, N, torch.float32, smem_limit=16384)
+        if not plan.ws:
             fail(f"the 16 KB plan {plan} did not put its sums in the workspace")
-        args = _seeded_inputs(rng, B, d, m, N, torch.float32, shared, offset=1)
+        args = _seeded_inputs(rng, B, d, m, N, torch.float32, offset=1)
         if name == "sample_and_logq":
             got = wk._sample_and_logq_cuda(*args, general=True, plan=plan)
             want = wk.sample_and_logq_torch(*args)
@@ -496,9 +515,8 @@ def general_kernel_phase(wk):
         else:
             got = wk._whiten_sumsq_cuda(*args[:5], general=True, plan=plan)
             err = check_general("workspace B2", got, wk.whiten_sumsq_torch(*args[:5]), torch.float32)
-        print(f"general kernel {name} with its sums in the workspace [B={B} d={d} m={m} N={N}"
-              f"{' shared x' if shared else ''} float32] plan={plan}: max_abs_err={err:.3e}",
-              flush=True)
+        print(f"general kernel {name} with its sums in the workspace [B={B} d={d} m={m} N={N} "
+              f"float32] plan={tuple(plan)}: max_abs_err={err:.3e}", flush=True)
     for (name, dt_name, nt), r in sorted(wk.general_kernel_resources().items(), key=str):
         print(f"kernel {name} {dt_name}{'' if nt is None else f' NT={nt}'}: "
               f"registers={r.get('registers')} spill_stores={r.get('spill_stores')}B "
@@ -506,12 +524,12 @@ def general_kernel_phase(wk):
     return rows
 
 
-def _general_case(wk, rng, name, label, B, d, m, N, dtype, shared, timed):
+def _general_case(wk, rng, name, label, B, d, m, N, dtype, timed):
     """One case of the general kernel's phase; returns its row."""
     import torch
 
     offset = 1 if label.startswith("odd") else 0
-    args = _seeded_inputs(rng, B, d, m, N, dtype, shared, offset)
+    args = _seeded_inputs(rng, B, d, m, N, dtype, offset=offset)
     dt_name = str(dtype).replace("torch.", "")
     tag = f"{label} B={B} d={d} m={m} N={N} {dt_name}"
     if name == "sample_and_logq":
@@ -531,26 +549,236 @@ def _general_case(wk, rng, name, label, B, d, m, N, dtype, shared, timed):
         same = torch.equal(got, kernel(*args, general=True))
     if not same:
         fail(f"general {name} [{tag}]: a repeated launch gave other bits")
-    if shared:
-        plan = wk._general_plan(d, m, N, dtype)
-        plan_text = f"plan(threads,nt,rows,pk,smem,ws)={plan}"
-    else:
-        plan = wk._general_rows_plan(B, d, m, N, dtype, wk._num_sms(0))
-        plan_text = f"plan(cluster,threads,tile,nc,colblk,whole,smem,ws)={tuple(plan)}"
-    row = dict(label=label, name=name, dtype=dt_name, B=B, d=d, m=m, N=N, shared=shared, err=err,
+    plan = wk._general_rows_plan(B, d, m, N, dtype, wk._num_sms(0))
+    plan_text = f"plan(cluster,threads,tile,nc,colblk,whole,mres,smem,ws)={tuple(plan)}"
+    row = dict(label=label, name=name, dtype=dt_name, B=B, d=d, m=m, N=N, err=err,
                plan=tuple(plan))
-    line = f"kernel {name}_general [{tag}{' shared x' if shared else ''}] {plan_text} max_abs_err={err:.3e}"
+    line = f"kernel {name}_general [{tag}] {plan_text} max_abs_err={err:.3e}"
     if timed:
         itemsize = torch.finfo(dtype).bits // 8
         row["ms"] = time_cold_ms(lambda: kernel(*args, general=True))
         row["plain_ms"] = time_cold_ms(lambda: plain(*args))
-        row["bound_us"], row["bound_by"] = bound_us(name, B, d, m, N, shared, itemsize)
+        row["bound_us"], row["bound_by"] = bound_us(name, B, d, m, N, itemsize=itemsize)
         line += (f" kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                  f"bound_us={row['bound_us']:.2f} ({row['bound_by']}) "
                  f"share={row['bound_us'] / (1e3 * row['ms']):.3f}")
     print(line, flush=True)
     del args, got, want
     return row
+
+
+# B2 over an x shared by every factor (the mixture denominator) on the
+# shared-x kernel, against its plain version at the general phase's
+# tolerances (float64 1e-12, float32 SUM_TOL, 16 bits 4 ulps), a repeated
+# launch bitwise equal. (label, B, d, P) at every dtype and every rank of
+# GENERAL_RANKS: the headline's mixture grid (timed), one value off 16-byte
+# alignment, the constrained models' width
+SHARED_SWEEP = (("mixture", K, D, 1000), ("odd-mixture", 8, 999, 1000), ("glm-mixture", 8, 25, 1000))
+# (label, B, d, m, P) in float32: odd, wide and small shapes; "contiguous" hands
+# x in as a contiguous (d, P) block, which the wrapper transposes once
+SHARED_F32 = (
+    ("odd-shared", 3, 999, 7, 77),
+    ("wide-shared", 4, 20000, 12, 64),
+    ("tiled-shared", 8, 30000, 32, 50),
+    ("glm25-mixture", 8, 25, M, 1000),
+    ("glm7-mixture", 8, 7, M, 1000),
+    ("contiguous-m0", K, D, 0, 1000),
+)
+# one block of a 1024-path run's pooled 5 draws a path, held against the
+# plain version in column blocks of at most SERVE_CHECK_COLS (whole, its v
+# alone would take 21 GB)
+SERVE_MIXTURE = ("serving-mixture", 1024, D, M, 5120)
+SERVE_CHECK_COLS = 512
+# (label, B, d, m, P, smem_limit): plans with X's ranks in windows, and with
+# t and s in the workspace besides
+SHARED_LIMITED = (("windows", 4, 999, 258, 77, 65536), ("workspace", 4, 999, 1000, 77, 65536))
+# the ill-conditioned case: real Woodbury factors (rank 12), the first with
+# one direction 100 of its other sds wide, and draws 30 of that direction's
+# sds out along it. Whitening cancels most of each draw's length there, and
+# the float32 plain version (cuBLAS) is itself up to 1.8e-4 off the float64
+# one on an H100: the kernel is held to the plain version computed in float64
+# from the same rounded inputs, at the float32 tolerance.
+ILL_SD_OUT, ILL_WIDTH = 30.0, 1e4
+
+
+def _shared_args(rng, B, d, m, P, dtype, offset=0, contiguous=False):
+    x, a_half, X, Ci, mu, _ = _seeded_inputs(rng, B, d, m, P, dtype, True, offset)
+    return (x.contiguous() if contiguous else x), a_half, X, Ci, mu
+
+
+def shared_case(wk, label, args, timed, plan=None, parent=None, want=None):
+    """One case of the shared-x kernel: checked against ``want`` (by default
+    its plain version on the same inputs), launched again for the same bits
+    and, where ``timed``, timed L2-cold beside its plain version, both bounds
+    and (with ``parent``, another checkout's kernel module) the parent's
+    kernel in turns (parent, this, this, parent). Returns its row."""
+    import torch
+
+    x, a_half, X, Ci, mu = args
+    B, d, m, P, dtype = X.shape[0], X.shape[1], X.shape[2], x.shape[1], x.dtype
+    dt_name = str(dtype).replace("torch.", "")
+    tag = f"{label} B={B} d={d} m={m} P={P} {dt_name}"
+    run = lambda: wk._whiten_sumsq_cuda(*args, plan=plan)  # noqa: E731
+    got = run()
+    want = wk.whiten_sumsq_torch(*args) if want is None else want
+    torch.cuda.synchronize()
+    err = check_general(f"shared-x B2 [{tag}]", got, want, dtype)
+    if not torch.equal(got, run()):
+        fail(f"shared-x B2 [{tag}]: a repeated launch gave other bits")
+    plan = plan or wk._shared_plan(B, d, m, P, dtype)
+    row = dict(label=label, dtype=dt_name, B=B, d=d, m=m, N=P, err=err, plan=tuple(plan))
+    line = f"kernel whiten_sumsq_shared [{tag}] plan(W,F,NC,R,kw,ws,smem)={tuple(plan)} max_abs_err={err:.3e}"
+    if timed:
+        itemsize = torch.finfo(dtype).bits // 8
+        if parent is not None:
+            old = lambda: parent._whiten_sumsq_cuda(*args)  # noqa: E731
+            t = [time_cold_ms(f) for f in (old, run, run, old)]
+            row["ms"], row["parent_ms"] = min(t[1], t[2]), min(t[0], t[3])
+            line += f" parent_us={1e3 * t[0]:.1f}/{1e3 * t[3]:.1f}"
+        else:
+            row["ms"] = time_cold_ms(run)
+        row["plain_ms"] = time_cold_ms(lambda: wk.whiten_sumsq_torch(*args))
+        row["bound_us"], row["bound_by"] = bound_us("whiten_sumsq", B, d, m, P, True, itemsize)
+        row["tc_bound_us"], row["tc_bound_by"] = tc_bound_us(B, d, m, P, itemsize)
+        line += (f" us={1e3 * row['ms']:.1f} plain_us={1e3 * row['plain_ms']:.1f} "
+                 f"bound_us={row['bound_us']:.2f} ({row['bound_by']}) "
+                 f"share={row['bound_us'] / (1e3 * row['ms']):.3f} "
+                 f"tc_bound_us={row['tc_bound_us']:.2f} ({row['tc_bound_by']}) "
+                 f"tc_share={row['tc_bound_us'] / (1e3 * row['ms']):.3f}")
+        if parent is not None:
+            line += f" speedup={row['parent_ms'] / row['ms']:.2f}"
+    print(line, flush=True)
+    return row
+
+
+def _serving_mixture_case(wk, parent=None):
+    """The serving-scale launch, held against the plain version block by
+    block; each column block launched alone gives the whole launch's bits."""
+    import torch
+
+    label, B, d, m, P = SERVE_MIXTURE
+    g = torch.Generator("cuda").manual_seed(P)
+    r = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    args = (r(P, d).mT, 0.5 + torch.rand((B, d), generator=g, device="cuda"), r(B, d, m) / d**0.5,
+            0.1 * r(B, m, m), r(B, d))
+    x, rest = args[0], args[1:]
+    got = wk._whiten_sumsq_cuda(*args)
+    blocks = [(j, min(P, j + SERVE_CHECK_COLS)) for j in range(0, P, SERVE_CHECK_COLS)]
+    err = 0.0
+    for j0, j1 in blocks:
+        part = (x[:, j0:j1],) + rest
+        err = max(err, check_general(f"shared-x B2 [{label} columns {j0}:{j1}]", got[:, j0:j1],
+                                     wk.whiten_sumsq_torch(*part), torch.float32))
+        if not torch.equal(wk._whiten_sumsq_cuda(*part), got[:, j0:j1]):
+            fail(f"shared-x B2 [{label}]: columns {j0}:{j1} launched alone gave other bits")
+    if not torch.equal(got, wk._whiten_sumsq_cuda(*args)):
+        fail(f"shared-x B2 [{label}]: a repeated launch gave other bits")
+    run = lambda: wk._whiten_sumsq_cuda(*args)  # noqa: E731
+    row = dict(label=label, dtype="float32", B=B, d=d, m=m, N=P, err=err,
+               plan=tuple(wk._shared_plan(B, d, m, P, torch.float32)))
+    if parent is not None:
+        old = lambda: parent._whiten_sumsq_cuda(*args)  # noqa: E731
+        t = [time_cold_ms(f, reps=5) for f in (old, run, run, old)]
+        row["ms"], row["parent_ms"] = min(t[1], t[2]), min(t[0], t[3])
+    else:
+        row["ms"] = time_cold_ms(run, reps=5)
+    row["plain_ms"] = time_cold_ms(
+        lambda: [wk.whiten_sumsq_torch(x[:, j0:j1], *rest) for j0, j1 in blocks], reps=5)
+    row["bound_us"], row["bound_by"] = bound_us("whiten_sumsq", B, d, m, P, True)
+    row["tc_bound_us"], row["tc_bound_by"] = tc_bound_us(B, d, m, P)
+    print(f"kernel whiten_sumsq_shared [{label} B={B} d={d} m={m} P={P} float32] "
+          f"plan(W,F,NC,R,kw,ws,smem)={row['plan']} max_abs_err={err:.3e} "
+          f"column blocks of {SERVE_CHECK_COLS} bitwise the whole launch's "
+          + (f"parent_us={1e3 * t[0]:.1f}/{1e3 * t[3]:.1f} " if parent is not None else "")
+          + f"us={1e3 * row['ms']:.1f} plain_us(in blocks)={1e3 * row['plain_ms']:.1f} "
+          f"bound_us={row['bound_us']:.2f} ({row['bound_by']}) "
+          f"share={row['bound_us'] / (1e3 * row['ms']):.3f} tc_bound_us={row['tc_bound_us']:.2f} "
+          f"({row['tc_bound_by']}) tc_share={row['tc_bound_us'] / (1e3 * row['ms']):.3f}", flush=True)
+    return row
+
+
+def _ill_conditioned_args(dtype, B=16, P=1000):
+    """Real Woodbury factors (the port's ``WoodburyPDMat``, d = 1000, rank
+    12, made in float64 and rounded to ``dtype``), the first with one
+    direction ``sqrt(ILL_WIDTH)`` times wider than its others, and ``P``
+    draws ``ILL_SD_OUT`` of that direction's sds out along it; the factor's
+    whitening cancels most of each draw's length."""
+    import torch
+
+    from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat
+
+    g = torch.Generator("cuda").manual_seed(30)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    A = 0.5 + torch.rand((B, D), generator=g, **f64)
+    Bm = torch.randn((B, D, M), generator=g, **f64) / D**0.5
+    wide = torch.ones((B, M), **f64)
+    wide[:, 0] = ILL_WIDTH
+    F = WoodburyPDMat.from_parts(A, Bm, torch.diag_embed(wide)).factor
+    mu = torch.randn((B, D), generator=g, **f64)
+    u = Bm[0, :, 0] / Bm[0, :, 0].norm()
+    proj = Bm[0].mT @ u
+    sd = torch.sqrt((A[0] * u * u).sum() + (proj * wide[0] * proj).sum())
+    noise = A[0].sqrt()[:, None] * torch.randn((D, P), generator=g, **f64)
+    x = (mu[0, :, None] + ILL_SD_OUT * sd * u[:, None] + noise).mT.contiguous().mT
+    return tuple(t.to(dtype) for t in (x, F.a_half, F.X, F.Ci, mu))
+
+
+def shared_kernel_phase(wk, parent=None, only=None):
+    """The shared-x kernel: every case above against its plain version, a
+    repeated launch bitwise equal, the d = 1000 cases timed L2-cold against
+    both bounds (and the parent's kernel, given its module); the plans with
+    windows and a workspace; the registers and spills of each
+    instantiation. ``only``: run the cases whose tag holds one of these
+    texts."""
+    import numpy as np
+    import torch
+
+    def wanted(tag):
+        return only is None or any(part in tag for part in only)
+
+    rng = np.random.default_rng(2026)
+    rows = []
+    for dt_name in GENERAL_DTYPES:
+        dtype = getattr(torch, dt_name)
+        for m in GENERAL_RANKS:
+            for label, B, d, P in SHARED_SWEEP:
+                args = _shared_args(rng, B, d, m, P, dtype, offset=int(label.startswith("odd")))
+                if wanted(f"{label} m={m} {dt_name}"):
+                    rows.append(shared_case(wk, label, args, timed=d == D, parent=parent))
+                del args
+    for label, B, d, m, P in SHARED_F32:
+        args = _shared_args(rng, B, d, m, P, torch.float32, offset=int(label.startswith("odd")),
+                            contiguous=label.startswith("contiguous"))
+        if wanted(f"{label} m={m} float32"):
+            rows.append(shared_case(wk, label, args, timed=False))
+    for label, B, d, m, P, limit in SHARED_LIMITED:
+        plan = wk._shared_plan(B, d, m, P, torch.float32, smem_limit=limit)
+        if plan.kw >= 8 * -(-m // 8) or (label == "workspace") != plan.ws:
+            fail(f"the {limit} B plan {plan} has no rank windows, or not the workspace it should")
+        args = _shared_args(rng, B, d, m, P, torch.float32, offset=1)
+        if wanted(f"{label} m={m} float32"):
+            rows.append(shared_case(wk, label, args, timed=False, plan=plan))
+    for dt_name in ("float32", "float64"):
+        dtype = getattr(torch, dt_name)
+        if not wanted(f"ill-conditioned m={M} {dt_name}"):
+            continue
+        args = _ill_conditioned_args(dtype)
+        truth = wk.whiten_sumsq_torch(*(a.double() for a in args))
+        got = wk._whiten_sumsq_cuda(*args).double()
+        plain = wk.whiten_sumsq_torch(*args).double()
+        rel = lambda v: float(((v - truth).abs() / truth.abs()).max())  # noqa: E731
+        print(f"shared-x B2 [ill-conditioned {dt_name}]: factor 0's maha "
+              f"{float(truth[0].min()):.1f}..{float(truth[0].max()):.1f}; largest relative error "
+              f"against the float64 plain version: kernel {rel(got):.3e}, plain {rel(plain):.3e}",
+              flush=True)
+        rows.append(shared_case(wk, "ill-conditioned", args, timed=False,
+                                want=truth if dtype == torch.float32 else None))
+    if wanted(f"{SERVE_MIXTURE[0]} m={M} float32"):
+        rows.append(_serving_mixture_case(wk, parent))
+    for (dt_name, mode), r in sorted(wk.shared_kernel_resources().items()):
+        print(f"kernel whiten_sumsq_shared {dt_name} {mode}: registers={r.get('registers')} "
+              f"spill_stores={r.get('spill_stores')}B spill_loads={r.get('spill_loads')}B", flush=True)
+    return rows
 
 
 def _check_result(label, res, mean_t, sd_t):
@@ -698,8 +926,8 @@ def remedy_phase(pt, wk, zoo, main_khats):
     for seed in MIXTURE_SEEDS + MIXTURE_SEEDS[:1]:
         res, secs, by_shape = run(seed, importance_denominator="mixture")
         khat, merr = _check_result(f"mixture seed {seed}", res, mean_t, sd_t)
-        if by_shape["whiten_sumsq"].get((K, M, 1000, True), 0) <= 0:
-            fail(f"mixture seed {seed}: B2 was not launched over the shared draws")
+        if by_shape["whiten_sumsq_shared"].get((K, M, 1000, True), 0) <= 0:
+            fail(f"mixture seed {seed}: the shared-x kernel was not launched over the pooled draws")
         print(f"remedy mixture seed={seed}: khat_main_path={main_khats[seed]:.4f} "
               f"khat={khat:.4f} moment_err_mean_sd_units={merr:.4f} "
               f"logp_grad_evals={int(res.states.num_fn_evals.sum())} wall_s={secs:.3f} "
@@ -708,6 +936,48 @@ def remedy_phase(pt, wk, zoo, main_khats):
             fail("mixture: a repeated seed gave different draws")
         first = first if first is not None else res
     print("remedy mixture: repeated seed bitwise identical", flush=True)
+
+    # the Laplace correction of a mixture run: the shared-x kernel at rank 0
+    wk.reset_launch_counts()
+    t0 = time.perf_counter()
+    lap = pt.laplace_resample(first, 1000)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    by_shape = wk.launch_counts_by_shape()
+    for n, c in wk.launch_counts().items():
+        totals[n] += c
+    if by_shape["whiten_sumsq_shared"].get((K, 0, 1000, True), 0) <= 0:
+        fail("laplace_resample of a mixture run: the shared-x kernel was not launched at rank 0")
+    print(f"remedy laplace_resample of mixture seed {MIXTURE_SEEDS[0]}: "
+          f"khat {float(first.psis_result.pareto_shape):.4f} -> "
+          f"{float(lap.psis_result.pareto_shape):.4f} wall_s={secs:.3f} "
+          f"launches_by_shape={shapes_text(by_shape)}", flush=True)
+
+    # The mixture denominator in blocks of 7 paths' draws gives the unblocked
+    # bits, and so does PSIS over it. The target's own log density, evaluated
+    # block by block as _compute_psis_result does, is not held to that: its
+    # torch.sum over a draw's coordinates may round otherwise at another
+    # batch size on the card; its effect is printed.
+    from pathfinder_tpu_torch import multipath as mp
+    from pathfinder_tpu_torch.ops.psis import psis
+
+    comps, dk = first.fit_distribution.components, first.draws_per_component
+    whole = mp._log_importance_ratios_mixture(comps, dk)
+    blocks = torch.cat([mp._log_importance_ratios_mixture(comps, dk[lo:lo + 7])
+                        for lo in range(0, dk.shape[0], 7)])
+    log_p = target.logp(dk.reshape(-1, D)).reshape(dk.shape[:2])
+    psis_whole, psis_blocks = psis((log_p - whole).reshape(-1)), psis((log_p - blocks).reshape(-1))
+    same_q = torch.equal(blocks, whole)
+    same_w = torch.equal(psis_blocks.log_weights, psis_whole.log_weights)
+    chunked = mp._compute_psis_result(target.logp, comps, dk, "mixture", chunk=7)
+    gap = float((chunked.log_weights - psis_whole.log_weights).abs().max())
+    print(f"remedy mixture in blocks of 7 paths: log q bitwise equal={same_q}, PSIS log weights "
+          f"over it bitwise equal={same_w}, k-hat {float(psis_blocks.pareto_shape):.4f} / "
+          f"{float(psis_whole.pareto_shape):.4f}; with the target's log density evaluated block "
+          f"by block as well: largest |change| of a log weight {gap:.3e}, k-hat "
+          f"{float(chunked.pareto_shape):.4f}", flush=True)
+    if not (same_q and same_w):
+        fail("remedy mixture: the blocked mixture denominator differs from the unblocked one")
     return totals
 
 
@@ -967,6 +1237,49 @@ def constrained_phase(pt, wk, zoo):
     return totals
 
 
+def first_differing_stage(a, b, target):
+    """The first stage whose tensors differ between two results of one run
+    (offloaded and on the card), as ``(stage, detail)``, or None: the paths'
+    states, the pooled draws, the log importance ratios (recomputed on the
+    card from each result's components and draws), the PSIS weights, the
+    resampled component ids and the resampled draws."""
+    import torch
+
+    from pathfinder_tpu_torch import multipath as mp
+    from pathfinder_tpu_torch.utils.misc import tree_map
+
+    def leaves(tree):
+        out = []
+        tree_map(lambda t: out.append(t) if torch.is_tensor(t) else None, tree)
+        return out
+
+    def ratios(res):
+        comps = tree_map(lambda t: t.to("cuda"), res.fit_distribution.components)
+        dk = res.draws_per_component.to("cuda")
+        K, N, d = dk.shape
+        log_q = mp._log_importance_ratios_fit(comps, dk)
+        return target.logp(dk.reshape(-1, d)).to(log_q.dtype).reshape(K, N) - log_q
+
+    stages = (
+        ("states", lambda r: leaves(r.states)),
+        ("pooled draws", lambda r: [r.draws_per_component]),
+        ("log ratios", lambda r: [ratios(r)]),
+        ("PSIS weights", lambda r: [r.psis_result.log_weights]),
+        ("resampled component ids", lambda r: [r.draw_component_ids]),
+        ("resampled draws", lambda r: [r.draws]),
+    )
+    for name, get in stages:
+        for k, (x, y) in enumerate(zip(get(a), get(b))):
+            x, y = x.detach().cpu(), y.detach().cpu()
+            if x.shape != y.shape:
+                return name, f"tensor {k}: shapes {tuple(x.shape)} and {tuple(y.shape)}"
+            differ = (x != y) & ~(torch.isnan(x) & torch.isnan(y)) if x.is_floating_point() else x != y
+            if bool(differ.any()):
+                gap = float((x.double() - y.double()).abs()[differ].max())
+                return name, f"tensor {k} of shape {tuple(x.shape)}: {int(differ.sum())} values differ, by up to {gap:.3e}"
+    return None
+
+
 def serving_phase(pt, wk, zoo, headline):
     """32768 paths in slim launches of 8192, offloaded and on the card, then
     the memory rule's own choice; the result file round trip; the replays
@@ -1024,11 +1337,13 @@ def serving_phase(pt, wk, zoo, headline):
     print(f"serving: offloaded states are pinned host tensors ({st.device}, pinned={st.is_pinned()})",
           flush=True)
     on, _, _ = run(SERVE_K, max_paths_per_launch=SERVE_CAP, offload_launches=False)
-    same = (torch.equal(on.draws, off.draws) and torch.equal(on.draw_component_ids, off.draw_component_ids)
-            and float(on.psis_result.pareto_shape) == float(off.psis_result.pareto_shape))
-    if on.states.draws.device.type != "cuda" or not same:
-        fail("serving: offload on and off disagree, or the states left the card without offload")
-    print("serving: offload on and off bitwise equal (draws, component ids, k-hat)", flush=True)
+    if on.states.draws.device.type != "cuda":
+        fail("serving: the states left the card without offload")
+    stage = first_differing_stage(off, on, target)
+    if stage is not None:
+        fail(f"serving: offload on and off first differ in the {stage[0]}: {stage[1]}")
+    print("serving: offload on and off bitwise equal (states, pooled draws, log ratios, PSIS "
+          "weights, resampled component ids and draws)", flush=True)
     del on
     torch.cuda.empty_cache()
     est = sharding.lane_bytes(D, 64, 6, 5, 8, 5)
@@ -1369,6 +1684,7 @@ def main():
 
     kernels = kernel_phase(wk)
     general_rows = general_kernel_phase(wk)
+    shared_rows = shared_kernel_phase(wk)
     if "--kernels-only" in sys.argv[1:]:  # for work on the kernels: stop after their phase
         print("kernel phase passed; stopping before the model phases", flush=True)
         return
@@ -1425,6 +1741,17 @@ def main():
         head = next(r for r in rows if r["label"] == label and r["m"] == m)
         summary.append(entry(name + "_general", "pathfinder_tpu_torch/csrc/woodbury_general.cu",
                              rows, head, name))
+    # the shared-x kernel: the head is the mixture launch of the main path's
+    # configuration (float32, rank 12); bound_ms is its tensor-core bound,
+    # cuda_core_bound_ms the bound of the earlier rows; the error the largest
+    # over the float32 cases
+    rows = [r for r in shared_rows if r["dtype"] == "float32"]
+    head = next(r for r in rows if r["label"] == "mixture" and r["m"] == M)
+    item = entry("whiten_sumsq_shared", "pathfinder_tpu_torch/csrc/woodbury_shared.cu", rows, head,
+                 "whiten_sumsq")
+    item.update(bound_ms=head["tc_bound_us"] / 1e3, bound_by="operations",
+                cuda_core_bound_ms=head["bound_us"] / 1e3)
+    summary.append(item)
     for item in summary:
         if item["launches"] <= 0:
             fail(f"{item['name']} was not launched on its path")

@@ -1,5 +1,5 @@
 // Woodbury sample+logq (B1) and whiten+sumsq (B2) for any rank and any float
-// dtype, for Hopper (sm_90a): the general kernels beside the fast one.
+// dtype, for Hopper (sm_90a): the general kernel beside the fast one.
 //
 // They replace the same two Pallas TPU kernels as woodbury_kernels.cu,
 // pathfinder_tpu/ops/pallas/woodbury_kernels.py at commit c548d16^:
@@ -15,9 +15,8 @@
 // Every sum runs in a fixed order and no atomics are used, so a launch
 // repeats bit for bit.
 //
-// Two kernels, one for each kind of launch:
-//
-// factor_kernel: B1, and B2 with a block of columns per factor. What bounds
+// factor_kernel: B1, and B2 with a block of columns per factor (B2 over one
+// block of columns shared by all factors is woodbury_shared.cu's). What bounds
 // it: bytes (each factor's slab, X, a½ and μ read once, x written once: 2.5
 // flops a byte in float64, 5 in float32 at m = 12, N = 5), and, at B = 100,
 // the latency of one CTA's load and passes. It is the fast kernel's structure
@@ -66,35 +65,10 @@
 //             of one; no rank is refused short of one row of X overflowing
 //             shared memory.
 //
-// general_kernel: B2 over one block of columns shared by all factors (the
-// mixture denominator; x given in the (P, d) layout). At 1000 columns it is
-// operations-bound. It is the first, simple design of this file:
-//
-//   grid      one CTA per (factor, column tile of nt <= 16 columns), 256
-//             threads; a grid-stride loop over the column tiles where there
-//             are more than a grid's 65535 rows.
-//   pass 1    the factor's rows are walked in tiles of `rows` rows, each
-//             staged in shared memory in Acc (X with a row stride of m + 1,
-//             so that neighbouring rank columns and rows fall in other
-//             banks; v, a½ and μ), v whitened there. Thread (g, k, j) sums
-//             X[i, k] v[i, j] over the rows i ≡ g (mod G) of every tile into
-//             its own slot; the G partials are then summed in order into
-//             t = X^T v (m × nt).
-//   pass 2    s = Ci t, Ci read in panels of pk rows through shared memory,
-//             each panel transposed so that neighbouring threads read
-//             neighbouring words.
-//   pass 3    the rows again (kept from pass 1 where one tile holds them all):
-//             thread (r, j) forms r = v + X s for its rows and column j and
-//             sums r². The per-thread sums are added in thread order.
-//   memory    t, s and the pass-1 partials are m × nt values each. The plan
-//             halves nt until they fit beside a tile of rows; where even
-//             nt = 1 does not fit, they live in a global workspace.
-//
 // Plain C interface, loaded with ctypes. The Python wrapper computes each
-// launch's plan (ops/kernels/woodbury_kernels.py: _general_rows_plan for
-// factor_kernel, _general_plan for general_kernel); the entry points check it
-// against the layouts below, return -1 if they disagree, and otherwise the
-// CUDA error of the launch.
+// launch's plan (ops/kernels/woodbury_kernels.py: _general_rows_plan); the
+// entry points check it against the layout below, return -1 if they
+// disagree, and otherwise the CUDA error of the launch.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -106,12 +80,11 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;  // threads a CTA, both kernels
+constexpr int kThreads = 256;  // threads a CTA
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxColTile = 16;  // general_kernel: the widest column tile
-constexpr int kRound = 40;       // factor_kernel: the most columns of a round
-constexpr int kRK = 4;           // factor_kernel: ranks of a pass-1 register tile
-constexpr int kSplitM = 64;      // factor_kernel: above this rank a cluster splits s = M t
+constexpr int kRound = 40;   // the most columns of a round
+constexpr int kRK = 4;       // ranks of a pass-1 register tile
+constexpr int kSplitM = 64;  // above this rank a cluster splits s = M t
 constexpr int kMaxCluster = 8;
 constexpr int kMaxSmem = 232448;
 constexpr double kLog2Pi = 1.8378770664093453;
@@ -151,8 +124,6 @@ __device__ inline float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ inline float mad(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ inline double mad(double a, double b, double c) { return fma(a, b, c); }
-
-// -- factor_kernel: B1, and B2 with a block of columns per factor ------------
 
 // TMA bulk copies and the mbarrier, as in woodbury_kernels.cu
 __device__ inline uint32_t smem_addr(const void* p) {
@@ -776,199 +747,6 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
   PFG_STAMP(8);
 }
 
-// -- general_kernel: B2 over a shared x ---------------------------------------
-
-// Offsets, in Acc values, into the dynamic shared memory. With a workspace
-// (ws) t, s and the pass-1 partials live in global memory instead.
-// ops/kernels/woodbury_kernels.py (_general_layout) mirrors this layout.
-struct GLayout {
-  int t, s, tp, qp, panel, sx, sv, sa, smu, total;
-  __host__ __device__ GLayout(int m, int nt, int rows, int pk, int threads, int ws) {
-    const int p = m * nt;
-    const int g = p > 0 && p < threads ? threads / p : 1;
-    int o = 0;
-    t = o;     o += (1 - ws) * p;          // X^T v, column-major: t[j·m + k]
-    s = o;     o += (1 - ws) * p;          // M X^T v, the same layout
-    tp = o;    o += (1 - ws) * g * p;      // pass-1 partials, one set per row group
-    qp = o;    o += threads;               // pass-3 partials, one per thread
-    panel = o; o += pk * m;                // a panel of M, transposed
-    sx = o;    o += rows * (m + 1);        // a tile of X rows
-    sv = o;    o += rows * nt;             // the tile's v (u for B1)
-    sa = o;    o += rows;                  // its a½
-    smu = o;   o += rows;                  // its μ
-    total = o;
-  }
-};
-
-// The row groups G of pass 1: with fewer (k, j) pairs than threads, G sets of
-// them split the rows.
-__host__ __device__ inline int row_groups(int p, int threads) {
-  return p > 0 && p < threads ? threads / p : 1;
-}
-
-// One CTA per (factor b = blockIdx.x, column tile); the columns [col0, col0 +
-// nc) of the shared x's N = P columns. in: x in the (P, d) layout; M: Ci;
-// col_out: maha, (B, P).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-general_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* __restrict__ X,
-               const T* __restrict__ M, const T* __restrict__ mu, T* __restrict__ col_out, int d,
-               int m, int N, int nt, int rows, int pk, typename Num<T>::Acc* __restrict__ ws) {
-  using Acc = typename Num<T>::Acc;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Acc* sm = reinterpret_cast<Acc*>(smem_raw);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const GLayout L(m, nt, rows, pk, nthr, ws != nullptr);
-  const int P = m * nt, G = row_groups(P, nthr);
-  const size_t b = blockIdx.x;
-  Acc *t = sm + L.t, *s = sm + L.s, *tp = sm + L.tp;
-  if (ws != nullptr) {
-    Acc* w = ws + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
-                      static_cast<size_t>(2 * P + G * P);
-    t = w;
-    s = w + P;
-    tp = w + 2 * P;
-  }
-  Acc *qp = sm + L.qp, *panel = sm + L.panel, *sx = sm + L.sx, *sv = sm + L.sv;
-  Acc *sa = sm + L.sa, *smu = sm + L.smu;
-  const int ldx = m + 1;
-  const T* Xb = X + b * d * m;
-  const T* Mb = M + b * m * m;
-  const T* ab = a_half + b * d;
-  const T* mub = mu + b * d;
-  const int ntiles = (N + nt - 1) / nt;
-  // one tile holds every row: pass 3 reuses what pass 1 staged
-  const bool resident = m > 0 && d <= rows;
-
-  for (int tile = blockIdx.y; tile < ntiles; tile += gridDim.y) {
-    const int col0 = tile * nt;
-    const int nc = min(nt, N - col0);
-
-    // Stage rows [i0, i0 + n): X, v (zero in the columns j >= nc), a½, μ,
-    // all in Acc; v whitened in place.
-    auto stage = [&](int i0, int n) {
-      __syncthreads();  // earlier readers of the tile are done
-      for (int e = tid; e < n * m; e += nthr) {
-        const int r = e / m, k = e - r * m;
-        sx[r * ldx + k] = widen(Xb[static_cast<size_t>(i0 + r) * m + k]);
-      }
-      for (int r = tid; r < n; r += nthr) {
-        sa[r] = widen(ab[i0 + r]);
-        smu[r] = widen(mub[i0 + r]);
-      }
-      for (int e = tid; e < n * nt; e += nthr) {  // rows fastest: a column is contiguous
-        const int j = e / n, r = e - j * n;
-        sv[r * nt + j] = j < nc ? widen(in[static_cast<size_t>(col0 + j) * d + i0 + r]) : Acc(0);
-      }
-      __syncthreads();
-      for (int e = tid; e < n * nt; e += nthr) {  // v = (x − μ)/a½
-        const int r = e / nt, j = e - r * nt;
-        if (j < nc) sv[e] = (sv[e] - smu[r]) / sa[r];
-      }
-      __syncthreads();
-    };
-
-    if (m > 0) {
-      // pass 1: t = X^T v; slot e = (g, j, k) is its one thread's own
-      for (int e = tid; e < G * P; e += nthr) tp[e] = Acc(0);
-      for (int i0 = 0; i0 < d; i0 += rows) {
-        const int n = min(rows, d - i0);
-        stage(i0, n);
-        for (int e = tid; e < G * P; e += nthr) {
-          const int g = e / P, p = e - g * P, j = p / m, k = p - j * m;
-          Acc acc = tp[e];
-          for (int r = g; r < n; r += G) acc = mad(sx[r * ldx + k], sv[r * nt + j], acc);
-          tp[e] = acc;
-        }
-      }
-      __syncthreads();
-      for (int p = tid; p < P; p += nthr) {
-        Acc acc = Acc(0);
-        for (int g = 0; g < G; ++g) acc += tp[g * P + p];
-        t[p] = acc;
-      }
-      __syncthreads();
-      // pass 2: s = M t, M in panels of pk rows, transposed in shared memory
-      for (int k0 = 0; k0 < m; k0 += pk) {
-        const int kn = min(pk, m - k0);
-        for (int e = tid; e < kn * m; e += nthr) {
-          const int kk = e / m, l = e - kk * m;
-          panel[l * kn + kk] = widen(Mb[static_cast<size_t>(k0 + kk) * m + l]);
-        }
-        __syncthreads();
-        for (int e = tid; e < kn * nt; e += nthr) {
-          const int j = e / kn, kk = e - j * kn;
-          Acc acc = Acc(0);
-          for (int l = 0; l < m; ++l) acc = mad(panel[l * kn + kk], t[j * m + l], acc);
-          s[j * m + k0 + kk] = acc;
-        }
-        __syncthreads();
-      }
-    }
-
-    // pass 3: thread (rl, j) takes column j and the rows rl, rl + rstep, ...
-    const int j = tid % nt, rl = tid / nt, rstep = nthr / nt;
-    Acc q = Acc(0);
-    for (int i0 = 0; i0 < d; i0 += rows) {
-      const int n = min(rows, d - i0);
-      if (!resident) stage(i0, n);
-      if (j < nc)
-        for (int r = rl; r < n; r += rstep) {
-          const Acc v = sv[r * nt + j];
-          Acc xs = Acc(0);
-          for (int k = 0; k < m; ++k) xs = mad(sx[r * ldx + k], s[j * m + k], xs);
-          const Acc w = v + xs;
-          q = mad(w, w, q);
-        }
-    }
-    qp[tid] = q;
-    __syncthreads();
-    if (tid < nc) {
-      Acc total = Acc(0);
-      for (int c = 0; c < rstep; ++c) total += qp[c * nt + tid];
-      col_out[b * N + col0 + tid] = Num<T>::narrow(total);
-    }
-    __syncthreads();  // qp and the tile are free for the next column tile
-  }
-}
-
-struct GPlan {
-  int threads, nt, rows, pk, smem;
-};
-
-// The plan the wrapper computed, checked against this file's layout.
-template <typename Acc>
-bool plan_ok(const GPlan& p, int B, int d, int m, int N, bool ws) {
-  if (B < 1 || d < 1 || m < 0 || N < 1) return false;
-  if (p.threads != kThreads || p.nt < 1 || p.nt > kMaxColTile || (p.nt & (p.nt - 1))) return false;
-  if (p.rows < 1 || p.rows > d || p.pk < 1 || p.smem > kMaxSmem) return false;
-  const GLayout L(m, p.nt, p.rows, p.pk, p.threads, ws ? 1 : 0);
-  return static_cast<long long>(p.smem) == static_cast<long long>(L.total) * sizeof(Acc);
-}
-
-template <typename T>
-int launch_shared(const GPlan& p, int B, const void* in, const void* a_half, const void* X,
-                  const void* M, const void* mu, void* col_out, int d, int m, int N, void* ws,
-                  cudaStream_t stream) {
-  using Acc = typename Num<T>::Acc;
-  if (!plan_ok<Acc>(p, B, d, m, N, ws != nullptr)) return -1;
-  auto kernel = general_kernel<T>;
-  static bool ready = false;
-  if (!ready) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    ready = true;
-  }
-  const int ntiles = (N + p.nt - 1) / p.nt;
-  const dim3 grid(B, ntiles < 65535 ? ntiles : 65535);
-  kernel<<<grid, p.threads, p.smem, stream>>>(
-      static_cast<const T*>(in), static_cast<const T*>(a_half), static_cast<const T*>(X),
-      static_cast<const T*>(M), static_cast<const T*>(mu), static_cast<T*>(col_out), d, m, N,
-      p.nt, p.rows, p.pk, static_cast<Acc*>(ws));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // factor_kernel's plan: cluster size, threads, rows a tile, columns a round,
 // columns a block, whether the slab holds all N columns, whether the CTA's
 // rows of M are staged, shared memory bytes
@@ -1059,8 +837,6 @@ int dispatch_factor(int dtype, const FPlan& p, int B, const void* in, const void
 
 extern "C" {
 
-int pfg_max_col_tile() { return kMaxColTile; }
-
 int pfg_round() { return kRound; }
 
 int pfg_sample_logq(int dtype, const void* u, const void* a_half, const void* X, const void* C,
@@ -1077,25 +853,6 @@ int pfg_whiten_sumsq(int dtype, const void* x, const void* a_half, const void* X
                      void* ws, cudaStream_t stream) {
   return dispatch_factor<kWhiten>(dtype, {cluster, threads, tile, nc, colblk, whole, mres, smem}, B, x,
                                   a_half, X, Ci, mu, nullptr, nullptr, maha, d, m, N, ws, stream);
-}
-
-// B2 over a shared x: xt is x in the (P, d) layout, maha is (B, P).
-int pfg_whiten_sumsq_shared(int dtype, const void* xt, const void* a_half, const void* X,
-                            const void* Ci, const void* mu, void* maha, int B, int d, int m, int P,
-                            int threads, int nt, int rows, int pk, int smem, void* ws,
-                            cudaStream_t stream) {
-  const GPlan p = {threads, nt, rows, pk, smem};
-  switch (dtype) {
-    case kF32:
-      return launch_shared<float>(p, B, xt, a_half, X, Ci, mu, maha, d, m, P, ws, stream);
-    case kF64:
-      return launch_shared<double>(p, B, xt, a_half, X, Ci, mu, maha, d, m, P, ws, stream);
-    case kF16:
-      return launch_shared<__half>(p, B, xt, a_half, X, Ci, mu, maha, d, m, P, ws, stream);
-    case kBF16:
-      return launch_shared<__nv_bfloat16>(p, B, xt, a_half, X, Ci, mu, maha, d, m, P, ws, stream);
-  }
-  return -1;
 }
 
 #ifdef PFG_PHASES

@@ -6,10 +6,10 @@
 //       x = a½ ∘ (u + X (C (Xᵀ u))) + μ  and  logq = −(d·log2π + logdet + ‖u‖²)/2
 //   B2  _whiten_kernel  (:146, pl.pallas_call at :167)
 //       v = (x − μ)/a½,  w = v + X (Ci (Xᵀ v)),  maha = ‖w‖²
-// per column of a (d, N) block, for a batch of B independent factors. B2 also
-// takes one block of P columns shared by all B factors (the mixture
-// denominator: every component's density at every pooled draw), and both take
-// factors with no low-rank part (m = 0: the Laplace-corrected components).
+// per column of a (d, N) block, for a batch of B independent factors; both
+// take factors with no low-rank part (m = 0: the Laplace-corrected
+// components). B2 over one block of columns shared by all factors is
+// woodbury_shared.cu's.
 //
 // What bounds them: bytes. Each factor's slab, u or x (d·N), X (d·m), a½ and
 // μ (d each), is read once, and B1 writes x (d·N) once: at m = 12, N = 5
@@ -44,24 +44,11 @@
 //             and N = 10 have exact tiles) or 4, and on the epilogue.
 //   no tensor cores  at 2.5 flops per byte wgmma would only wait on memory,
 //             and the 1e-5 f32 tolerances rule out TF32.
-//
-//   shared x  B2 over a shared x is one launch over (factor, column tile):
-//             blockIdx.y is the column tile, and a cluster stages its factor's
-//             rows and that tile of x, so every column of a factor is complete
-//             inside one cluster and no sum crosses column tiles. x comes in
-//             the (P, d) layout the pooled draws already have, so a column's
-//             rows are one contiguous run: each column is one bulk copy (its
-//             unaligned head and tail by plain loads), and it stays in shared
-//             memory as a column, rows side by side, so that a warp's lanes
-//             read neighbouring words. No copy of x per factor exists; the
-//             factors re-read x from L2. At K = 100 factors against 1000
-//             columns (d = 1000, m = 12) operations, not bytes, set the bound.
 //   m = 0     nothing of X or M is staged, pass 1 and the exchange of Xᵀv are
 //             skipped, and pass 2 adds nothing to v.
 //
-// B1 and B2 are one kernel template with three modes: B1 writes x and logq
-// (‖u‖² summed in pass 2), B2 sums ‖w‖² and writes it, per factor or over a
-// shared x.
+// B1 and B2 are one kernel template with two modes: B1 writes x and logq
+// (‖u‖² summed in pass 2), B2 sums ‖w‖² and writes it.
 //
 // Plain C interface, loaded with ctypes. The Python wrapper computes the
 // launch plan (cluster size, threads, shared memory bytes, tile rows); the
@@ -81,10 +68,8 @@ constexpr int kChunk = 40;  // columns handled per round of the kernel
 constexpr int kMaxCluster = 8;
 constexpr int kMaxSmem = 232448;
 constexpr float kLog2Pi = 1.8378770664093453f;
-// the kernel's modes: B1, B2 with a block of columns per factor, B2 with one
-// block of columns shared by all factors
-constexpr int kSample = 0, kWhiten = 1, kWhitenShared = 2;
-constexpr int kSharedColTile = 5;  // NT of the shared-x mode (its tile width is the plan's)
+// the kernel's modes: B1, and B2 with a block of columns per factor
+constexpr int kSample = 0, kWhiten = 1;
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 // the rank the kernel is instantiated for: m rounded up to a multiple of 4
@@ -93,14 +78,12 @@ __host__ __device__ inline int rank_tile(int m) { return m < 4 ? 4 : round4(m); 
 // Offsets, in floats, into the dynamic shared memory. Each array starts on
 // 16 bytes; a staged run gets 4 floats of slack for its alignment shift.
 // ops/kernels/woodbury_kernels.py (_smem_bytes) mirrors this layout.
-// cm = 1 (B2 over a shared x): the N columns of the tile are staged one
-// after the other, each in round4(tile) + 4 floats.
 struct Layout {
   int u, X, a, mu, M, tp, tl, tg, s, qp, ql, total;
-  __host__ __device__ Layout(int tile, int m, int N, int mr, int parts, int warps, int cm) {
+  __host__ __device__ Layout(int tile, int m, int N, int mr, int parts, int warps) {
     const int nc = N < kChunk ? N : kChunk;
     int o = 4;  // the mbarrier
-    u = o;  o += round4(cm * N * (round4(tile) + 4) + (1 - cm) * (tile * N + 4));
+    u = o;  o += round4(tile * N + 4);
     X = o;  o += round4(tile * m + 4);
     a = o;  o += round4(tile + 4);
     mu = o; o += round4(tile + 4);
@@ -211,12 +194,11 @@ __device__ inline void warp_sum(float (&v)[NV]) {
 
 // Pass 1 over the n rows: acc[kk][j] += X[i, 4g + kk] v[i, col + j].
 // Warp w owns rank rows 4g..4g+3 (g = w mod MR/4) and every P-th group of
-// 32 rows (p = w div MR/4). v[i, col + j] is su[i·N + col + j], or, with the
-// columns staged one after the other (CM), su[coff[j] + i].
-template <int MR, int NT, bool CM>
+// 32 rows (p = w div MR/4). v[i, col + j] is su[i·N + col + j].
+template <int MR, int NT>
 __device__ inline void pass1_rows(float (&acc)[4 * NT], const float* __restrict__ su,
                                   const float* __restrict__ sX, bool vecX, int n, int N, int m,
-                                  int col, int nt, const int (&coff)[NT]) {
+                                  int col, int nt) {
   constexpr int G = MR / 4;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int g = w % G, p = w / G, P = (blockDim.x >> 5) / G;
@@ -225,7 +207,7 @@ __device__ inline void pass1_rows(float (&acc)[4 * NT], const float* __restrict_
     float uv[NT], xk[4];
     const float* ur = su + i * N + col;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) uv[j] = j < nt ? (CM ? su[coff[j] + i] : ur[j]) : 0.f;
+    for (int j = 0; j < NT; ++j) uv[j] = j < nt ? ur[j] : 0.f;
     if (vecX) {
       const float4 v = *reinterpret_cast<const float4*>(sX + i * m + 4 * g);
       xk[0] = v.x; xk[1] = v.y; xk[2] = v.z; xk[3] = v.w;
@@ -265,14 +247,13 @@ __device__ inline void pass1_flush(float (&acc)[4 * NT], float* tp, int NC, int 
 // sums ‖r‖² into q. One thread per row; the NT products X s run side by
 // side, k outermost, so that their FMA chains overlap. Where s is small
 // (MR·NT ≤ 64: the main path's 12 × 5) every thread holds it in registers.
-// With CM (B2 over a shared x) column j of the tile is at su[coff[j] + i];
-// with m = 0, X reads as zeros and the product X s adds nothing.
-template <int MR, int NT, bool SAMPLE, bool CM>
+// With m = 0, X reads as zeros and the product X s adds nothing.
+template <int MR, int NT, bool SAMPLE>
 __device__ inline void pass2_rows(float (&q)[NT], float* __restrict__ su,
                                   const float* __restrict__ sX, const float* __restrict__ sa,
                                   const float* __restrict__ smu, bool vecX, int n, int N,
                                   int m, int col, const float* __restrict__ s, int nt,
-                                  float* __restrict__ gx, const int (&coff)[NT]) {
+                                  float* __restrict__ gx) {
   constexpr bool kHold = MR * NT <= 64;
   float sr[kHold ? MR * NT : 1];
   if constexpr (kHold) {
@@ -284,7 +265,7 @@ __device__ inline void pass2_rows(float (&q)[NT], float* __restrict__ su,
     float r[NT], xs[NT];
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      r[j] = j < nt ? (CM ? su[coff[j] + i] : ur[j]) : 0.f;
+      r[j] = j < nt ? ur[j] : 0.f;
       xs[j] = 0.f;
     }
 #pragma unroll(MR <= 16 ? MR / 4 : 2)
@@ -343,18 +324,14 @@ __device__ inline void pass2_flush(float (&q)[NT], float* qp, int NC, int cc, in
 // staged in ceil((r1 − r0)/tile) tiles (one where they fit).
 // in: u (B1) or x (B2); M: C (B1) or Ci (B2); logdet and x_out for B1 only;
 // col_out: logq (B1) or maha (B2).
-// With MODE == kWhitenShared, `in` is x in the (P, d) layout, shared by all
-// factors; N is the width of a column tile, blockIdx.y the tile, and col_out
-// is (B, P).
 template <int MR, int NT, int MODE>
 __global__ void __launch_bounds__(cta_threads(MR), 2)
 woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
                 const float* __restrict__ X, const float* __restrict__ M,
                 const float* __restrict__ mu, const float* __restrict__ logdet,
                 float* __restrict__ x_out, float* __restrict__ col_out,
-                int d, int m, int N, int tile, int P) {
+                int d, int m, int N, int tile) {
   constexpr bool SAMPLE = MODE == kSample;
-  constexpr bool CM = MODE == kWhitenShared;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
@@ -362,7 +339,7 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
   const int rank = static_cast<int>(cluster.block_rank());
   const int warps = blockDim.x >> 5, parts = warps / (MR / 4);
   const int NC = min(N, kChunk);
-  const Layout L(tile, m, N, MR, parts, warps, CM ? 1 : 0);
+  const Layout L(tile, m, N, MR, parts, warps);
   uint64_t* bar = reinterpret_cast<uint64_t*>(sm);
   float *tp = sm + L.tp, *tl = sm + L.tl, *tg = sm + L.tg, *s = sm + L.s;
   float *qp = sm + L.qp, *ql = sm + L.ql;
@@ -372,12 +349,6 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
   const int r0 = min(d, rank * R), r1 = min(d, r0 + R);
   const int ntiles = max(1, (r1 - r0 + tile - 1) / tile);
   const bool resident = ntiles == 1;
-  // the columns this CTA handles: all N of its factor, or its tile of the
-  // shared x (the last tile may be narrower); col_out's rows hold ldo columns
-  const int col0 = CM ? static_cast<int>(blockIdx.y) * N : 0;
-  const int ncols = CM ? min(N, P - col0) : N;
-  const int ldo = CM ? P : N;
-  const int ldc = round4(tile) + 4;  // CM: floats between two staged columns
   // B1's logdet, read early so that its latency hides behind the staging
   const float ldb = SAMPLE && rank == 0 ? logdet[b] : 0.f;
 
@@ -397,11 +368,6 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
   // the tile in shared memory: buf + pad
   float *su = buf[0], *sX = buf[1], *sa = buf[2], *smu = buf[3], *sM = buf[4];
   bool vecX = false;
-  // CM: column c of the tile starts at xcol(c) in memory and is staged at
-  // su + coff_of(c), shifted by its own offset within 16 bytes
-  const float* xt0 = in;
-  auto xcol = [&](int c) { return xt0 + static_cast<size_t>(c) * d; };
-  auto coff_of = [&](int c) { return c * ldc + pad_of(xcol(c)); };
 
   // Stage tile t (rows row0..row0+n) and M: thread 0 sends the aligned
   // middle of each run by bulk copy; the heads and tails (at most 3 + 3
@@ -411,14 +377,12 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
     row0 = r0 + t * tile;
     n = min(tile, r1 - row0);
     const size_t g = b * d + row0;
-    const float* const src[5] = {CM ? in : in + g * N, X + g * m, a_half + g, mu + g,
-                                 M + b * m * m};
-    const int len[5] = {CM ? 0 : n * N, n * m, n, n, m * m};
+    const float* const src[5] = {in + g * N, X + g * m, a_half + g, mu + g, M + b * m * m};
+    const int len[5] = {n * N, n * m, n, n, m * m};
 #pragma unroll
     for (int k = 0; k < 5; ++k) pad[k] = len[k] ? pad_of(src[k]) : 0;
     su = buf[0] + pad[0]; sX = buf[1] + pad[1]; sa = buf[2] + pad[2]; smu = buf[3] + pad[3];
     sM = buf[4] + pad[4];
-    if (CM) xt0 = in + static_cast<size_t>(col0) * d + row0;
     vecX = m == MR && pad[1] == 0;
     phase ^= 1;
     fence_async_smem();  // earlier reads and writes of the buffers come first
@@ -439,28 +403,14 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
       uint32_t bytes = 0;
 #pragma unroll
       for (int k = 0; k < 5; ++k) bytes += 4u * Span(pad[k], 0, len[k]).nb;
-      if (CM)
-        for (int c = 0; c < ncols; ++c) bytes += 4u * Span(pad_of(xcol(c)), 0, n).nb;
       mbar_arrive_expect(bar, bytes);
 #pragma unroll
       for (int k = 0; k < 5; ++k) {
         const Span sp(pad[k], 0, len[k]);
         if (sp.nb) bulk_load(buf[k] + pad[k] + sp.h, src[k] + sp.h, sp.nb, bar);
       }
-      if (CM)
-        for (int c = 0; c < ncols; ++c) {
-          const Span sp(pad_of(xcol(c)), 0, n);
-          if (sp.nb) bulk_load(su + coff_of(c) + sp.h, xcol(c) + sp.h, sp.nb, bar);
-        }
     }
     if (hk >= 0) buf[hk][pad[hk] + hi] = hv;
-    if (CM)  // heads and tails of the columns of x
-      for (int e = threadIdx.x; e < 6 * ncols; e += blockDim.x) {
-        const int c = e / 6, o = e % 6;
-        const Span sp(pad_of(xcol(c)), 0, n);
-        const int i = o < 3 ? o : sp.h + sp.nb + o - 3;
-        if (o < 3 ? i < sp.h : i < n) su[coff_of(c) + i] = xcol(c)[i];
-      }
     mbar_wait(bar, phase);
     __syncthreads();
     if (MODE == kWhiten) {  // v = (x − μ)/a½ in place
@@ -471,20 +421,11 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
       }
       __syncthreads();
     }
-    if (CM) {  // the same over the tile's columns, one division a row (B2 reads a½ nowhere else)
-      for (int i = threadIdx.x; i < n; i += blockDim.x) sa[i] = 1.f / sa[i];
-      __syncthreads();
-      for (int c = 0; c < ncols; ++c) {
-        float* vc = su + coff_of(c);
-        for (int i = threadIdx.x; i < n; i += blockDim.x) vc[i] = (vc[i] - smu[i]) * sa[i];
-      }
-      __syncthreads();
-    }
   };
 
   if (resident) stage_tile(0);
-  for (int c0 = 0; c0 < ncols; c0 += NC) {
-    const int nc = min(NC, ncols - c0);
+  for (int c0 = 0; c0 < N; c0 += NC) {
+    const int nc = min(NC, N - c0);
     for (int e = threadIdx.x; e < parts * MR * NC; e += blockDim.x) tp[e] = 0.f;
     for (int e = threadIdx.x; e < warps * NC; e += blockDim.x) qp[e] = 0.f;
     __syncthreads();
@@ -493,13 +434,10 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
         if (!resident) stage_tile(t);
         for (int cc = 0; cc < nc; cc += NT) {
           const int nt = min(NT, nc - cc);
-          int coff[NT];
-#pragma unroll
-          for (int j = 0; j < NT; ++j) coff[j] = CM ? coff_of(c0 + cc + min(j, nt - 1)) : 0;
           float acc[4 * NT];
 #pragma unroll
           for (int e = 0; e < 4 * NT; ++e) acc[e] = 0.f;
-          pass1_rows<MR, NT, CM>(acc, su, sX, vecX, n, N, m, c0 + cc, nt, coff);
+          pass1_rows<MR, NT>(acc, su, sX, vecX, n, N, m, c0 + cc, nt);
           pass1_flush<MR, NT>(acc, tp, NC, cc, nt);
         }
       }
@@ -531,14 +469,11 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
       float* gx = SAMPLE && !resident ? x_out + (b * d + row0) * N : nullptr;
       for (int cc = 0; cc < nc; cc += NT) {
         const int nt = min(NT, nc - cc);
-        int coff[NT];
-#pragma unroll
-        for (int j = 0; j < NT; ++j) coff[j] = CM ? coff_of(c0 + cc + min(j, nt - 1)) : 0;
         float q[NT];
 #pragma unroll
         for (int j = 0; j < NT; ++j) q[j] = 0.f;
-        pass2_rows<MR, NT, SAMPLE, CM>(q, su, sX, sa, smu, vecX, n, N, m, c0 + cc,
-                                       s + cc * MR, nt, gx, coff);
+        pass2_rows<MR, NT, SAMPLE>(q, su, sX, sa, smu, vecX, n, N, m, c0 + cc, s + cc * MR, nt,
+                                   gx);
         pass2_flush<NT>(q, qp, NC, cc, nt);
       }
     }
@@ -556,7 +491,7 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
       for (int c = threadIdx.x; c < nc; c += blockDim.x) {
         float q = 0.f;
         for (int r = 0; r < CS; ++r) q += peer(ql, r)[c];
-        col_out[b * ldo + col0 + c0 + c] =
+        col_out[b * N + c0 + c] =
             SAMPLE ? -0.5f * (static_cast<float>(d) * kLog2Pi + ldb + q) : q;
       }
     // with no Xᵀv to exchange a round has one cluster barrier only: a second
@@ -571,24 +506,21 @@ struct Plan {
   int cluster, threads, smem, tile;
 };
 
-// The plan the wrapper computed, checked against this file's layout. N is
-// the columns of a factor, or, with P > 0 (a shared x of P columns), the
-// width of a column tile.
-bool plan_ok(const Plan& p, int B, int d, int m, int N, int P) {
-  if (B < 1 || d < 1 || m < 0 || m > kMaxRank || N < 1 || P < 0) return false;
-  if (P > 0 && (N > P || (P + N - 1) / N > 65535)) return false;
+// The plan the wrapper computed, checked against this file's layout.
+bool plan_ok(const Plan& p, int B, int d, int m, int N) {
+  if (B < 1 || d < 1 || m < 0 || m > kMaxRank || N < 1) return false;
   const int mr = rank_tile(m), g = mr / 4, parts = row_parts(mr);
   if (p.threads != cta_threads(mr)) return false;
   if (p.cluster < 1 || p.cluster > kMaxCluster || p.tile < 1) return false;
   if (p.tile > (d + p.cluster - 1) / p.cluster) return false;
   if (p.smem > kMaxSmem) return false;
-  return p.smem == 4 * Layout(p.tile, m, N, mr, parts, g * parts, P > 0 ? 1 : 0).total;
+  return p.smem == 4 * Layout(p.tile, m, N, mr, parts, g * parts).total;
 }
 
 template <int MR, int NT, int MODE>
 int launch(const Plan& p, int B, const float* in, const float* a_half, const float* X,
            const float* M, const float* mu, const float* logdet, float* x_out, float* col_out,
-           int d, int m, int N, int P, cudaStream_t stream) {
+           int d, int m, int N, cudaStream_t stream) {
   auto kernel = woodbury_kernel<MR, NT, MODE>;
   static bool ready = false;
   if (!ready) {
@@ -598,7 +530,7 @@ int launch(const Plan& p, int B, const float* in, const float* a_half, const flo
     ready = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * p.cluster, MODE == kWhitenShared ? (P + N - 1) / N : 1);
+  cfg.gridDim = dim3(B * p.cluster, 1);
   cfg.blockDim = dim3(p.threads);
   cfg.dynamicSmemBytes = p.smem;
   cfg.stream = stream;
@@ -610,18 +542,18 @@ int launch(const Plan& p, int B, const float* in, const float* a_half, const flo
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, in, a_half, X, M, mu, logdet, x_out,
-                                           col_out, d, m, N, p.tile, P);
+                                           col_out, d, m, N, p.tile);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 template <int MODE, int NT>
 int dispatch_rank(const Plan& p, int B, const float* in, const float* a_half, const float* X,
                   const float* M, const float* mu, const float* logdet, float* x_out,
-                  float* col_out, int d, int m, int N, int P, cudaStream_t stream) {
+                  float* col_out, int d, int m, int N, cudaStream_t stream) {
 #define PF_CASE(MR)                                                                         \
   case MR:                                                                                  \
     return launch<MR, NT, MODE>(p, B, in, a_half, X, M, mu, logdet, x_out, col_out, d, m, \
-                                N, P, stream);
+                                N, stream);
   switch (rank_tile(m)) {
     PF_CASE(4) PF_CASE(8) PF_CASE(12) PF_CASE(16) PF_CASE(20) PF_CASE(24) PF_CASE(28) PF_CASE(32)
   }
@@ -632,16 +564,13 @@ int dispatch_rank(const Plan& p, int B, const float* in, const float* a_half, co
 template <int MODE>
 int dispatch(const Plan& p, int B, const float* in, const float* a_half, const float* X,
              const float* M, const float* mu, const float* logdet, float* x_out, float* col_out,
-             int d, int m, int N, int P, cudaStream_t stream) {
-  if (!plan_ok(p, B, d, m, N, P)) return -1;
-  if (MODE == kWhitenShared)
-    return dispatch_rank<MODE, kSharedColTile>(p, B, in, a_half, X, M, mu, logdet, x_out, col_out,
-                                               d, m, N, P, stream);
+             int d, int m, int N, cudaStream_t stream) {
+  if (!plan_ok(p, B, d, m, N)) return -1;
   switch (col_tile(N)) {
     case 5:
-      return dispatch_rank<MODE, 5>(p, B, in, a_half, X, M, mu, logdet, x_out, col_out, d, m, N, P, stream);
+      return dispatch_rank<MODE, 5>(p, B, in, a_half, X, M, mu, logdet, x_out, col_out, d, m, N, stream);
     default:
-      return dispatch_rank<MODE, 4>(p, B, in, a_half, X, M, mu, logdet, x_out, col_out, d, m, N, P, stream);
+      return dispatch_rank<MODE, 4>(p, B, in, a_half, X, M, mu, logdet, x_out, col_out, d, m, N, stream);
   }
 }
 
@@ -656,25 +585,14 @@ int pf_sample_logq(const float* u, const float* a_half, const float* X, const fl
                    int m, int N, int cluster, int threads, int smem, int tile,
                    cudaStream_t stream) {
   return dispatch<kSample>({cluster, threads, smem, tile}, B, u, a_half, X, C, mu, logdet, x,
-                           logq, d, m, N, 0, stream);
+                           logq, d, m, N, stream);
 }
 
 int pf_whiten_sumsq(const float* x, const float* a_half, const float* X, const float* Ci,
                     const float* mu, float* maha, int B, int d, int m, int N, int cluster,
                     int threads, int smem, int tile, cudaStream_t stream) {
   return dispatch<kWhiten>({cluster, threads, smem, tile}, B, x, a_half, X, Ci, mu, nullptr,
-                           nullptr, maha, d, m, N, 0, stream);
-}
-
-// B2 over a shared x: xt is x in the (P, d) layout, maha is (B, P), and
-// coltile the width of a column tile.
-int pf_whiten_sumsq_shared(const float* xt, const float* a_half, const float* X,
-                           const float* Ci, const float* mu, float* maha, int B, int d, int m,
-                           int P, int cluster, int threads, int smem, int tile, int coltile,
-                           cudaStream_t stream) {
-  if (P < 1) return -1;
-  return dispatch<kWhitenShared>({cluster, threads, smem, tile}, B, xt, a_half, X, Ci, mu,
-                                 nullptr, nullptr, maha, d, m, coltile, P, stream);
+                           nullptr, maha, d, m, N, stream);
 }
 
 }  // extern "C"

@@ -182,8 +182,10 @@ def _compute_psis_result(
     own components, or under every component (moved to ``device`` once) for
     the mixture, whose ``(K, chunk·N)`` densities are what the block bounds.
     A ratio depends on its draw alone, so the result is the unchunked one
-    (bitwise on the CPU; on a CUDA device a kernel's launch plan follows the
-    block's width and can move the last bits)."""
+    (bitwise on the CPU; on a CUDA device the mixture denominator's kernel
+    gives the same bits whatever the block, the component one's launch plan
+    follows the block's width and can move the last bits, and so can the
+    target's log density at another batch size)."""
     K, N, d = draws_knd.shape
     dev = draws_knd.device if device is None else device
     if denominator not in ("component", "mixture"):

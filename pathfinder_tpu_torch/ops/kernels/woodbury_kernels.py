@@ -3,7 +3,7 @@ plain torch versions.
 
 They replace the JAX package's Pallas TPU kernels ``_sample_kernel`` and
 ``_whiten_kernel`` (``pathfinder_tpu/ops/pallas/woodbury_kernels.py`` at
-commit ``c548d16^``). Two CUDA sources carry them, with the notes on what
+commit ``c548d16^``). Three CUDA sources carry them, with the notes on what
 bounds each and how it is laid out:
 
 * ``pathfinder_tpu_torch/csrc/woodbury_kernels.cu``, the fast kernel:
@@ -11,28 +11,31 @@ bounds each and how it is laid out:
 * ``pathfinder_tpu_torch/csrc/woodbury_general.cu``, the general kernel:
   float16, bfloat16, float32 and float64 at any rank, accumulating in
   float64 for float64 and in float32 otherwise, as the TPU kernels did
-  (``promote_types(dtype, float32)``).
+  (``promote_types(dtype, float32)``);
+* ``pathfinder_tpu_torch/csrc/woodbury_shared.cu``, the shared-x kernel:
+  B2 over one block ``x (d, P)`` shared by every factor (the mixture
+  denominator), at every dtype and rank, its products on the tensor cores.
 
-The route is chosen from the dtype and the rank before the launch
-(:func:`uses_fast_kernel`); nothing is caught and retried on another route.
+Per factor the route is chosen from the dtype and the rank before the
+launch (:func:`uses_fast_kernel`); B2 over a shared ``x`` always takes the
+shared-x kernel. Nothing is caught and retried on another route.
 
 Each wrapper takes tensors on the CPU through the plain version, and
 tensors on a CUDA device through a kernel; on a CUDA tensor it launches
 the kernel or raises, and never falls back. The kernels are built with
-``nvcc`` at first use, both sources at once, from the sources in the
+``nvcc`` at first use, all sources at once, from the sources in the
 package, into the ``build/`` directory beside the package, and bound with
 ``ctypes``. How a launch is cut is decided here, by :func:`_launch_plan`
-and :func:`_launch_plan_shared` for the fast kernel, and for the general
-source by :func:`_general_rows_plan` (B1 and B2 per factor,
-``factor_kernel``) and :func:`_general_plan` (B2 over a shared ``x``,
-``general_kernel``), and checked by each kernel against its own layout.
+for the fast kernel, :func:`_general_rows_plan` for the general one
+(``factor_kernel``) and :func:`_shared_plan` for the shared-x one, and
+checked by each kernel against its own layout.
 
 Shapes (batch ``B`` of independent factors, dimension ``d``, rank ``m``,
 ``N`` draws): ``u``/``x`` ``(B, d, N)``, ``a_half``/``mu`` ``(B, d)``,
 ``X`` ``(B, d, m)``, ``C``/``Ci`` ``(B, m, m)``, ``logdet`` ``(B,)``. The rank
 may be 0 (a diagonal factor). B2 also takes one block ``x (d, P)`` shared by
-all ``B`` factors and returns ``(B, P)``: one launch over (factor, column
-tile), with no copy of ``x`` per factor.
+all ``B`` factors and returns ``(B, P)``: one launch over (factor group,
+column tile), with no copy of ``x`` per factor.
 """
 
 from __future__ import annotations
@@ -61,8 +64,10 @@ __all__ = [
     "reset_launch_counts",
     "load_library",
     "load_general_library",
+    "load_shared_library",
     "kernel_resources",
     "general_kernel_resources",
+    "shared_kernel_resources",
     "uses_fast_kernel",
 ]
 
@@ -70,6 +75,7 @@ _LOG_2PI = math.log(2.0 * math.pi)
 _PKG_DIR = Path(__file__).resolve().parents[2]
 _SOURCE = _PKG_DIR / "csrc" / "woodbury_kernels.cu"
 _GENERAL_SOURCE = _PKG_DIR / "csrc" / "woodbury_general.cu"
+_SHARED_SOURCE = _PKG_DIR / "csrc" / "woodbury_shared.cu"
 _BUILD_DIR = _PKG_DIR.parent / "build" / "pathfinder_tpu_torch"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -83,35 +89,32 @@ SMEM_LIMIT = 232_448  # bytes of shared memory one CTA may use
 MAX_CLUSTER = 8  # the portable cluster size
 _CHUNK = 40  # columns the kernel handles per round (csrc: kChunk)
 _MIN_ROWS = 64  # rows below which a factor is not split further
-_COL_TILES = (40, 20, 10, 5)  # widths of a column tile of a shared x, widest first
-_MIN_PAIR_TILE = 10  # narrower tiles are not worth a second CTA on the SM
 # shared memory of a CTA that leaves room for a second one on its SM (228 KB
 # an SM, 1 KB of it reserved per CTA)
 _SMEM_PAIR = 233_472 // 2 - 1024
 
-# the general source's kernels: threads a CTA (both); for general_kernel (B2
-# over a shared x) the widest column tile, the most rows staged at once, the
-# rows staged at the least before the column tile is narrowed, and the bytes
-# of a panel of M
+# the general source's factor_kernel (B1, B2 per factor) and the shared-x
+# kernel: threads a CTA (csrc: kThreads, both)
 _G_THREADS = 256
-_G_MAX_COLS = 16
-_G_MAX_ROWS = 256
-_G_MIN_ROWS = 32
-_G_PANEL_BYTES = 16 * 1024
-# factor_kernel (B1, B2 per factor): the most columns of a round and the ranks
-# of a pass-1 register tile (csrc/woodbury_general.cu: kRound, kRK)
+# factor_kernel: the most columns of a round and the ranks of a pass-1
+# register tile (csrc/woodbury_general.cu: kRound, kRK)
 _R_ROUND = 40
 _R_RK = 4
 _R_SPLIT_M = 64  # above this rank a cluster splits s = M t by rows (csrc: kSplitM)
 _WARPS = _G_THREADS // 32
-# the general kernel's dtype codes (csrc/woodbury_general.cu: kF32 ...)
+# the shared-x kernel (csrc/woodbury_shared.cu): columns of an MMA tile
+# (kColTile) and rank tiles of 8 a warp sums at once in pass 1 (kRankTiles)
+_S_COL_TILE = 16
+_S_RANK_TILES = 4
+# the general and shared-x kernels' dtype codes (csrc: kF32 ...)
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfloat16: 3}
 
 # launches of each kernel since the last reset, in all and per shape
 # ``(B, m, N, shared)`` (plain-version calls on CPU tensors do not count);
-# ``*_general`` are the general kernel's
+# ``*_general`` are the general kernel's, ``whiten_sumsq_shared`` the
+# shared-x kernel's
 _launches = {"sample_and_logq": 0, "whiten_sumsq": 0,
-             "sample_and_logq_general": 0, "whiten_sumsq_general": 0}
+             "sample_and_logq_general": 0, "whiten_sumsq_general": 0, "whiten_sumsq_shared": 0}
 _launches_by_shape = {name: collections.Counter() for name in _launches}
 _libs = {}  # source name -> the loaded library
 _lib_logs = {}  # source name -> what nvcc (ptxas -v) said when it built it
@@ -185,15 +188,13 @@ def _threads(m: int) -> int:
     return 32 * (mr // 4) * max(1, 32 // mr)
 
 
-def _smem_bytes(tile: int, m: int, N: int, threads: int, shared: bool = False) -> int:
-    """Dynamic shared memory of one CTA; mirrors ``Layout`` in the source.
-    With ``shared`` (B2 over a shared ``x``) ``N`` is the width of a column
-    tile, whose columns are staged one after the other."""
+def _smem_bytes(tile: int, m: int, N: int, threads: int) -> int:
+    """Dynamic shared memory of one CTA; mirrors ``Layout`` in the source."""
     mr = _rank_tile(m)
     warps = threads // 32
     parts = warps // (mr // 4)
     nc = min(N, _CHUNK)
-    slab = N * (_round4(tile) + 4) if shared else tile * N + 4
+    slab = tile * N + 4
     floats = (
         4  # the mbarrier
         + _round4(slab) + _round4(tile * m + 4) + 2 * _round4(tile + 4)
@@ -244,112 +245,6 @@ def _launch_plan(B: int, d: int, m: int, N: int, num_sms: int = NUM_SMS) -> tupl
             raise ValueError(f"N={N} columns of one row do not fit in shared memory")
         tile = -(-rows // -(-rows // tile))  # equal tiles
     return cluster, threads, _smem_bytes(tile, m, N, threads), tile
-
-
-def _launch_plan_shared(B: int, d: int, m: int, P: int, num_sms: int = NUM_SMS) -> tuple:
-    """``(cluster, threads, smem_bytes, tile_rows, col_tile)`` for B2 over an
-    ``x`` of ``P`` columns shared by ``B`` factors.
-
-    The grid runs over (factor, column tile); a cluster stages its factor's
-    rows and one tile of ``col_tile`` columns. A CTA loads, then computes,
-    so two CTAs on an SM overlap where one would idle: the tile is the
-    widest of ``_COL_TILES`` that leaves room for two, from
-    ``_MIN_PAIR_TILE`` columns up, else the widest that fits alone. The
-    cluster grows while no tile fits and while the card would not be
-    filled. Where not even the narrowest tile fits at 8 CTAs, the rows are
-    tiled too and staged twice.
-    """
-    if min(B, d, P) < 1 or not 0 <= m <= MAX_RANK:
-        raise ValueError(f"no launch plan for B={B}, d={d}, m={m}, P={P}")
-    threads = _threads(m)
-    widths = sorted({min(w, P) for w in _COL_TILES}, reverse=True)
-
-    def widest(rows):
-        """The tile for a CTA of ``rows`` rows; 0 where none fits."""
-        smem = {w: _smem_bytes(rows, m, w, threads, True) for w in widths}
-        pair = [w for w in widths if smem[w] <= _SMEM_PAIR and w >= min(_MIN_PAIR_TILE, P)]
-        alone = [w for w in widths if smem[w] <= SMEM_LIMIT]
-        return (pair or alone or [0])[0]
-
-    cluster = 1
-    while cluster < MAX_CLUSTER and not widest(-(-d // cluster)):
-        cluster *= 2
-    while (
-        cluster < MAX_CLUSTER
-        and B * -(-P // max(1, widest(-(-d // cluster)))) * cluster < num_sms
-        and -(-d // (2 * cluster)) >= _MIN_ROWS
-    ):
-        cluster *= 2
-    rows = -(-d // cluster)
-    tile, width = rows, widest(rows)
-    if not width:
-        width = widths[-1]
-        fixed = _smem_bytes(0, m, width, threads, True)
-        tile = (SMEM_LIMIT - fixed) // (4 * (width + m + 2)) & ~3
-        while tile > 0 and _smem_bytes(tile, m, width, threads, True) > SMEM_LIMIT:
-            tile -= 4
-        if tile < 1:
-            raise ValueError(f"one row of {width} columns does not fit in shared memory")
-        tile = min(rows, _round4(-(-rows // -(-rows // tile))))  # equal tiles
-    if -(-P // width) > 65535:
-        raise ValueError(f"P={P} columns need more column tiles than a grid has")
-    return cluster, threads, _smem_bytes(tile, m, width, threads, True), tile, width
-
-
-def _general_layout(m: int, nt: int, rows: int, pk: int, threads: int, ws: bool) -> int:
-    """Values (of the accumulation type) of the general kernel's dynamic
-    shared memory; mirrors ``GLayout`` in ``csrc/woodbury_general.cu``. With
-    ``ws`` the pass-1 sums and ``s`` live in a global workspace instead."""
-    p = m * nt
-    g = threads // p if 0 < p < threads else 1
-    return ((0 if ws else 2 * p + g * p) + threads + pk * m
-            + rows * (m + 1) + rows * nt + 2 * rows)
-
-
-def _general_workspace(m: int, nt: int, threads: int = _G_THREADS) -> int:
-    """Workspace values a CTA needs where ``t``, ``s`` and the pass-1
-    partials do not fit in shared memory."""
-    p = m * nt
-    g = threads // p if 0 < p < threads else 1
-    return 2 * p + g * p
-
-
-def _general_plan(d: int, m: int, N: int, dtype, smem_limit: int = SMEM_LIMIT) -> tuple:
-    """``(threads, nt, rows, pk, smem_bytes, ws)`` for the general kernel
-    over factors of ``d`` rows and rank ``m``, ``N`` columns each (or a
-    shared ``x`` of ``N`` columns), in ``dtype``.
-
-    The column tile ``nt`` is ``N`` rounded up to a power of two, at most
-    16, halved while the rank's sums and a tile of ``_G_MIN_ROWS`` rows do
-    not fit in the shared memory that leaves room for a second CTA on the
-    SM; where they do not fit at ``nt = 1``, the whole of the CTA's limit is
-    used, and where the sums alone do not fit even so they go to a global
-    workspace (``ws``). ``pk`` rows of M make a panel of about 16 KB (an
-    eighth of the limit, where that is less).
-    ``rows`` fills what is left, up to ``_G_MAX_ROWS``."""
-    if min(d, N) < 1 or m < 0:
-        raise ValueError(f"no launch plan for d={d}, m={m}, N={N}")
-    acc = 8 if dtype == torch.float64 else 4
-    threads = _G_THREADS
-    nt = min(_G_MAX_COLS, 1 << (N - 1).bit_length())
-    pk = max(1, min(m, min(_G_PANEL_BYTES, smem_limit // 8) // (acc * max(m, 1))))
-    budget = min(_SMEM_PAIR, smem_limit)
-
-    def need(nt, rows, ws):
-        return acc * _general_layout(m, nt, rows, pk, threads, ws)
-
-    least = min(d, _G_MIN_ROWS)
-    while nt > 1 and need(nt, least, False) > budget:
-        nt //= 2
-    ws = False
-    if need(nt, least, False) > budget:
-        budget = smem_limit
-        ws = need(nt, 1, False) > budget
-    per_row = acc * (m + 1 + nt + 2)
-    rows = min(d, _G_MAX_ROWS, (budget - need(nt, 0, ws)) // per_row)
-    if rows < 1:
-        raise ValueError(f"one row of X at rank m={m} does not fit in shared memory")
-    return threads, nt, rows, pk, need(nt, rows, ws), ws
 
 
 def _r16(n: int) -> int:
@@ -511,9 +406,133 @@ def _general_rows_plan(B: int, d: int, m: int, N: int, dtype, num_sms: int = NUM
     return plan(cs, -(-rows // -(-rows // lo)), 0, ws)  # equal tiles
 
 
+def _shared_x_stride(asz: int, kw: int) -> int:
+    """Row stride (values of the accumulation type) of a staged window of
+    ``kw`` ranks of X (csrc: ``x_stride``)."""
+    return kw + 4 if asz == 8 else (kw + 8 if kw % 16 == 0 else kw)
+
+
+def _shared_run_bytes(n: int) -> int:
+    """Bytes of a staged run of ``n`` bytes at any offset (csrc: ``run_bytes``)."""
+    return _r16(n) + 16
+
+
+def _shared_ci_staged(esz: int, F: int, m: int) -> int:
+    """Whether the group's Ci is staged in shared memory for pass 2 (csrc:
+    ``ci_staged``)."""
+    return int(m > 0 and F * _shared_run_bytes(m * m * esz) <= 32768)
+
+
+def _shared_kstep_split(W: int, m: int) -> int:
+    """Warps that split a pair's k-steps in pass 1 (csrc: ``kstep_split``)."""
+    return _WARPS // W if m > 0 and -(-m // 8) <= _S_RANK_TILES else 1
+
+
+def _shared_layout(esz: int, asz: int, lo: int, W: int, F: int, R: int, m: int, kw: int,
+                   ws: bool) -> int:
+    """Bytes of the shared-x kernel's dynamic shared memory; mirrors
+    ``SLayout`` in ``csrc/woodbury_shared.cu``. ``esz``/``asz``: bytes of the
+    storage and the accumulation type; ``lo``: X keeps a TF32 lo part
+    (accumulation in float32); ``W`` (factor, column tile) pairs of ``F``
+    factors, ``R`` rows a chunk, ``kw`` ranks a window; ``ws``: t and s live
+    in the workspace."""
+    nc, mp, keep = _S_COL_TILE * W // F, 8 * -(-m // 8), int(m > 0)
+    inner, one = keep * (1 - int(ws)), int(kw >= mp)
+    conv = keep * (1 - one)
+    run = _shared_run_bytes
+    xrun = one * run(R * m * esz) + (1 - one) * R * run(kw * esz)
+    ldx = _shared_x_stride(asz, kw)
+    arrays = (  # two stages of each but t, s and the column sums
+        32,  # four mbarriers
+        2 * nc * (run(R * esz) + (16 if esz == 8 else 0)),  # x
+        2 * 2 * F * run(R * esz),  # μ and a½
+        keep * 2 * F * xrun,  # X's rows
+        conv * 2 * F * R * ldx * asz,  # a window of X in the accumulation type
+        conv * lo * 2 * F * R * ldx * asz,  # its TF32 lo parts
+        2 * F * R * asz, 2 * F * R * asz,  # μ, 1/a½
+        inner * _shared_kstep_split(W, m) * _S_COL_TILE * W * (mp + 1) * asz,  # Xᵀv (partials)
+        inner * _S_COL_TILE * W * (mp + 4) * asz,  # Ci Xᵀv
+        _WARPS * _S_COL_TILE * asz,  # pass-3 column sums a warp
+        _shared_ci_staged(esz, F, m) * F * run(m * m * esz),  # the group's Ci
+    )
+    return sum(_r16(a) for a in arrays)
+
+
+def _shared_workspace(W: int, m: int) -> int:
+    """Values of the accumulation type one CTA's workspace slice holds (csrc:
+    ``ws_values``)."""
+    return _S_COL_TILE * W * (2 * 8 * -(-m // 8) + 5)
+
+
+SharedPlan = collections.namedtuple("SharedPlan", "W F NC R kw ws smem")
+
+
+@functools.lru_cache(maxsize=None)
+def _shared_shape(m: int, dtype, smem_limit: int = SMEM_LIMIT) -> tuple:
+    """``(W, R, kw, ws, limit)`` of the shared-x kernel at rank ``m`` in
+    ``dtype``: what sets the order of its sums, and so depends on nothing
+    else, and the shared memory its factor groups must keep to.
+
+    ``W`` (factor, column tile) pairs a CTA and ``R`` rows a chunk (128 at
+    rank 0, else 64 or 32): the first of (8, 64), (4, 64), (2, 64), (1, 64),
+    (8, 32), (4, 32), (2, 32), (1, 32) whose layout, for some factor group,
+    fits beside a second CTA on the SM, else the first that fits alone, with
+    every rank of X staged at once (``kw`` the whole padded rank). Where
+    none fits, one pair in chunks of 64 rows with X's ranks in windows of
+    ``kw``, the widest that fit with t and s in shared memory, else with
+    them in the workspace (``ws``)."""
+    esz = torch.finfo(dtype).bits // 8
+    asz = 8 if dtype == torch.float64 else 4
+    lo = int(dtype != torch.float64)
+    mp = 8 * -(-m // 8)
+
+    def least(W, R, kw, ws):
+        return min(_shared_layout(esz, asz, lo, W, 1 << f, R, m, kw, ws)
+                   for f in range(W.bit_length()))
+
+    shapes = [(8, 128)] if m == 0 else [(W, R) for R in (64, 32) for W in (8, 4, 2, 1)]
+    for limit in (min(_SMEM_PAIR, smem_limit), smem_limit):
+        for W, R in shapes:
+            if least(W, R, mp, False) <= limit:
+                return W, R, mp, False, limit
+    for ws in (False, True):
+        for kw in range(mp - 8, 7, -8):
+            if least(1, 64, kw, ws) <= smem_limit:
+                return 1, 64, kw, ws, smem_limit
+    raise ValueError(f"one row of X at rank m={m} does not fit in shared memory")
+
+
+def _shared_plan(B: int, d: int, m: int, P: int, dtype, smem_limit: int = SMEM_LIMIT) -> SharedPlan:
+    """The plan of the shared-x kernel for ``B`` factors of ``d`` rows and
+    rank ``m`` over an ``x`` of ``P`` columns in ``dtype``: the shape of
+    :func:`_shared_shape`, and, of the factor groups ``F`` (of ``W`` pairs,
+    so a column tile of ``NC = 16·W/F``) whose layout keeps to its limit,
+    the one that moves the fewest bytes from L2, the group's rows of X, μ
+    and a½ against the tile's columns of x, the factors and columns past B
+    and P counted as moved."""
+    if min(B, d, P) < 1 or m < 0 or dtype not in _DTYPE_CODES:
+        raise ValueError(f"no launch plan for B={B}, d={d}, m={m}, P={P}, {dtype}")
+    W, R, kw, ws, limit = _shared_shape(m, dtype, smem_limit)
+    esz = torch.finfo(dtype).bits // 8
+    asz = 8 if dtype == torch.float64 else 4
+    kw = kw if m else 0
+
+    def smem(F):
+        return _shared_layout(esz, asz, int(dtype != torch.float64), W, F, R, m, kw, ws)
+
+    def moved(F):
+        nc = _S_COL_TILE * W // F
+        return -(-B // F) * -(-P // nc) * (nc + F * (m + 2))
+
+    F = min((1 << f for f in range(W.bit_length()) if smem(1 << f) <= limit), key=moved)
+    return SharedPlan(W, F, _S_COL_TILE * W // F, R, kw, ws, smem(F))
+
+
 def uses_fast_kernel(dtype, m: int) -> bool:
-    """Whether B1/B2 on the card take the fast kernel (float32 at rank
-    ``m <= MAX_RANK``) or the general one (every other dtype or rank)."""
+    """Whether B1, and B2 with a block of columns per factor, take the fast
+    kernel on the card (float32 at rank ``m <= MAX_RANK``) or the general one
+    (every other dtype or rank). B2 over a shared ``x`` takes the shared-x
+    kernel whatever the dtype and rank."""
     return dtype == torch.float32 and m <= MAX_RANK
 
 
@@ -569,8 +588,6 @@ def _bind_fast(fast) -> None:
     fast.pf_sample_logq.restype = i
     fast.pf_whiten_sumsq.argtypes = [p] * 6 + [i] * 8 + [p]
     fast.pf_whiten_sumsq.restype = i
-    fast.pf_whiten_sumsq_shared.argtypes = [p] * 6 + [i] * 9 + [p]
-    fast.pf_whiten_sumsq_shared.restype = i
     fast.pf_max_rank.argtypes = []
     fast.pf_max_rank.restype = i
     if fast.pf_max_rank() != MAX_RANK:
@@ -583,19 +600,27 @@ def _bind_general(general) -> None:
     general.pfg_sample_logq.restype = i
     general.pfg_whiten_sumsq.argtypes = [i] + [p] * 6 + [i] * 12 + [p, p]
     general.pfg_whiten_sumsq.restype = i
-    general.pfg_whiten_sumsq_shared.argtypes = [i] + [p] * 6 + [i] * 9 + [p, p]
-    general.pfg_whiten_sumsq_shared.restype = i
-    for name in ("pfg_max_col_tile", "pfg_round"):
-        getattr(general, name).argtypes = []
-        getattr(general, name).restype = i
-    if (general.pfg_max_col_tile(), general.pfg_round()) != (_G_MAX_COLS, _R_ROUND):
-        raise RuntimeError("general kernel library and wrapper disagree on the column tiles")
+    general.pfg_round.argtypes = []
+    general.pfg_round.restype = i
+    if general.pfg_round() != _R_ROUND:
+        raise RuntimeError("general kernel library and wrapper disagree on the column rounds")
 
 
-_BINDERS = {_SOURCE: _bind_fast, _GENERAL_SOURCE: _bind_general}
+def _bind_shared(shared) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    shared.pfs_whiten_sumsq.argtypes = [i] + [p] * 6 + [i] * 11 + [p, p]
+    shared.pfs_whiten_sumsq.restype = i
+    for name in ("pfs_col_tile", "pfs_rank_tiles"):
+        getattr(shared, name).argtypes = []
+        getattr(shared, name).restype = i
+    if (shared.pfs_col_tile(), shared.pfs_rank_tiles()) != (_S_COL_TILE, _S_RANK_TILES):
+        raise RuntimeError("shared-x kernel library and wrapper disagree on the tiles")
 
 
-def _load_all(sources=(_SOURCE, _GENERAL_SOURCE)) -> None:
+_BINDERS = {_SOURCE: _bind_fast, _GENERAL_SOURCE: _bind_general, _SHARED_SOURCE: _bind_shared}
+
+
+def _load_all(sources=(_SOURCE, _GENERAL_SOURCE, _SHARED_SOURCE)) -> None:
     """Build (once per source and flags, all at once) and load the libraries
     of ``sources`` not loaded yet."""
     with _lib_lock:
@@ -612,7 +637,7 @@ def _load_all(sources=(_SOURCE, _GENERAL_SOURCE)) -> None:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build and load both kernels' libraries (one ``nvcc`` each, started
+    """Build and load the three kernel libraries (one ``nvcc`` each, started
     together); returns the fast kernel's."""
     _load_all()
     return _libs[_SOURCE.name]
@@ -624,13 +649,18 @@ def load_general_library() -> ctypes.CDLL:
     return _libs[_GENERAL_SOURCE.name]
 
 
+def load_shared_library() -> ctypes.CDLL:
+    """Build and load the shared-x kernel's library; returns it."""
+    _load_all((_SHARED_SOURCE,))
+    return _libs[_SHARED_SOURCE.name]
+
+
 def kernel_resources() -> dict:
     """Registers and spills of each fast-kernel instantiation as ``ptxas
     -v`` reported them at build time: ``{(name, MR, NT): {"registers": r,
-    "spill_stores": bytes, "spill_loads": bytes}}``; B2 over a shared ``x``
-    is listed as ``whiten_sumsq_shared``."""
+    "spill_stores": bytes, "spill_loads": bytes}}``."""
     load_library()
-    names = ("sample_and_logq", "whiten_sumsq", "whiten_sumsq_shared")
+    names = ("sample_and_logq", "whiten_sumsq")
     return _ptxas_resources(
         _lib_logs[_SOURCE.name], r"woodbury_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
         lambda mr, nt, mode: (names[int(mode)], int(mr), int(nt)))
@@ -641,21 +671,31 @@ _MANGLED_DTYPES = {"f": "float32", "d": "float64", "6__half": "float16",
                    "13__nv_bfloat16": "bfloat16"}
 
 
+_MANGLED = "(f|d|6__half|13__nv_bfloat16)"
+
+
 def general_kernel_resources() -> dict:
     """The same for the general source: ``{(name, dtype, NT): {...}}`` with
-    ``name`` one of ``sample_and_logq_general``, ``whiten_sumsq_general``
-    (``factor_kernel``, NT its column tile) and
-    ``whiten_sumsq_shared_general`` (``general_kernel``, NT None), and
-    ``dtype`` the storage dtype's name."""
+    ``name`` ``sample_and_logq_general`` or ``whiten_sumsq_general``
+    (``factor_kernel``, NT its column tile) and ``dtype`` the storage dtype's
+    name."""
     load_general_library()
-    names = ("sample_and_logq_general", "whiten_sumsq_general", "whiten_sumsq_shared_general")
-    log = _lib_logs[_GENERAL_SOURCE.name]
-    dtypes = "(f|d|6__half|13__nv_bfloat16)"
-    out = _ptxas_resources(log, rf"factor_kernelI{dtypes}Li(\d)ELi(\d)E",
-                           lambda t, mode, nt: (names[int(mode)], _MANGLED_DTYPES[t], int(nt)))
-    out.update(_ptxas_resources(log, rf"general_kernelI{dtypes}E",
-                                lambda t: (names[2], _MANGLED_DTYPES[t], None)))
-    return out
+    names = ("sample_and_logq_general", "whiten_sumsq_general")
+    return _ptxas_resources(_lib_logs[_GENERAL_SOURCE.name],
+                            rf"factor_kernelI{_MANGLED}Li(\d)ELi(\d)E",
+                            lambda t, mode, nt: (names[int(mode)], _MANGLED_DTYPES[t], int(nt)))
+
+
+# the shared-x kernel's modes (csrc/woodbury_shared.cu: kRank0, kOne, kWin)
+_SHARED_MODES = ("rank 0", "one window", "windows")
+
+
+def shared_kernel_resources() -> dict:
+    """The same for the shared-x source: ``{(dtype, mode): {...}}``, one
+    instantiation a storage dtype and mode (``_SHARED_MODES``)."""
+    load_shared_library()
+    return _ptxas_resources(_lib_logs[_SHARED_SOURCE.name], rf"shared_kernelI{_MANGLED}Li(\d)EE",
+                            lambda t, mode: (_MANGLED_DTYPES[t], _SHARED_MODES[int(mode)]))
 
 
 def _ptxas_resources(log: str, pattern: str, key_of) -> dict:
@@ -727,7 +767,7 @@ def _check_code(name, code, plan):
         raise RuntimeError(f"{name} kernel launch failed with cudaError {code}")
 
 
-def _launch(name, entry, tensors, plan, device, B, d, m, N, shared=False):
+def _launch(name, entry, tensors, plan, device, B, d, m, N):
     """Launch the fast kernel's ``entry`` on the current stream with
     ``plan`` and count it."""
     pointers = _pointers(tensors)
@@ -736,39 +776,61 @@ def _launch(name, entry, tensors, plan, device, B, d, m, N, shared=False):
         code = entry(*pointers, B, d, m, N, *plan, stream)
     _check_code(name, code, plan)
     _launches[name] += 1
-    _launches_by_shape[name][(B, m, N, shared)] += 1
+    _launches_by_shape[name][(B, m, N, False)] += 1
 
 
-def _launch_general(name, entry, tensors, device, B, d, m, N, shared=False, plan=None):
+def _workspace(plan_ws, ctas, words, dtype, device):
+    """The global workspace a plan asks for (``ctas`` slices of ``words``
+    values of the accumulation type), else None."""
+    if not plan_ws:
+        return None
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    return torch.empty(ctas * words, dtype=acc, device=device)
+
+
+def _launch_general(name, entry, tensors, device, B, d, m, N, plan=None):
     """Launch the general source's ``entry`` on the current stream and count
     it under ``name + "_general"``; ``plan`` defaults to
-    :func:`_general_rows_plan` (per factor) or :func:`_general_plan` (a
-    shared ``x``). The workspace, where the plan asks for one, is allocated
-    here."""
+    :func:`_general_rows_plan`. The workspace, where the plan asks for one,
+    is allocated here."""
     dtype = tensors[0].dtype
-    if shared:
-        plan = plan or _general_plan(d, m, N, dtype)
-        threads, nt, rows, pk, smem, ws = plan
-        args, ctas = (threads, nt, rows, pk, smem), B * min(-(-N // nt), 65535)
-        words = _general_workspace(m, nt, threads)
-    else:
-        plan = plan or _general_rows_plan(B, d, m, N, dtype, _num_sms(device.index))
-        ws = plan.ws
-        args = tuple(plan)[:8]
-        ctas = B * plan.cluster * min(-(-N // plan.colblk), 65535)
-        words = _rows_workspace(m, plan.nc, _rows_col_tile(N), plan.cluster)
-    work = None
-    if ws:
-        acc = torch.float64 if dtype == torch.float64 else torch.float32
-        work = torch.empty(ctas * words, dtype=acc, device=device)
+    plan = plan or _general_rows_plan(B, d, m, N, dtype, _num_sms(device.index))
+    ctas = B * plan.cluster * min(-(-N // plan.colblk), 65535)
+    work = _workspace(plan.ws, ctas, _rows_workspace(m, plan.nc, _rows_col_tile(N), plan.cluster),
+                      dtype, device)
     pointers = _pointers(tensors)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = entry(_DTYPE_CODES[dtype], *pointers, B, d, m, N, *args,
+        code = entry(_DTYPE_CODES[dtype], *pointers, B, d, m, N, *tuple(plan)[:8],
                      None if work is None else work.data_ptr(), stream)
     _check_code(name + "_general", code, plan)
     _launches[name + "_general"] += 1
-    _launches_by_shape[name + "_general"][(B, m, N, shared)] += 1
+    _launches_by_shape[name + "_general"][(B, m, N, False)] += 1
+
+
+def _shared_ctas(plan: SharedPlan, B: int, P: int, num_sms: int) -> int:
+    """The grid of the shared-x kernel's persistent loop: every (factor
+    group, column tile) item a CTA, or, with a workspace, two CTAs an SM."""
+    items = -(-B // plan.F) * -(-P // plan.NC)
+    return min(items, 2 * num_sms) if plan.ws else items
+
+
+def _launch_shared(entry, tensors, device, B, d, m, P, plan=None):
+    """Launch the shared-x kernel on the current stream and count it under
+    ``whiten_sumsq_shared``; ``plan`` defaults to :func:`_shared_plan`."""
+    dtype = tensors[0].dtype
+    plan = plan or _shared_plan(B, d, m, P, dtype)
+    ctas = _shared_ctas(plan, B, P, _num_sms(device.index))
+    work = _workspace(plan.ws, ctas, _shared_workspace(plan.W, m), dtype, device)
+    pointers = _pointers(tensors)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = entry(_DTYPE_CODES[dtype], *pointers, B, d, m, P, plan.W, plan.F, plan.R, plan.kw,
+                     int(plan.ws), plan.smem, ctas, None if work is None else work.data_ptr(),
+                     stream)
+    _check_code("whiten_sumsq_shared", code, plan)
+    _launches["whiten_sumsq_shared"] += 1
+    _launches_by_shape["whiten_sumsq_shared"][(B, m, P, True)] += 1
 
 
 def sample_and_logq(u, a_half, X, C, mu, logdet):
@@ -826,9 +888,10 @@ def whiten_sumsq(x, a_half, X, Ci, mu):
 
 
 def _whiten_sumsq_cuda(x, a_half, X, Ci, mu, general=None, plan=None):
-    """B2 on the card, routed as :func:`_sample_and_logq_cuda`."""
+    """B2 on the card, routed as :func:`_sample_and_logq_cuda` per factor;
+    over a shared ``x`` on the shared-x kernel (``general`` is not read)."""
     if x.ndim == 2 and X.ndim > 2:
-        return _whiten_sumsq_shared(x, a_half, X, Ci, mu, general, plan)
+        return _whiten_sumsq_shared(x, a_half, X, Ci, mu, plan)
     batch, B, d, m, N = _flat_shapes(x, X)
     _check_cuda_args(
         [
@@ -856,9 +919,10 @@ def _whiten_sumsq_cuda(x, a_half, X, Ci, mu, general=None, plan=None):
     return maha
 
 
-def _whiten_sumsq_shared(x, a_half, X, Ci, mu, general=None, plan=None):
-    """B2 with ``x (d, P)`` shared by the factors ``X (..., d, m)``. The
-    kernels read ``x`` in the ``(P, d)`` layout, a column's rows side by
+def _whiten_sumsq_shared(x, a_half, X, Ci, mu, plan=None):
+    """B2 with ``x (d, P)`` shared by the factors ``X (..., d, m)``, on the
+    shared-x kernel at every dtype and rank (``plan`` overrides its plan).
+    The kernel reads ``x`` in the ``(P, d)`` layout, a column's rows side by
     side: an ``x`` that is the transpose of a contiguous ``(P, d)`` block
     (pooled draws) goes in as it is, any other is transposed once."""
     batch = tuple(X.shape[:-2])
@@ -881,14 +945,6 @@ def _whiten_sumsq_shared(x, a_half, X, Ci, mu, general=None, plan=None):
     maha = torch.empty(batch + (P,), dtype=x.dtype, device=x.device)
     if B == 0 or P == 0:
         return maha
-    tensors = (xt, a_half, X, Ci, mu, maha)
-    if general is None:
-        general = not uses_fast_kernel(x.dtype, m)
-    if general:
-        _launch_general("whiten_sumsq", load_general_library().pfg_whiten_sumsq_shared, tensors,
-                        x.device, B, d, m, P, shared=True, plan=plan)
-    else:
-        plan = _launch_plan_shared(B, d, m, P, _num_sms(x.device.index))
-        _launch("whiten_sumsq", load_library().pf_whiten_sumsq_shared, tensors, plan, x.device,
-                B, d, m, P, shared=True)
+    _launch_shared(load_shared_library().pfs_whiten_sumsq, (xt, a_half, X, Ci, mu, maha),
+                   x.device, B, d, m, P, plan)
     return maha

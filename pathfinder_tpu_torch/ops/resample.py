@@ -41,9 +41,13 @@ def resample_indices(
         if log_weights is None:
             return torch.clamp((u * total).long(), max=total - 1)
         w = torch.softmax(log_weights, dim=0)
-        cdf = torch.cumsum(w, dim=0)
-        idx = torch.searchsorted(cdf, (u * cdf[-1]).to(cdf.dtype), right=True)
-        return torch.clamp(idx, 0, total - 1)
+        # the running sum on the host, in order: on a CUDA device torch.cumsum
+        # may add in another order from one call to the next, and a draw whose
+        # u lands on a boundary then moves (1 index of 1000 in 1 of 5 K=32768
+        # pairs on an H100, PERF.md §7)
+        cdf = torch.cumsum(w.cpu(), dim=0)
+        idx = torch.searchsorted(cdf, (u.cpu() * cdf[-1]).to(cdf.dtype), right=True)
+        return torch.clamp(idx, 0, total - 1).to(device)
     if ndraws > total:
         raise ValueError(f"cannot draw {ndraws} from {total} without replacement")
     if log_weights is not None:

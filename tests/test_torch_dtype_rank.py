@@ -20,9 +20,11 @@ the general kernel's launch plan, the memory rule's estimates, ``pathfinder
   magnitude (``|a½|(|u| + |X||C||X|ᵀ|u|) + |μ|`` for x, ``Σ (|w| + W)·W``
   with ``W = |v| + |X||Ci||X|ᵀ|v|`` for the Mahalanobis term).
 * The route on the card is decided from dtype and rank before the launch:
-  the fast kernel for float32 at rank ≤ ``MAX_RANK``, the general kernel
-  for everything else; checked with the loaders and launchers replaced, no
-  card needed.
+  per factor the fast kernel for float32 at rank ≤ ``MAX_RANK``, the
+  general kernel for everything else, and B2 over a shared x the shared-x
+  kernel at every dtype and rank; checked with the loaders and launchers
+  replaced, no card needed. The shared-x kernel's layout mirror and plan are
+  held against its source and the card's limits at any rank.
 * ``pathfinder(history_length=20)`` (rank 40) follows the JAX package's
   trajectory and fits; ``multipathfinder(dtype=torch.float64)`` agrees with
   it in evaluations, k̂ and moment error; at bfloat16 and float16 both give
@@ -151,18 +153,23 @@ class _Recorder:
     def __init__(self, monkeypatch):
         self.routes = []
         lib = type("Lib", (), {n: n for n in (
-            "pf_sample_logq", "pf_whiten_sumsq", "pf_whiten_sumsq_shared", "pfg_sample_logq",
-            "pfg_whiten_sumsq", "pfg_whiten_sumsq_shared")})()
+            "pf_sample_logq", "pf_whiten_sumsq", "pfg_sample_logq", "pfg_whiten_sumsq",
+            "pfs_whiten_sumsq")})()
         monkeypatch.setattr(wk, "load_library", lambda: lib)
         monkeypatch.setattr(wk, "load_general_library", lambda: lib)
+        monkeypatch.setattr(wk, "load_shared_library", lambda: lib)
         monkeypatch.setattr(wk, "_num_sms", lambda index: wk.NUM_SMS)
         monkeypatch.setattr(wk, "_launch", lambda name, entry, *a, **k: self.routes.append(entry))
         monkeypatch.setattr(wk, "_launch_general",
                             lambda name, entry, *a, **k: self.routes.append(entry))
+        monkeypatch.setattr(wk, "_launch_shared", lambda entry, *a, **k: self.routes.append(entry))
 
 
 @pytest.mark.parametrize("dt_name", DTYPES)
 def test_the_route_is_the_fast_kernel_exactly_for_float32_up_to_max_rank(monkeypatch, dt_name):
+    """Per factor the fast kernel takes float32 up to ``MAX_RANK`` and the
+    general one the rest; over a shared x the shared-x kernel takes every
+    dtype and rank."""
     rec = _Recorder(monkeypatch)
     dtype = getattr(torch, dt_name)
     for m in (0, 12, wk.MAX_RANK, wk.MAX_RANK + 1, 40, 100):
@@ -175,8 +182,8 @@ def test_the_route_is_the_fast_kernel_exactly_for_float32_up_to_max_rank(monkeyp
         wk._whiten_sumsq_cuda(z(d, 7), *args[1:])
         fast = dtype == torch.float32 and m <= wk.MAX_RANK
         assert wk.uses_fast_kernel(dtype, m) == fast
-        want = (["pf_sample_logq", "pf_whiten_sumsq", "pf_whiten_sumsq_shared"] if fast else
-                ["pfg_sample_logq", "pfg_whiten_sumsq", "pfg_whiten_sumsq_shared"])
+        want = (["pf_sample_logq", "pf_whiten_sumsq"] if fast else
+                ["pfg_sample_logq", "pfg_whiten_sumsq"]) + ["pfs_whiten_sumsq"]
         assert rec.routes == want, (dt_name, m)
 
 
@@ -194,27 +201,64 @@ def test_the_kernels_refuse_mixed_and_unknown_dtypes(monkeypatch):
         wk._whiten_sumsq_cuda(*args)
 
 
-def _source_general_layout(m, nt, rows, pk, threads, ws):
-    """Evaluate ``GLayout`` of the general kernel's CUDA source."""
-    src = wk._GENERAL_SOURCE.read_text()
-    body = re.search(r"struct GLayout \{(.*?)\n\};", src, re.S).group(1)
-    terms = re.findall(r"o \+= (.*?);", body)
-    assert len(terms) == 9
-    p = m * nt
-    env = dict(m=m, nt=nt, rows=rows, pk=pk, threads=threads, ws=int(ws), p=p,
-               g=threads // p if 0 < p < threads else 1)
+def _source_shared_layout(esz, asz, lo, W, F, R, m, kw, ws):
+    """Evaluate ``SLayout`` of the shared-x kernel's CUDA source."""
+    src = wk._SHARED_SOURCE.read_text()
+    body = re.search(r"struct SLayout \{(.*?)\n\};", src, re.S).group(1)
+    start = re.search(r"int o = 0;\n(.*)total = o;", body, re.S).group(1)
+    terms = re.findall(r"o \+= (.*?);", start)
+    assert len(terms) == 12
+
+    def r16(n):
+        return (n + 15) & ~15
+
+    def run_bytes(n):
+        return r16(n) + 16
+
+    def x_stride(a, k):
+        return k + 4 if a == 8 else (k + 8 if k % 16 == 0 else k)
+
+    def x_col_bytes(e, rows):
+        return run_bytes(rows * e) + (16 if e == 8 else 0)
+
+    def kstep_split(w, rank):
+        return 8 // w if rank > 0 and -(-rank // 8) <= wk._S_RANK_TILES else 1
+
+    def ci_staged(e, f, rank):
+        return int(rank > 0 and f * run_bytes(rank * rank * e) <= 32768)
+
+    nc, mp, keep = 16 * W // F, 8 * -(-m // 8), int(m > 0)
+    inner, one = keep * (1 - int(ws)), int(kw >= mp)
+    env = dict(esz=esz, asz=asz, lo=lo, W=W, F=F, R=R, m=m, kw=kw, nc=nc, mp=mp, keep=keep,
+               inner=inner, one=one, conv=keep * (1 - one), kColTile=16, kWarps=8,
+               xrun=one * run_bytes(R * m * esz) + (1 - one) * R * run_bytes(kw * esz),
+               r16=r16, run_bytes=run_bytes, x_stride=x_stride, x_col_bytes=x_col_bytes,
+               kstep_split=kstep_split, ci_staged=ci_staged)
     return sum(eval(t, {}, env) for t in terms)
 
 
-@pytest.mark.parametrize("m", [0, 1, 12, 40, 258])
-def test_general_layout_and_constants_mirror_the_cuda_source(m):
-    for nt in (1, 4, 16):
-        for rows, pk, ws in ((1, 1, False), (37, 5, False), (256, 12, True)):
-            assert wk._general_layout(m, nt, rows, pk, 256, ws) == _source_general_layout(
-                m, nt, rows, pk, 256, ws)
-    src = wk._GENERAL_SOURCE.read_text()
+@pytest.mark.parametrize("dt_name", DTYPES)
+@pytest.mark.parametrize("m", [0, 1, 7, 12, 32, 40, 100, 258])
+def test_shared_layout_and_constants_mirror_the_cuda_source(dt_name, m):
+    """``_shared_layout`` against ``SLayout`` of ``csrc/woodbury_shared.cu``
+    for every shape, factor group, chunk and window the plans use, with and
+    without the workspace; the constants and dtype codes against the
+    source's."""
+    dtype = getattr(torch, dt_name)
+    esz, asz = torch.finfo(dtype).bits // 8, 8 if dtype == torch.float64 else 4
+    lo = int(dtype != torch.float64)
+    mp = 8 * -(-m // 8)
+    for W in (1, 2, 4, 8):
+        for F in (f for f in (1, 2, 4, 8) if f <= W):
+            for R in ((128,) if m == 0 else (32, 64)):
+                for kw in ((0,) if m == 0 else sorted({mp, max(8, mp - 8), 8})):
+                    for ws in ((False,) if m == 0 else (False, True)):
+                        assert wk._shared_layout(esz, asz, lo, W, F, R, m, kw, ws) == \
+                            _source_shared_layout(esz, asz, lo, W, F, R, m, kw, ws)
+    src = wk._SHARED_SOURCE.read_text()
     assert int(re.search(r"kThreads = (\d+);", src).group(1)) == wk._G_THREADS
-    assert int(re.search(r"kMaxColTile = (\d+);", src).group(1)) == wk._G_MAX_COLS
+    assert int(re.search(r"kColTile = (\d+);", src).group(1)) == wk._S_COL_TILE
+    assert int(re.search(r"kRankTiles = (\d+);", src).group(1)) == wk._S_RANK_TILES
     assert int(re.search(r"kMaxSmem = (\d+);", src).group(1)) == wk.SMEM_LIMIT
     codes = dict(re.findall(r"k(F32|F64|F16|BF16) = (\d)", src))
     names = {"F32": torch.float32, "F64": torch.float64, "F16": torch.float16,
@@ -223,28 +267,38 @@ def test_general_layout_and_constants_mirror_the_cuda_source(m):
 
 
 @pytest.mark.parametrize("dt_name", DTYPES)
-@pytest.mark.parametrize("m", [0, 12, 40, 100, 258, 2000, 12000])
-def test_general_plan_keeps_to_the_card_at_any_rank(dt_name, m):
+@pytest.mark.parametrize("m", [0, 1, 7, 12, 32, 40, 100, 258, 2000, 12000])
+def test_shared_shape_keeps_to_the_card_at_any_rank(dt_name, m):
+    """At any rank the shared-x kernel has a shape: every rank staged at
+    once where it fits, else X's ranks in windows (with t and s in the
+    workspace where they do not fit either); its layout keeps to the card
+    for the factor groups the plan may take, and the workspace slice holds
+    t and s."""
     dtype = getattr(torch, dt_name)
-    acc = 8 if dtype == torch.float64 else 4
-    for d in (1, 25, 999, 1000):
-        for N in (1, 5, 10, 1000):
-            threads, nt, rows, pk, smem, ws = wk._general_plan(d, m, N, dtype)
-            assert threads == wk._G_THREADS and 1 <= nt <= wk._G_MAX_COLS and nt & (nt - 1) == 0
-            assert nt <= max(1, 1 << (N - 1).bit_length())
-            assert 1 <= rows <= min(d, wk._G_MAX_ROWS) and 1 <= pk <= max(m, 1)
-            assert smem == acc * wk._general_layout(m, nt, rows, pk, threads, ws) <= wk.SMEM_LIMIT
-            # the sums leave shared memory only where they could not fit at nt = 1
-            assert ws == (acc * (3 * m + threads + pk * m + m + 4) > wk.SMEM_LIMIT and nt == 1)
+    W, R, kw, ws, limit = wk._shared_shape(m, dtype)
+    mp = 8 * -(-m // 8)
+    assert W in (1, 2, 4, 8) and limit <= wk.SMEM_LIMIT
+    assert R == 128 if m == 0 else R in (32, 64)
+    if m == 0:
+        assert kw == 0 and not ws
+    else:
+        assert 8 <= kw <= mp and (kw == mp or W == 1) and (not ws or kw < mp)
+    plan = wk._shared_plan(7, 25, m, 77, dtype)
+    assert plan.smem <= limit and (plan.W, plan.R, plan.kw, plan.ws) == (W, R, kw if m else 0, ws)
+    assert wk._shared_workspace(W, m) == 16 * W * (2 * mp + 5)
+
+
+def test_a_small_limit_moves_t_and_s_to_the_workspace():
+    """Under a 64 KB limit rank 258 takes X's ranks in windows with t and s
+    in shared memory, and rank 1000 puts t and s in the workspace too; the
+    grid of a workspace plan is two CTAs an SM, a slice each."""
+    win = wk._shared_plan(4, 999, 258, 77, torch.float32, smem_limit=65536)
+    assert win.kw < 264 and not win.ws and win.smem <= 65536
+    ws = wk._shared_plan(4, 999, 1000, 77, torch.float32, smem_limit=65536)
+    assert ws.ws and ws.kw < 1000 and ws.smem <= 65536
+    assert wk._shared_ctas(ws, 4, 77, wk.NUM_SMS) == min(4 * 5, 2 * wk.NUM_SMS)
     with pytest.raises(ValueError, match="does not fit"):
-        wk._general_plan(10, 60000, 5, dtype)
-
-
-def test_a_small_limit_moves_the_sums_to_the_workspace():
-    plan = wk._general_plan(999, 1000, 5, torch.float32, smem_limit=16384)
-    threads, nt, rows, pk, smem, ws = plan
-    assert ws and nt == 1 and smem <= 16384 and rows >= 1
-    assert wk._general_workspace(1000, 1) == 3 * 1000
+        wk._shared_shape(12, torch.float32, smem_limit=4096)
 
 
 def _jax_correlated(d):

@@ -257,7 +257,8 @@ def test_the_wrapper_passes_the_rows_plan_to_the_entry_point(monkeypatch):
     """``_launch_general`` hands ``factor_kernel``'s entry point the dtype
     code, the pointers, the shape, the plan's fields in the source's order,
     the workspace (where the plan asks for one) and the stream, and counts
-    the launch; the shared-x launch keeps the old plan."""
+    the launch; ``_launch_shared`` hands the shared-x kernel's entry point
+    its plan and grid the same way."""
     import contextlib
 
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
@@ -289,11 +290,17 @@ def test_the_wrapper_passes_the_rows_plan_to_the_entry_point(monkeypatch):
     wk._launch_general("sample_and_logq", entry, tensors, torch.device("cpu"), B, d, 1000, N,
                        plan=ws_plan)
     assert isinstance(calls[-1][21], int) and calls[-1][13:21] == tuple(ws_plan)[:8]
-    # B2 over a shared x: the old plan's five fields
-    wk._launch_general("whiten_sumsq", entry, tensors[:5] + [tensors[7]], torch.device("cpu"),
-                       B, d, m, N, shared=True)
-    assert calls[-1][11:16] == wk._general_plan(d, m, N, torch.float64)[:5]
+    # B2 over a shared x: the shared-x kernel's plan and its grid
+    tensors[2], tensors[3] = torch.zeros(B, d, m, dtype=torch.float64), torch.zeros(
+        B, m, m, dtype=torch.float64)
+    wk._launch_shared(entry, tensors[:5] + [tensors[7]], torch.device("cpu"), B, d, m, N)
+    plan = wk._shared_plan(B, d, m, N, torch.float64)
+    args = calls[-1]
+    assert args[0] == wk._DTYPE_CODES[torch.float64] and len(args) == 1 + 6 + 4 + 6 + 1 + 2
+    assert args[7:11] == (B, d, m, N) and args[11:17] == (plan.W, plan.F, plan.R, plan.kw,
+                                                         int(plan.ws), plan.smem)
+    assert args[17] == wk._shared_ctas(plan, B, N, wk.NUM_SMS) and args[18] is None
     assert wk.launch_counts()["sample_and_logq_general"] == 2
-    assert wk.launch_counts()["whiten_sumsq_general"] == 1
-    assert wk.launch_counts_by_shape()["whiten_sumsq_general"] == {(B, m, N, True): 1}
+    assert wk.launch_counts()["whiten_sumsq_general"] == 0
+    assert wk.launch_counts_by_shape()["whiten_sumsq_shared"] == {(B, m, N, True): 1}
     wk.reset_launch_counts()

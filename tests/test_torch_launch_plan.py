@@ -1,19 +1,21 @@
-"""The launch plan of kernels B1 and B2 (sample+logq, whiten+sumsq).
+"""The launch plans of kernels B1 and B2 (sample+logq, whiten+sumsq).
 
 The kernels run only on the card, but how a launch is cut into clusters,
 threads and row tiles is decided in Python (``_launch_plan``) and checked
 by the kernel against its own shared-memory layout, so it is held here: on
 a grid of shapes every plan covers each row once, keeps to Hopper's limits
-and tiles the rows exactly where a CTA's rows do not fit; the plan over
-(factor, column tile) of B2 with a shared x covers each column once as
-well. The Python mirror of the layout is held against the CUDA source
-itself.
+and tiles the rows exactly where a CTA's rows do not fit. The plan of B2
+over a shared x (``_shared_plan``, the shared-x kernel) covers every
+factor, column and row once, keeps to the card, and takes the shape that
+sets its sums' order from the rank and dtype alone. The Python mirrors of
+the layouts are held against the CUDA sources themselves.
 """
 
 import math
 import re
 
 import pytest
+import torch
 
 from pathfinder_tpu_torch.ops.kernels import woodbury_kernels as wk
 
@@ -63,48 +65,67 @@ def test_plan_fills_the_card_at_the_main_path_shapes():
         assert tile == -(-1000 // cluster)  # one resident tile: each byte read once
 
 
-@pytest.mark.parametrize("B", [1, 3, 100])
-@pytest.mark.parametrize("m", [0, 7, 12, 32])
-def test_shared_x_plan_covers_rows_and_columns_once(B, m):
-    for d in DS + (20000, 30000):
-        for P in (1, 3, 50, 77, 1000):
-            cluster, threads, smem, tile, width = wk._launch_plan_shared(B, d, m, P)
-            assert cluster in (1, 2, 4, 8) and threads == wk._threads(m)
-            assert smem <= wk.SMEM_LIMIT
-            assert smem == wk._smem_bytes(tile, m, width, threads, True)
-            # column tiles [c·width, min(P, (c+1)·width)) cover 0..P once
-            assert 1 <= width <= P
-            ntiles = -(-P // width)
-            assert (ntiles - 1) * width < P <= ntiles * width <= 65535 * width
-            # a tile is a multiple of the kernel's 5-column step, or all of x
-            assert width % 5 == 0 or width == P
-            rows = _covered_once(d, cluster)
-            fits = wk._smem_bytes(rows, m, min(5, P), threads, True) <= wk.SMEM_LIMIT
-            assert (tile == rows) == fits
-            if not fits:
-                assert cluster == wk.MAX_CLUSTER and 1 <= tile < rows
-                assert width == min(5, P)
-                # row tiles [t·tile, ...) cover a CTA's rows
-                assert -(-rows // tile) * tile >= rows
+SHARED_DTYPES = (torch.float64, torch.float32, torch.bfloat16, torch.float16)
+SHARED_RANKS = (0, 1, 7, 12, 32, 40, 100, 258)
+
+
+@pytest.mark.parametrize("dtype", SHARED_DTYPES, ids=str)
+@pytest.mark.parametrize("m", SHARED_RANKS)
+def test_shared_x_plan_covers_rows_and_columns_once(dtype, m):
+    """On a grid of d, P and B: the factor groups cover 0..B and the column
+    tiles 0..P once each, the chunks of R rows cover d and the rank windows
+    the padded rank; the pairs a CTA fill its 8 warps' pair slots (F·NC =
+    16·W), the layout keeps to the card, and what sets the order of the sums
+    (W, R, kw, ws) is the same for every d, P and B."""
+    shapes = set()
+    for d in (2, 7, 25, 999, 1000, 20000, 30000):
+        for P in (7, 77, 1000, 5120):
+            for B in (1, 3, 100):
+                plan = wk._shared_plan(B, d, m, P, dtype)
+                shapes.add((plan.W, plan.R, plan.kw, plan.ws))
+                assert plan.W in (1, 2, 4, 8) and plan.F in (1, 2, 4, 8) and plan.F <= plan.W
+                assert plan.F * plan.NC == 16 * plan.W and plan.NC % 16 == 0
+                groups, tiles = -(-B // plan.F), -(-P // plan.NC)
+                assert (groups - 1) * plan.F < B <= groups * plan.F
+                assert (tiles - 1) * plan.NC < P <= tiles * plan.NC
+                chunks = -(-d // plan.R)
+                assert (chunks - 1) * plan.R < d <= chunks * plan.R
+                assert plan.R == (128 if m == 0 else plan.R) and plan.R in (32, 64, 128)
+                mp = 8 * -(-m // 8)
+                if m == 0:
+                    assert plan.kw == 0 and not plan.ws
+                else:
+                    assert 8 <= plan.kw <= mp and plan.kw % 8 == 0
+                    windows = -(-mp // plan.kw)
+                    assert (windows - 1) * plan.kw < mp <= windows * plan.kw
+                assert 0 < plan.smem <= wk.SMEM_LIMIT
+                assert plan.smem == wk._shared_layout(
+                    torch.finfo(dtype).bits // 8, 8 if dtype == torch.float64 else 4,
+                    int(dtype != torch.float64), plan.W, plan.F, plan.R, m, plan.kw, plan.ws)
+                ctas = wk._shared_ctas(plan, B, P, wk.NUM_SMS)
+                assert 1 <= ctas <= groups * tiles
+    assert len(shapes) == 1, shapes
 
 
 def test_shared_x_plan_at_the_mixture_shape():
-    """The headline mixture grid: a factor's 1000 rows and a 10-column tile
-    of x take less than half an SM's shared memory, so two CTAs share an SM
-    and one loads while the other computes (a 40-column tile would fit, but
-    alone); no row is staged twice. A wide factor splits over the cluster
-    before its tile narrows."""
-    assert wk._launch_plan_shared(100, 1000, 12, 1000) == (1, 192, 99696, 1000, 10)
-    assert 2 * (99696 + 1024) <= 233472 < 2 * (wk._smem_bytes(1000, 12, 20, 192, True) + 1024)
-    assert wk._launch_plan_shared(100, 1000, 0, 1000) == (1, 256, 92704, 1000, 20)
-    assert wk._launch_plan_shared(100, 1000, 32, 1000)[3:] == (1000, 20)  # fits only alone
-    cluster, _, _, tile, width = wk._launch_plan_shared(4, 20000, 12, 64)
-    assert (cluster, tile, width) == (8, 2500, 5)
-    # few factors and few columns: the cluster grows to fill the card
-    assert wk._launch_plan_shared(3, 999, 7, 77)[0] == 8
-    for args in ((0, 10, 4, 5), (1, 0, 4, 5), (1, 10, 33, 5), (1, 10, 4, 0)):
+    """The headline mixture grid (100 factors of d = 1000 at rank 12 against
+    1000 pooled draws): 8 pairs a CTA of 4 factors and 32 columns, in chunks
+    of 64 rows, beside a second CTA on the SM; rank 0 takes 8 factors of 16
+    columns in chunks of 128 rows; the serving-scale launch keeps the
+    headline's shape, on a grid of 40960 CTAs (no 65535 limit: the grid is
+    one-dimensional)."""
+    plan = wk._shared_plan(100, 1000, 12, 1000, torch.float32)
+    assert plan[:6] == (8, 4, 32, 64, 16, False) and plan.smem <= wk._SMEM_PAIR
+    assert wk._shared_ctas(plan, 100, 1000, wk.NUM_SMS) == 25 * 32
+    zero = wk._shared_plan(100, 1000, 0, 1000, torch.float32)
+    assert zero[:6] == (8, 8, 16, 128, 0, False)
+    serve = wk._shared_plan(1024, 1000, 12, 5120, torch.float32)
+    assert serve[:6] == plan[:6] and wk._shared_ctas(serve, 1024, 5120, wk.NUM_SMS) == 40960
+    for args in ((0, 10, 4, 5), (1, 0, 4, 5), (1, 10, -1, 5), (1, 10, 4, 0)):
         with pytest.raises(ValueError):
-            wk._launch_plan_shared(*args)
+            wk._shared_plan(*args, torch.float32)
+    with pytest.raises(ValueError):
+        wk._shared_plan(2, 10, 4, 5, torch.int32)
 
 
 def test_plan_rejects_what_the_kernel_cannot_take():
@@ -115,7 +136,7 @@ def test_plan_rejects_what_the_kernel_cannot_take():
         wk._launch_plan(1, 10, 4, 100_000)
 
 
-def _source_layout_bytes(tile, m, N, threads, shared=False):
+def _source_layout_bytes(tile, m, N, threads):
     """Evaluate the ``Layout`` of the CUDA source for one plan."""
     src = wk._SOURCE.read_text()
     body = re.search(r"struct Layout \{(.*?)\n\};", src, re.S).group(1)
@@ -123,7 +144,7 @@ def _source_layout_bytes(tile, m, N, threads, shared=False):
     terms = re.findall(r"o \+= round4\((.*?)\);", body)
     assert len(terms) == 11
     mr = wk._rank_tile(m)
-    env = dict(tile=tile, m=m, N=N, mr=mr, warps=threads // 32, cm=int(shared),
+    env = dict(tile=tile, m=m, N=N, mr=mr, warps=threads // 32,
                parts=threads // 32 // (mr // 4), nc=min(N, wk._CHUNK), round4=wk._round4)
     return 4 * (start + sum(wk._round4(eval(t, {}, env)) for t in terms))
 
@@ -134,8 +155,6 @@ def test_python_layout_mirrors_the_cuda_source(m):
     for tile in (1, 42, 500, 1250):
         for N in NS:
             assert wk._smem_bytes(tile, m, N, threads) == _source_layout_bytes(tile, m, N, threads)
-            assert wk._smem_bytes(tile, m, N, threads, True) == _source_layout_bytes(
-                tile, m, N, threads, shared=True)
 
 
 def test_source_constants_agree_with_the_wrapper():
@@ -178,16 +197,14 @@ def test_plan_at_the_small_model_shapes(B, d, m, N):
 @pytest.mark.parametrize("B,d,m,P", [(8, 25, 12, 1000), (8, 7, 12, 1000), (8, 2, 12, 1000),
                                      (8, 25, 0, 1000), (100, 25, 12, 1000), (1, 3, 12, 7)])
 def test_shared_x_plan_at_the_small_model_shapes(B, d, m, P):
-    """The mixture denominator of a small model: no cluster, the widest
-    column tile, every column's run of d floats in its own round4(d) + 4
-    floats (an unaligned run of 7 or 25 floats has at most 3 + 3 edge floats,
-    which may be all of it)."""
-    cluster, threads, smem, tile, width = wk._launch_plan_shared(B, d, m, P)
-    assert (cluster, tile, width) == (1, d, min(40, P))
-    assert smem == _source_layout_bytes(d, m, width, threads, shared=True)
-    assert smem <= wk._SMEM_PAIR
-    for pad in range(4):  # a column that starts pad floats past 16 bytes fits its slot
-        assert pad + d <= wk._round4(d) + 4
-        head = min((4 - pad) & 3, d)
-        body = (d - head) & ~3
-        assert head <= 3 and d - head - body <= 3 and head + body <= d
+    """The mixture denominator of a small model takes the headline's shape
+    for its rank (what sets the sums' order does not follow d), one chunk of
+    rows, and room for a second CTA on the SM; a column's run of d values,
+    copied as the 16-byte blocks that hold it at any offset, fits its slot
+    in the chunk of R rows."""
+    plan = wk._shared_plan(B, d, m, P, torch.float32)
+    assert plan[:4] == wk._shared_plan(100, 1000, m, 1000, torch.float32)[:4]
+    assert -(-d // plan.R) == 1 and plan.smem <= wk._SMEM_PAIR
+    for pad in range(4):  # a run starting pad floats past 16 bytes
+        blocks = -(-(4 * pad + 4 * d) // 16)
+        assert 16 * blocks <= wk._shared_run_bytes(4 * plan.R)

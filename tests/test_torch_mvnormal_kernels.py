@@ -198,8 +198,10 @@ def test_wrapper_on_cpu_uses_the_plain_version_and_counts_nothing():
     comps = MvNormal(td.mean.expand(2, 16), _expand_cov(td.cov, 2))
     x, logq = comps.rand_and_logpdf(u=u)
     comps.logpdf(x)
-    # the fast kernels' counts and the general kernel's (``*_general``)
-    names = ("sample_and_logq", "whiten_sumsq", "sample_and_logq_general", "whiten_sumsq_general")
+    # the fast kernels' counts, the general kernel's (``*_general``) and the
+    # shared-x kernel's
+    names = ("sample_and_logq", "whiten_sumsq", "sample_and_logq_general", "whiten_sumsq_general",
+             "whiten_sumsq_shared")
     assert wk.launch_counts() == {name: 0 for name in names}
     assert wk.launch_counts_by_shape() == {name: {} for name in names}
     ref = wk.sample_and_logq_torch(
@@ -268,15 +270,15 @@ def test_kernels_match_plain_versions_on_the_card(Bn, d, m, N):
         (100, 1000, 12, 1000),  # the mixture grid of the headline configuration
         (100, 1000, 0, 1000),  # the same under rank-0 (Laplace) components
         (3, 999, 7, 77),  # odd sizes: every column of x differently aligned
-        (4, 20000, 12, 64),  # a factor's rows split over a cluster
-        (8, 30000, 32, 50),  # rows that are tiled as well
+        (4, 20000, 12, 64),  # many chunks of rows
+        (8, 30000, 32, 50),  # more of them, at the fast kernel's largest rank
     ],
 )
 def test_shared_x_kernel_matches_plain_version_on_the_card(Bn, d, m, P):
-    """B2 over an ``x`` shared by the factors against its plain version
-    (f32, rtol/atol 1e-4 on the sums), from both layouts of ``x``, and the
-    same bits from a repeated launch. ``chip_smoke.py`` makes the same check
-    on a machine with the card alone."""
+    """B2 over an ``x`` shared by the factors (the shared-x kernel) against
+    its plain version (f32, rtol/atol 1e-4 on the sums), from both layouts
+    of ``x``, and the same bits from a repeated launch. ``chip_smoke.py``
+    makes the same check on a machine with the card alone."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(0)
@@ -289,7 +291,7 @@ def test_shared_x_kernel_matches_plain_version_on_the_card(Bn, d, m, P):
     wk.reset_launch_counts()
     maha = wk.whiten_sumsq(xt.mT, a_half, X, Ci, mu)
     assert maha.shape == (Bn, P)
-    assert wk.launch_counts_by_shape()["whiten_sumsq"] == {(Bn, m, P, True): 1}
+    assert wk.launch_counts_by_shape()["whiten_sumsq_shared"] == {(Bn, m, P, True): 1}
     torch.testing.assert_close(
         maha, wk.whiten_sumsq_torch(xt.mT, a_half, X, Ci, mu), rtol=1e-4, atol=1e-4)
     assert torch.equal(wk.whiten_sumsq(xt.mT, a_half, X, Ci, mu), maha)

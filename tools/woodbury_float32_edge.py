@@ -36,19 +36,20 @@ def general_phase_inputs():
     rng = np.random.default_rng(2025)
     for dt_name in cs.GENERAL_DTYPES:
         for m in cs.GENERAL_RANKS:
-            for shapes, shared in ((cs.GENERAL_B1, False), (cs.GENERAL_B2, False),
-                                   (cs.GENERAL_SHARED, True)):
+            for shapes in (cs.GENERAL_B1, cs.GENERAL_B2):
                 for label, B, d, N in shapes:
                     offset = 1 if label.startswith("odd") else 0
-                    args = cs._seeded_inputs(rng, B, d, m, N, getattr(torch, dt_name), shared, offset)
-                    yield (label, dt_name, m, shared), args
+                    args = cs._seeded_inputs(rng, B, d, m, N, getattr(torch, dt_name), offset=offset)
+                    yield (label, dt_name, m, False), args
+            for B, d, N in cs.GENERAL_SHARED_DRAWS:
+                cs._seeded_inputs(rng, B, d, m, N, getattr(torch, dt_name), True, int(d == 999))
     for label, B, d, m, N in cs.CONFIG2_B1:
         yield (label, "float32", m, False), cs._seeded_inputs(rng, B, d, m, N, torch.float32)
     for label, B, d, m, N in cs.GENERAL_WINNER_B1:
         yield (label, "float64", m, False), cs._seeded_inputs(rng, B, d, m, N, torch.float64)
-    for B, N, shared in ((cs.K * 8, 5, False), (cs.K, 10, False), (cs.K, 1000, True)):
-        yield ("vs-fast", "float32", cs.M, shared), cs._seeded_inputs(
-            rng, B, cs.D, cs.M, N, torch.float32, shared)
+    for B, N in ((cs.K * 8, 5), (cs.K, 10)):
+        yield ("vs-fast", "float32", cs.M, False), cs._seeded_inputs(rng, B, cs.D, cs.M, N, torch.float32)
+    cs._seeded_inputs(rng, cs.K, cs.D, cs.M, 1000, torch.float32, True)  # drawn, not used
     yield ("workspace", "float32", 1000, False), cs._seeded_inputs(
         rng, 4, 999, 1000, 5, torch.float32, False, offset=1)
 

@@ -55,15 +55,17 @@ def say(line):
 
 def cases():
     """``(name, label, B, d, m, N, dtype, timed)`` of every per-factor case,
-    and of the shared-x cases between them, in ``chip_smoke.py``'s order, so
-    that every case gets the same inputs as there (the shared-x ones are
-    drawn and skipped)."""
+    and of the inputs drawn and not used between them
+    (``chip_smoke.GENERAL_SHARED_DRAWS``, name ``drawn``), in
+    ``chip_smoke.py``'s order, so that every case gets the same inputs as
+    there."""
     for dt_name in cs.GENERAL_DTYPES:
         for m in cs.GENERAL_RANKS:
-            for name, shapes in (("sample_and_logq", cs.GENERAL_B1), ("whiten_sumsq", cs.GENERAL_B2),
-                                 ("whiten_sumsq_shared", cs.GENERAL_SHARED)):
+            for name, shapes in (("sample_and_logq", cs.GENERAL_B1), ("whiten_sumsq", cs.GENERAL_B2)):
                 for label, B, d, N in shapes:
                     yield name, label, B, d, m, N, getattr(torch, dt_name), d == cs.D
+            for B, d, N in cs.GENERAL_SHARED_DRAWS:
+                yield "drawn", "odd" if d == 999 else "", B, d, m, N, getattr(torch, dt_name), False
     for label, B, d, m, N in cs.CONFIG2_B1:
         yield "sample_and_logq", label, B, d, m, N, torch.float32, True
     for label, B, d, m, N in cs.GENERAL_WINNER_B1:
@@ -128,7 +130,7 @@ def one_case(rng, name, label, B, d, m, N, dtype, timed, opts, parent):
     """Check one case and time it; raises SystemExit (from ``cs.fail``) on a
     wrong result."""
     offset = 1 if label.startswith("odd") else 0
-    if name == "whiten_sumsq_shared":  # not this kernel's: its inputs are drawn only
+    if name == "drawn":  # inputs chip_smoke.py draws and does not use
         cs._seeded_inputs(rng, B, d, m, N, dtype, True, offset)
         return
     args = cs._seeded_inputs(rng, B, d, m, N, dtype, False, offset)
@@ -202,14 +204,14 @@ def main():
     parent = load_parent(opts.parent) if opts.parent else None
     say(f"build: {time.perf_counter() - t0:.1f}s")
     for (name, dt_name, nt), r in sorted(wk.general_kernel_resources().items(), key=str):
-        say(f"resources {name} {dt_name}{'' if nt is None else f' NT={nt}'}: "
+        say(f"resources {name} {dt_name} NT={nt}: "
             f"registers={r.get('registers')} spill_stores={r.get('spill_stores')}B "
             f"spill_loads={r.get('spill_loads')}B")
     rng = np.random.default_rng(2025)
     failed = 0
     t0 = time.perf_counter()
     for case in cases():
-        if opts.only and case[0] != "whiten_sumsq_shared" and not any(
+        if opts.only and case[0] != "drawn" and not any(
                 part in f"{case[0]} {case[1]} m={case[4]} {case[6]}" for part in opts.only.split(",")):
             continue
         try:

@@ -19,7 +19,8 @@ before each launch), it prints the kernel's median time (CUDA events over
     end      the kernel's last barrier passed and x read out (B1)
 
 Needs a CUDA card and ``nvcc``; prints the card's name, power limit and SM
-clocks first.
+clocks first. B2 over a shared x is the shared-x kernel's
+(``tools/woodbury_shared_bench.py --phases``).
 """
 
 import ctypes
@@ -41,7 +42,6 @@ SHAPES = (  # (kernel, B, N) at d = 1000, m = 12
     ("sample_and_logq", 100, 5),
     ("sample_and_logq", 100, 10),
     ("whiten_sumsq", 100, 10),
-    ("whiten_sumsq_shared", 100, 1000),  # the mixture grid: N columns shared by the B factors
 )
 
 
@@ -90,7 +90,6 @@ def build() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pf_sample_logq.argtypes = [p] * 8 + [i] * 8 + [p]
     lib.pf_whiten_sumsq.argtypes = [p] * 6 + [i] * 8 + [p]
-    lib.pf_whiten_sumsq_shared.argtypes = [p] * 6 + [i] * 9 + [p]
     lib.pf_read_stamps.argtypes = [p]
     return lib
 
@@ -110,18 +109,15 @@ def main():
         def rand(*shape):
             return torch.randn(*shape, device="cuda", generator=gen)
 
-        shared = name == "whiten_sumsq_shared"
-        u = rand(N, d) if shared else rand(B, d, N)  # a shared x goes in as (P, d)
+        u = rand(B, d, N)
         X, C, mu = rand(B, d, m) / d**0.5, 0.1 * rand(B, m, m), rand(B, d)
         a_half, logdet = rand(B, d).abs() + 0.5, rand(B)
         out = torch.empty_like(u), torch.empty(B, N, device="cuda")
         if name == "sample_and_logq":
             entry, tensors = lib.pf_sample_logq, (u, a_half, X, C, mu, logdet) + out
-        elif shared:
-            entry, tensors = lib.pf_whiten_sumsq_shared, (u, a_half, X, C, mu, out[1])
         else:
             entry, tensors = lib.pf_whiten_sumsq, (u, a_half, X, C, mu, out[1])
-        plan = wk._launch_plan_shared(B, d, m, N) if shared else wk._launch_plan(B, d, m, N)
+        plan = wk._launch_plan(B, d, m, N)
         stream = torch.cuda.current_stream().cuda_stream
         times = []
         for _ in range(15):
