@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path, its k̂-remedy path and its warm-start
-path (constrained models, NUTS and HMC from a Pathfinder result) on one CUDA
-card, and check them.
+"""Drive the PyTorch port's main path, its k̂-remedy path, its warm-start
+path (constrained models, NUTS and HMC from a Pathfinder result) and the
+paths axis of its device mesh on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -21,7 +21,8 @@ Phases, each of which fails the run (exit code 1) on any error:
    general kernel (every dtype and rank the fast one does not take) in its
    two modes against its plain version at float64, float32, bfloat16 and
    float16 and ranks 0, 12, 40, 100 and 258 (d = 1000 timed L2-cold beside
-   its bound; d = 999 unaligned; d = 25), each case's launch plan printed,
+   its bound; d = 999 unaligned; d = 25; float32 at m >= d against the
+   float64 plain version over 5 draws), each case's launch plan printed,
    B1 at config 2's shapes and the float64 headline's winner shape timed
    too, at float32 against the fast kernel, with its sums in the global
    workspace (B1 and B2 with their rows in tiles), and its registers and
@@ -79,7 +80,17 @@ Phases, each of which fails the run (exit code 1) on any error:
    run (launches of 1024) whose ``resample`` is bitwise equal; the
    ``elbo_estimates`` replay of a headline path against its stored
    ``elbo_values``; and ``fit_distributions`` of a slim path raising.
-8. Dtypes and ranks, the general kernel's paths: BASELINE config 2
+8. The paths axis of a device mesh, on one card named twice
+   (``paths_mesh(["cuda:0", "cuda:0"])``): the headline configuration over
+   the mesh with launches of 100 lanes against no mesh with launches of 50
+   (the same per-device width), with the component and with the mixture
+   denominator, bitwise equal at every stage and launching the kernels as
+   often; then ``nuts_chains`` on 4 chains warm-started from the headline
+   result over the mesh (100 + 100 transitions), bitwise equal to two
+   unsharded ``nuts`` calls with chain ids 0–1 and 2–3. Each run's wall time
+   and peak device memory are printed beside the card's name and power
+   limit.
+9. Dtypes and ranks, the general kernel's paths: BASELINE config 2
    (``pathfinder(CorrelatedGaussian(100), history_length=20)``) on 5 seeds
    with its moment errors inside the JAX band, ``history_length=50``, the
    headline at ``history_length`` 20 and 50, in float64 on 5 seeds (k̂ and
@@ -88,7 +99,7 @@ Phases, each of which fails the run (exit code 1) on any error:
    package's warning and outcome; each run launches the general kernel and
    never the fast one, and the earlier float32 phases never launch the
    general one.
-9. The memory rule: a chunked BFGS run and a blocked ``laplace_resample``
+10. The memory rule: a chunked BFGS run and a blocked ``laplace_resample``
    at d = 1000 under the rule's own choice, each estimate at least the
    measured peak and at most twice it.
 
@@ -396,11 +407,12 @@ ULPS_16 = 4
 # d = 25, the constrained models' width
 GENERAL_B1 = (("elbo", K * 8, D, 5), ("odd-elbo", 8, 999, 5), ("glm-elbo", 128, 25, 5))
 GENERAL_B2 = (("psis", K, D, 10), ("odd-psis", 8, 999, 10), ("glm-psis", K, 25, 10))
-# (B, d, N) of the inputs drawn and not used after each rank's cases: B2 over
-# a shared x ran there until the shared-x phase took it, and the draws keep
-# every later case's inputs as they were (two cases at rank m >= d in float32
-# sit near their tolerance of cuBLAS, PERF.md §7)
-GENERAL_SHARED_DRAWS = ((K, D, 1000), (8, 999, 1000), (8, 25, 1000))
+# float32 at rank m >= d (d = 25 at m = 40, 100, 258; the workspace case):
+# C is random, not a Woodbury factor's, and the float32 result is
+# ill-conditioned enough that cuBLAS itself lies near X_TOL from the truth
+# (PERF.md §7), so these cases are held to the float64 plain version of the
+# same inputs, at the same tolerances, over F32_EDGE_DRAWS independent draws
+F32_EDGE_DRAWS = 5
 # the main paths of the general kernel: the float64 headline (d = 1000, m =
 # 12) and BASELINE config 2 (CorrelatedGaussian(100), history_length = 20:
 # m = 40, single path: an ELBO chunk of 16 candidates × 100 draws, 2000
@@ -475,8 +487,6 @@ def general_kernel_phase(wk):
                 for label, B, d, N in shapes:
                     rows.append(_general_case(wk, rng, name, label, B, d, m, N, dtype,
                                               timed=d == D))
-            for B, d, N in GENERAL_SHARED_DRAWS:
-                _seeded_inputs(rng, B, d, m, N, dtype, True, int(d == 999))
     for label, B, d, m, N in CONFIG2_B1:
         rows.append(_general_case(wk, rng, "sample_and_logq", label, B, d, m, N, torch.float32,
                                   timed=True))
@@ -486,8 +496,6 @@ def general_kernel_phase(wk):
     # the general kernel at float32, rank 12, against the fast kernel
     for name, B, N in (("sample_and_logq", K * 8, 5), ("whiten_sumsq", K, 10)):
         args = _seeded_inputs(rng, B, D, M, N, torch.float32)
-        if name == "whiten_sumsq":
-            _seeded_inputs(rng, K, D, M, 1000, torch.float32, True)  # as GENERAL_SHARED_DRAWS
         if name == "sample_and_logq":
             fast = wk._sample_and_logq_cuda(*args, general=False)
             gen = wk._sample_and_logq_cuda(*args, general=True)
@@ -506,17 +514,11 @@ def general_kernel_phase(wk):
         plan = wk._general_rows_plan(B, d, m, N, torch.float32, smem_limit=16384)
         if not plan.ws:
             fail(f"the 16 KB plan {plan} did not put its sums in the workspace")
-        args = _seeded_inputs(rng, B, d, m, N, torch.float32, offset=1)
-        if name == "sample_and_logq":
-            got = wk._sample_and_logq_cuda(*args, general=True, plan=plan)
-            want = wk.sample_and_logq_torch(*args)
-            err = max(check_general("workspace B1 x", got[0], want[0], torch.float32),
-                      check_general("workspace B1 logq", got[1], want[1], torch.float32))
-        else:
-            got = wk._whiten_sumsq_cuda(*args[:5], general=True, plan=plan)
-            err = check_general("workspace B2", got, wk.whiten_sumsq_torch(*args[:5]), torch.float32)
+        err = max(check_general_case(wk, name, f"workspace {name}", args, torch.float32, plan)
+                  for args in general_inputs(rng, B, d, m, N, torch.float32, offset=1))
         print(f"general kernel {name} with its sums in the workspace [B={B} d={d} m={m} N={N} "
-              f"float32] plan={tuple(plan)}: max_abs_err={err:.3e}", flush=True)
+              f"float32] plan={tuple(plan)}: max_abs_err={err:.3e} against the float64 plain "
+              f"version over {F32_EDGE_DRAWS} draws", flush=True)
     for (name, dt_name, nt), r in sorted(wk.general_kernel_resources().items(), key=str):
         print(f"kernel {name} {dt_name}{'' if nt is None else f' NT={nt}'}: "
               f"registers={r.get('registers')} spill_stores={r.get('spill_stores')}B "
@@ -524,36 +526,64 @@ def general_kernel_phase(wk):
     return rows
 
 
+def general_inputs(rng, B, d, m, N, dtype, offset=0):
+    """The inputs of one general-kernel case: one draw, or F32_EDGE_DRAWS
+    independent ones at float32 with m >= d."""
+    import torch
+
+    draws = F32_EDGE_DRAWS if dtype == torch.float32 and m >= d else 1
+    return [_seeded_inputs(rng, B, d, m, N, dtype, offset=offset) for _ in range(draws)]
+
+
+def check_general_case(wk, name, tag, args, dtype, plan=None):
+    """The general kernel against its plain version on ``args`` (the float64
+    plain version at float32 with m >= d) and a repeated launch bitwise
+    equal; the max abs error."""
+    import torch
+
+    m, d = args[2].shape[-1], args[2].shape[-2]
+    edge = dtype == torch.float32 and m >= d
+    ref = tuple(a.double() for a in args) if edge else args
+    if name == "sample_and_logq":
+        kernel = lambda: wk._sample_and_logq_cuda(*args, general=True, plan=plan)  # noqa: E731
+        got, want = kernel(), wk.sample_and_logq_torch(*ref)
+        torch.cuda.synchronize()
+        err = max(check_general(f"general B1 [{tag}] x", got[0], want[0], dtype),
+                  check_general(f"general B1 [{tag}] logq", got[1], want[1], dtype))
+        again = kernel()
+        same = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    else:
+        kernel = lambda: wk._whiten_sumsq_cuda(*args[:5], general=True, plan=plan)  # noqa: E731
+        got, want = kernel(), wk.whiten_sumsq_torch(*ref[:5])
+        torch.cuda.synchronize()
+        err = check_general(f"general B2 [{tag}]", got, want, dtype)
+        same = torch.equal(got, kernel())
+    if not same:
+        fail(f"general {name} [{tag}]: a repeated launch gave other bits")
+    return err
+
+
 def _general_case(wk, rng, name, label, B, d, m, N, dtype, timed):
     """One case of the general kernel's phase; returns its row."""
     import torch
 
-    offset = 1 if label.startswith("odd") else 0
-    args = _seeded_inputs(rng, B, d, m, N, dtype, offset=offset)
+    draws = general_inputs(rng, B, d, m, N, dtype, offset=1 if label.startswith("odd") else 0)
     dt_name = str(dtype).replace("torch.", "")
     tag = f"{label} B={B} d={d} m={m} N={N} {dt_name}"
+    err = max(check_general_case(wk, name, tag, args, dtype) for args in draws)
+    args = draws[-1]
     if name == "sample_and_logq":
         kernel, plain = wk._sample_and_logq_cuda, wk.sample_and_logq_torch
-        got, want = kernel(*args, general=True), plain(*args)
-        torch.cuda.synchronize()
-        err = max(check_general(f"general B1 [{tag}] x", got[0], want[0], dtype),
-                  check_general(f"general B1 [{tag}] logq", got[1], want[1], dtype))
-        again = kernel(*args, general=True)
-        same = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     else:
         args = args[:5]
         kernel, plain = wk._whiten_sumsq_cuda, wk.whiten_sumsq_torch
-        got, want = kernel(*args, general=True), plain(*args)
-        torch.cuda.synchronize()
-        err = check_general(f"general B2 [{tag}]", got, want, dtype)
-        same = torch.equal(got, kernel(*args, general=True))
-    if not same:
-        fail(f"general {name} [{tag}]: a repeated launch gave other bits")
     plan = wk._general_rows_plan(B, d, m, N, dtype, wk._num_sms(0))
     plan_text = f"plan(cluster,threads,tile,nc,colblk,whole,mres,smem,ws)={tuple(plan)}"
     row = dict(label=label, name=name, dtype=dt_name, B=B, d=d, m=m, N=N, err=err,
                plan=tuple(plan))
     line = f"kernel {name}_general [{tag}] {plan_text} max_abs_err={err:.3e}"
+    if len(draws) > 1:
+        line += f" (against the float64 plain version, {len(draws)} draws)"
     if timed:
         itemsize = torch.finfo(dtype).bits // 8
         row["ms"] = time_cold_ms(lambda: kernel(*args, general=True))
@@ -563,7 +593,7 @@ def _general_case(wk, rng, name, label, B, d, m, N, dtype, timed):
                  f"bound_us={row['bound_us']:.2f} ({row['bound_by']}) "
                  f"share={row['bound_us'] / (1e3 * row['ms']):.3f}")
     print(line, flush=True)
-    del args, got, want
+    del args, draws
     return row
 
 
@@ -1650,6 +1680,104 @@ def memory_rule_phase(pt, zoo):
             block * sharding.laplace_lane_bytes(D, N, torch.float32) + pool, peak)
 
 
+# The mesh phase: the paths axis of a device mesh on one card, whose blocks
+# are entries of the same card (as the JAX tests' virtual CPU devices share
+# the host). The headline over MESH_BLOCKS blocks with launches of K lanes (K
+# / MESH_BLOCKS a block) against no mesh with launches of K / MESH_BLOCKS:
+# the same per-device width, so bitwise equal at every stage; and nuts_chains
+# over the mesh against unsharded blocks with the same chain ids.
+MESH_BLOCKS = 2
+MESH_NUTS_WARMUP = MESH_NUTS_SAMPLES = 100
+
+
+def _bitwise_equal(a, b) -> bool:
+    """Equal shapes and bits, NaN where the other has NaN."""
+    import torch
+
+    if a.shape != b.shape:
+        return False
+    same = a == b
+    if a.is_floating_point():
+        same |= torch.isnan(a) & torch.isnan(b)
+    return bool(same.all())
+
+
+def mesh_phase(pt, wk, zoo, headline, smi):
+    """The headline and the mixture denominator over a mesh of MESH_BLOCKS
+    blocks on one card against the unsharded run at the same per-device
+    launch width, bitwise at every stage, both launching B1 and B2 as often;
+    then nuts_chains over the mesh against unsharded blocks. Returns the
+    kernels' launches of the mesh runs."""
+    import torch
+
+    nuts = importlib.import_module("pathfinder_tpu_torch.integrations.nuts")
+    mesh = pt.paths_mesh(["cuda:0"] * MESH_BLOCKS)
+    target = zoo.HierarchicalGaussian(D, seed=0)
+    totals = {name: 0 for name in wk.launch_counts()}
+    t_phase = time.perf_counter()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+    for denom in ("component", "mixture"):
+        runs = {}
+        for label, options in (("no mesh", dict(max_paths_per_launch=K // MESH_BLOCKS)),
+                               (f"mesh of {MESH_BLOCKS}", dict(mesh=mesh, max_paths_per_launch=K))):
+            wk.reset_launch_counts()
+            res, secs, peak = timed(lambda: pt.multipathfinder(
+                target, 1000, nruns=K, maxiters=64, elbo_chunk=8, seed=0,
+                importance_denominator=denom, **options))
+            grew = wk.launch_counts()
+            if label != "no mesh":
+                for n, c in grew.items():
+                    totals[n] += c
+            b2 = grew["whiten_sumsq_shared" if denom == "mixture" else "whiten_sumsq"]
+            if grew["sample_and_logq"] <= 0 or b2 <= 0:
+                fail(f"mesh phase [{denom}, {label}]: B1 or B2 not launched: {grew}")
+            print(f"mesh phase [{denom} denominator, {label}, launches of "
+                  f"{options['max_paths_per_launch']} lanes]: wall_s={secs:.3f} "
+                  f"peak_device_bytes={peak} khat={float(res.psis_result.pareto_shape):.4f} "
+                  f"paths_ok={int(res.states.success.sum())}/{K} launches={grew} card: {smi}",
+                  flush=True)
+            runs[label] = (res, grew)
+        (a, ca), (b, cb) = runs.values()
+        if ca != cb:
+            fail(f"mesh phase [{denom}]: the kernels' launches differ: {ca} and {cb}")
+        stage = first_differing_stage(b, a, target)
+        if stage is not None:
+            fail(f"mesh phase [{denom}]: the mesh run differs from the unsharded one first in "
+                 f"the {stage[0]}: {stage[1]}")
+        print(f"mesh phase [{denom} denominator]: mesh of {MESH_BLOCKS} and no mesh bitwise equal "
+              f"(states, pooled draws, log ratios, PSIS weights, resampled component ids and "
+              f"draws); kernel launches equal", flush=True)
+        del runs, a, b
+
+    vg, metric, x0s = nuts.warm_start_chains(headline, NUTS_CHAINS)
+    options = dict(num_warmup=MESH_NUTS_WARMUP, num_samples=MESH_NUTS_SAMPLES)
+    (out, _), secs, peak = timed(lambda: nuts.nuts_chains(0, vg, metric, x0s, mesh=mesh, **options))
+    per = NUTS_CHAINS // MESH_BLOCKS
+    parts, secs_one, peak_one = [], 0.0, 0
+    for lo in range(0, NUTS_CHAINS, per):
+        part, s_, p_ = timed(lambda: nuts.nuts(0, vg, metric, x0s[lo:lo + per],
+                                               chain_ids=list(range(lo, lo + per)), **options))
+        parts.append(part)
+        secs_one, peak_one = secs_one + s_, max(peak_one, p_)
+    for name, got, *blocks in zip(out._fields, out, *parts):
+        if got is not None and not _bitwise_equal(got, torch.cat(blocks)):
+            fail(f"mesh phase NUTS: {name} over the mesh differs from the unsharded blocks")
+    print(f"mesh phase NUTS [{NUTS_CHAINS} chains, {MESH_NUTS_WARMUP} + {MESH_NUTS_SAMPLES} "
+          f"transitions]: mesh of {MESH_BLOCKS} wall_s={secs:.3f} peak_device_bytes={peak}; "
+          f"{MESH_BLOCKS} unsharded calls of {per} chains wall_s={secs_one:.3f} "
+          f"peak_device_bytes={peak_one}; bitwise equal in every field; card: {smi}", flush=True)
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return totals
+
+
 def main():
     try:
         import torch
@@ -1697,6 +1825,7 @@ def main():
         if name in FAST_KERNELS and c <= 0:
             fail(f"{name} was not launched on the constrained-model path")
     old_phases.append(serving_phase(pt, wk, zoo, headline))
+    old_phases.append(mesh_phase(pt, wk, zoo, headline, smi))
     for phase in old_phases:
         for name, c in phase.items():
             counts[name] += c

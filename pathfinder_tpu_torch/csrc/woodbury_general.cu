@@ -12,6 +12,12 @@
 //   - every input is read in T and converted to Acc once, where it is read;
 //   - X^T v, C (X^T v), X s, ||u||^2 and ||w||^2 are computed in Acc;
 //   - the outputs x, logq and maha are rounded to T once.
+// Float32 at rank m >= d is the exception: there the register chains of
+// X^T v, C (X^T v) and X s, and x itself, run in S = double (t and s are kept
+// in float between the passes). Those sums are m or d long with a random,
+// ill-conditioned C, and float chains leave x as far from the truth as
+// cuBLAS's float32 result, past a 1e-5 tolerance (the chain's products of two
+// floats are exact in double).
 // Every sum runs in a fixed order and no atomics are used, so a launch
 // repeats bit for bit.
 //
@@ -76,6 +82,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <type_traits>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -87,6 +96,22 @@ constexpr int kRK = 4;       // ranks of a pass-1 register tile
 constexpr int kSplitM = 64;  // above this rank a cluster splits s = M t
 constexpr int kMaxCluster = 8;
 constexpr int kMaxSmem = 232448;
+
+// The kernel's dynamic shared memory limit holds for the device it was set
+// on: set it once for each device (the current one at the launch), safe from
+// several host threads.
+template <typename F>
+cudaError_t allow_max_smem(F kernel, std::atomic<unsigned long long>& ready) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit && (ready.load() & bit)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (e == cudaSuccess) ready.fetch_or(bit);
+  return e;
+}
+
 constexpr double kLog2Pi = 1.8378770664093453;
 // factor_kernel's modes: B1, and B2 with a block of columns per factor
 constexpr int kSample = 0, kWhiten = 1;
@@ -351,7 +376,7 @@ __device__ long long pfg_stamps[2][10];
 // ... of colblk columns each, in rounds of NC. in: u (B1) or x (B2); M: C
 // (B1) or Ci (B2); logdet and x_out for B1 only; col_out: logq (B1) or maha
 // (B2), (B, N).
-template <typename T, int MODE, int NT>
+template <typename T, int MODE, int NT, typename S>
 __global__ void __launch_bounds__(kThreads, 2)
 factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* __restrict__ X,
               const T* __restrict__ M, const T* __restrict__ mu, const T* __restrict__ logdet,
@@ -561,12 +586,12 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
             // the thread's sums; where it owns them alone (L >= 32) they go on
             // from the earlier tiles', one chain over all its rows
             Acc* const dst = tp + (L <= 32 ? warp : part) * MR * NCP + ct * NT * MR + kt * kRK;
-            Acc acc[kRK * NT];
+            S acc[kRK * NT];
 #pragma unroll
             for (int kk = 0; kk < kRK; ++kk)
 #pragma unroll
               for (int j = 0; j < NT; ++j)
-                acc[kk * NT + j] = L >= 32 && mine ? dst[j * MR + kk] : Acc(0);
+                acc[kk * NT + j] = L >= 32 && mine ? S(dst[j * MR + kk]) : S(0);
             if (mine)
 #pragma unroll 2
               for (int i = part; i < n; i += P) {
@@ -578,7 +603,8 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
 #pragma unroll
                 for (int kk = 0; kk < kRK; ++kk)
 #pragma unroll
-                  for (int j = 0; j < NT; ++j) acc[kk * NT + j] = mad(xk[kk], v[j], acc[kk * NT + j]);
+                  for (int j = 0; j < NT; ++j)
+                    acc[kk * NT + j] = mad(S(xk[kk]), S(v[j]), acc[kk * NT + j]);
               }
             if (L < 32) warp_sum(acc, L);
             if (mine && (L >= 32 || lane < L))
@@ -586,7 +612,8 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
               for (int j = 0; j < NT; ++j)
 #pragma unroll
                 for (int kk = 0; kk < kRK; ++kk)
-                  dst[j * MR + kk] = L >= 32 ? acc[kk * NT + j] : dst[j * MR + kk] + acc[kk * NT + j];
+                  dst[j * MR + kk] = L >= 32 ? Acc(acc[kk * NT + j])
+                                             : dst[j * MR + kk] + Acc(acc[kk * NT + j]);
           }
         }
         __syncthreads();
@@ -622,24 +649,24 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
             const int k = e / (CT * NT), c = e - k * (CT * NT);
             const T* Mk = sM + k * m;
             const Acc* tc = tg + c * MR;
-            Acc acc = Acc(0);
+            S acc = S(0);
 #pragma unroll 4
-            for (int l = 0; l < m; ++l) acc = mad(widen(Mk[l]), tc[l], acc);
-            s[c * MR + k] = acc;
+            for (int l = 0; l < m; ++l) acc = mad(S(widen(Mk[l])), S(tc[l]), acc);
+            s[c * MR + k] = Acc(acc);
           }
         for (int e = warp; split && e < (k1 - k0) * CT; e += kWarps) {
           const int kr = e / CT, ct = e - kr * CT;
           const T* Mk = sM + kr * m;
-          Acc acc[NT];
+          S acc[NT];
 #pragma unroll
-          for (int j = 0; j < NT; ++j) acc[j] = Acc(0);
+          for (int j = 0; j < NT; ++j) acc[j] = S(0);
           for (int l = lane; l < m; l += 32) {
-            const Acc mkl = widen(Mk[l]);
+            const S mkl = S(widen(Mk[l]));
 #pragma unroll
-            for (int j = 0; j < NT; ++j) acc[j] = mad(mkl, tg[(ct * NT + j) * MR + l], acc[j]);
+            for (int j = 0; j < NT; ++j) acc[j] = mad(mkl, S(tg[(ct * NT + j) * MR + l]), acc[j]);
           }
           warp_sum(acc);
-          if (lane < NT) sd[(ct * NT + lane) * lds + kr] = lane_value(acc, lane);
+          if (lane < NT) sd[(ct * NT + lane) * lds + kr] = Acc(lane_value(acc, lane));
         }
         PFG_STAMP(4);
         if (split) {  // every CTA gathers the whole of s
@@ -674,11 +701,12 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
             for (int j = 0; j < NT; ++j) q[j] = Acc(0);
           }
           if (i >= n) continue;
-          Acc r[NT], xs[NT];
+          Acc r[NT];
+          S xs[NT];
 #pragma unroll
           for (int j = 0; j < NT; ++j) {
             r[j] = ct * NT + j < nc ? v_at(i, ct * NT + j) : Acc(0);
-            xs[j] = Acc(0);
+            xs[j] = S(0);
           }
           for (int kt = 0; kt < KT; ++kt) {
             Acc xk[kRK];
@@ -688,16 +716,16 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
               Acc s4[kRK];
               load4(s + (ct * NT + j) * MR + kt * kRK, s4);
 #pragma unroll
-              for (int kk = 0; kk < kRK; ++kk) xs[j] = mad(xk[kk], s4[kk], xs[j]);
+              for (int kk = 0; kk < kRK; ++kk) xs[j] = mad(S(xk[kk]), S(s4[kk]), xs[j]);
             }
           }
           if constexpr (SAMPLE) {
-            const Acc ai = widen(sa[i]), mi = widen(smu[i]);
+            const S ai = S(widen(sa[i])), mi = S(widen(smu[i]));
 #pragma unroll
             for (int j = 0; j < NT; ++j) {
               q[j] = mad(r[j], r[j], q[j]);
               if (ct * NT + j < nc) {
-                const T xv = Num<T>::narrow(ai * (r[j] + xs[j]) + mi);
+                const T xv = Num<T>::narrow(Acc(ai * (S(r[j]) + xs[j]) + mi));
                 if (whole) ubw[i * ldu + ct * NT + j] = xv;
                 else xg[static_cast<size_t>(i) * N + ct * NT + j] = xv;
               }
@@ -705,7 +733,7 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
           } else {
 #pragma unroll
             for (int j = 0; j < NT; ++j) {
-              const Acc w = r[j] + xs[j];
+              const Acc w = Acc(S(r[j]) + xs[j]);
               q[j] = mad(w, w, q[j]);
             }
           }
@@ -772,18 +800,15 @@ bool fplan_ok(const FPlan& p, int B, int d, int m, int N, bool ws) {
   return p.smem == L.total;
 }
 
-template <typename T, int MODE, int NT>
+template <typename T, int MODE, int NT, typename S>
 int launch_factor(const FPlan& p, int B, const void* in, const void* a_half, const void* X,
                   const void* M, const void* mu, const void* logdet, void* x_out, void* col_out,
                   int d, int m, int N, void* ws, cudaStream_t stream) {
   using Acc = typename Num<T>::Acc;
-  auto kernel = factor_kernel<T, MODE, NT>;
-  static bool ready = false;
-  if (!ready) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    ready = true;
+  auto kernel = factor_kernel<T, MODE, NT, S>;
+  static std::atomic<unsigned long long> ready{0};
+  if (const cudaError_t e = allow_max_smem(kernel, ready); e != cudaSuccess) {
+    return static_cast<int>(e);
   }
   const int nblk = (N + p.colblk - 1) / p.colblk;
   cudaLaunchConfig_t cfg = {};
@@ -806,16 +831,29 @@ int launch_factor(const FPlan& p, int B, const void* in, const void* a_half, con
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
+template <typename T, int MODE, typename S>
+int launch_tile(const FPlan& p, int B, const void* in, const void* a_half, const void* X,
+                const void* M, const void* mu, const void* logdet, void* x_out, void* col_out,
+                int d, int m, int N, void* ws, cudaStream_t stream) {
+  if (col_tile(N) == 5)
+    return launch_factor<T, MODE, 5, S>(p, B, in, a_half, X, M, mu, logdet, x_out, col_out, d, m,
+                                        N, ws, stream);
+  return launch_factor<T, MODE, 4, S>(p, B, in, a_half, X, M, mu, logdet, x_out, col_out, d, m, N,
+                                      ws, stream);
+}
+
 template <typename T, int MODE>
 int launch_checked(const FPlan& p, int B, const void* in, const void* a_half, const void* X,
                    const void* M, const void* mu, const void* logdet, void* x_out, void* col_out,
                    int d, int m, int N, void* ws, cudaStream_t stream) {
   if (!fplan_ok<T>(p, B, d, m, N, ws != nullptr)) return -1;
-  if (col_tile(N) == 5)
-    return launch_factor<T, MODE, 5>(p, B, in, a_half, X, M, mu, logdet, x_out, col_out, d, m, N,
-                                     ws, stream);
-  return launch_factor<T, MODE, 4>(p, B, in, a_half, X, M, mu, logdet, x_out, col_out, d, m, N,
-                                   ws, stream);
+  if constexpr (std::is_same_v<T, float>) {
+    if (m >= d)  // the register chains in double (see the head of this file)
+      return launch_tile<T, MODE, double>(p, B, in, a_half, X, M, mu, logdet, x_out, col_out, d,
+                                          m, N, ws, stream);
+  }
+  return launch_tile<T, MODE, typename Num<T>::Acc>(p, B, in, a_half, X, M, mu, logdet, x_out,
+                                                    col_out, d, m, N, ws, stream);
 }
 
 template <int MODE>

@@ -59,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -67,6 +69,22 @@ constexpr int kMaxRank = 32;
 constexpr int kChunk = 40;  // columns handled per round of the kernel
 constexpr int kMaxCluster = 8;
 constexpr int kMaxSmem = 232448;
+
+// The kernel's dynamic shared memory limit holds for the device it was set
+// on: set it once for each device (the current one at the launch), safe from
+// several host threads.
+template <typename F>
+cudaError_t allow_max_smem(F kernel, std::atomic<unsigned long long>& ready) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit && (ready.load() & bit)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (e == cudaSuccess) ready.fetch_or(bit);
+  return e;
+}
+
 constexpr float kLog2Pi = 1.8378770664093453f;
 // the kernel's modes: B1, and B2 with a block of columns per factor
 constexpr int kSample = 0, kWhiten = 1;
@@ -522,12 +540,9 @@ int launch(const Plan& p, int B, const float* in, const float* a_half, const flo
            const float* M, const float* mu, const float* logdet, float* x_out, float* col_out,
            int d, int m, int N, cudaStream_t stream) {
   auto kernel = woodbury_kernel<MR, NT, MODE>;
-  static bool ready = false;
-  if (!ready) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    ready = true;
+  static std::atomic<unsigned long long> ready{0};
+  if (const cudaError_t e = allow_max_smem(kernel, ready); e != cudaSuccess) {
+    return static_cast<int>(e);
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * p.cluster, 1);

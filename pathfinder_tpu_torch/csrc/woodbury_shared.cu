@@ -96,6 +96,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kThreads = 256;  // computing threads a CTA (a copying warp besides)
@@ -103,6 +105,22 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kColTile = 16;   // columns of an MMA tile (its M)
 constexpr int kRankTiles = 4;  // rank tiles of 8 a warp sums at once in pass 1
 constexpr int kMaxSmem = 232448;
+
+// The kernel's dynamic shared memory limit holds for the device it was set
+// on: set it once for each device (the current one at the launch), safe from
+// several host threads.
+template <typename F>
+cudaError_t allow_max_smem(F kernel, std::atomic<unsigned long long>& ready) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit && (ready.load() & bit)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (e == cudaSuccess) ready.fetch_or(bit);
+  return e;
+}
+
 // dtype codes of the entry point (ops/kernels/woodbury_kernels.py mirrors them)
 constexpr int kF32 = 0, kF64 = 1, kF16 = 2, kBF16 = 3;
 
@@ -929,12 +947,9 @@ int launch(const SPlan& p, int ctas, const void* xt, const void* a_half, const v
            cudaStream_t stream) {
   using Acc = typename Num<T>::Acc;
   auto kernel = shared_kernel<T, MODE>;
-  static bool ready = false;
-  if (!ready) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    ready = true;
+  static std::atomic<unsigned long long> ready{0};
+  if (const cudaError_t e = allow_max_smem(kernel, ready); e != cudaSuccess) {
+    return static_cast<int>(e);
   }
   kernel<<<ctas, kThreads + 32, p.smem, stream>>>(
       static_cast<const T*>(xt), static_cast<const T*>(a_half), static_cast<const T*>(X),

@@ -42,7 +42,9 @@ from pathfinder_tpu_torch.integrations.hmc import (
     sampler_inputs,
     sampler_noise,
 )
+from pathfinder_tpu_torch.parallel.sharding import check_mesh, run_on_devices
 from pathfinder_tpu_torch.utils.diagnostics import summarize
+from pathfinder_tpu_torch.utils.misc import tree_map
 
 __all__ = [
     "nuts",
@@ -418,13 +420,32 @@ def nuts_chains(
     :class:`NUTSResult` and the :func:`~pathfinder_tpu_torch.utils.
     diagnostics.summarize` dict (mean, sd, ess_bulk, ess_tail, rhat over the
     ``(C, N, d)`` sample stack). Chains that start at a non-finite log
-    density or gradient raise here. ``mesh`` (chains sharded over several
-    devices) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError("not ported yet: mesh")
+    density or gradient raise here.
+
+    ``mesh`` (``parallel.sharding.paths_mesh``) splits the chains over the
+    mesh's first axis, whose width must divide ``C``: each block of chains
+    runs on its device from a host thread of its own, with ``chain_ids``
+    its own slice of ``0..C−1``, so that no random number moves, and the
+    metric copied there (a metric with a chain axis is split with the
+    chains). The blocks are gathered, in order, where ``x0s`` lies, and
+    summarized there. A block is the unsharded run of its chains, so a
+    block of ``c`` chains gives the bits of ``nuts`` on those chains alone
+    with the same ``chain_ids``. ``value_and_grad`` must compute where its
+    inputs lie, as the zoo's targets do. A mesh with a ``dim`` axis raises
+    ``NotImplementedError``."""
     x0s, single = sampler_inputs(x0s, metric, kwargs.get("device", "cuda"))
     if single:
         raise ValueError("x0s must have shape (C, d): one row per chain")
+    C = x0s.shape[0]
+    if mesh is not None:
+        check_mesh(mesh)
+        axis = mesh.axis_names[0]
+        n_dev = mesh.shape[axis]
+        if C % n_dev != 0:
+            raise ValueError(
+                f"{C} chains are not divisible over the {n_dev}-wide "
+                f"'{axis}' mesh axis; pad x0s or change the chain count."
+            )
     # initial-energy validation at the boundary, as Stan does: a chain
     # started at a non-finite logp or gradient would only NaN-poison its
     # outputs (see nuts())
@@ -435,8 +456,38 @@ def nuts_chains(
             f"chains {torch.nonzero(bad)[:, 0].tolist()} start at "
             "non-finite log density or gradient; choose in-support x0s"
         )
-    out = nuts(seed, value_and_grad, metric, x0s, **kwargs)
+    if mesh is None:
+        out = nuts(seed, value_and_grad, metric, x0s, **kwargs)
+    else:
+        out = _nuts_blocks(seed, value_and_grad, metric, x0s, mesh, **kwargs)
     return out, summarize(out.samples)
+
+
+def _nuts_blocks(seed, value_and_grad, metric, x0s, mesh, **kwargs) -> NUTSResult:
+    """``nuts`` over the chains of ``x0s``, one block of chains for each
+    entry along ``mesh``'s first axis, gathered where ``x0s`` lies."""
+    C = x0s.shape[0]
+    devices = list(mesh.devices.reshape(mesh.devices.shape[0], -1)[:, 0])
+    per = C // len(devices)
+    ids = kwargs.pop("chain_ids", None)
+    ids = torch.arange(C) if ids is None else torch.as_tensor(ids, dtype=torch.int64)
+
+    def block(i, dev):
+        lo = i * per
+        if metric is None:
+            m = None
+        elif metric.batched:
+            m = tree_map(lambda t: t[lo:lo + per].to(dev), metric)
+        else:
+            m = tree_map(lambda t: t.to(dev), metric)
+        return nuts(seed, value_and_grad, m, x0s[lo:lo + per].to(dev),
+                    chain_ids=ids[lo:lo + per].to(dev), **kwargs)
+
+    blocks = run_on_devices(devices, block)
+    return NUTSResult(*(
+        None if parts[0] is None else torch.cat([t.to(x0s.device) for t in parts])
+        for parts in zip(*blocks)
+    ))
 
 
 def warm_start_chains(result, n_chains: int, *, draw_indices=None):

@@ -63,7 +63,9 @@ def _made_under_transform(t) -> bool:
 def _per_dtype_and_device(array):
     """``like -> tensor``: ``array`` as a tensor of ``like``'s dtype on its
     device, one copy kept per (dtype, device) beside the target. A copy made
-    while ``torch.func`` traces the target is used once and not kept."""
+    while ``torch.func`` traces the target is used once and not kept. Threads
+    that run the target on several devices at once (a mesh) each get their
+    device's copy; two that make the same copy at once keep the first."""
     copies = {}
 
     def get(like):
@@ -71,9 +73,9 @@ def _per_dtype_and_device(array):
         if key in copies:
             return copies[key]
         copy = torch.as_tensor(array, dtype=like.dtype, device=like.device)
-        if not _made_under_transform(copy):
-            copies[key] = copy
-        return copy
+        if _made_under_transform(copy):
+            return copy
+        return copies.setdefault(key, copy)
 
     return get
 
@@ -220,21 +222,30 @@ def OrderedLogisticRegression(X, y, n_cats: int, prior_scale: float = 5.0):
     that crosses the pad gives a finite penalty, never NaN).
     """
     X_like = _per_dtype_and_device(np.asarray(X))
-    lo_like = _per_dtype_and_device(np.asarray(y, dtype=np.int64))  # categories 0..K−1
     d = np.shape(X)[1]
     K = int(n_cats)
     big = 200.0
+    # each observation's lower and upper cutpoint among the K + 1 padded ones
+    # (categories 0..K−1), as masks
+    y = np.asarray(y, dtype=np.int64)[:, None]
+    lo_like = _per_dtype_and_device(np.arange(K + 1) == y)
+    hi_like = _per_dtype_and_device(np.arange(K + 1) == y + 1)
+
+    def pick(mask, c_pad):
+        # c_pad's entry under each row of mask: a select and a sum with
+        # zeros, exact. Not a gather: its gradient is a scatter-add, whose
+        # atomic adds on a CUDA device sum in another order from call to call
+        return torch.where(mask, c_pad[..., None, :], 0.0).sum(dim=-1)
 
     def logp_constrained(theta):
         Xt = X_like(theta)
-        lo = lo_like(theta.new_empty(0, dtype=torch.int64))
+        flag = theta.new_empty(0, dtype=torch.bool)
         c, beta = theta[..., : K - 1], theta[..., K - 1 :]
         eta = beta @ Xt.mT  # (B, n)
         pad = torch.full_like(theta[..., :1], big)
         c_pad = torch.cat([-pad, c, pad], dim=-1)  # (B, K + 1)
-        idx = lo.expand(eta.shape)
-        a = torch.gather(c_pad, -1, idx) - eta  # lower cutpoint minus linear predictor
-        b = torch.gather(c_pad, -1, idx + 1) - eta  # upper
+        a = pick(lo_like(flag), c_pad) - eta  # lower cutpoint minus linear predictor
+        b = pick(hi_like(flag), c_pad) - eta  # upper
         # a < b by the ordering, except when a cutpoint crosses the ±big pad
         # (|c| > 200: absurd, but a line-search trial can get there); the
         # clamp keeps log1p a huge finite penalty

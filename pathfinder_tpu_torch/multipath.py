@@ -3,19 +3,22 @@ the remedies for a bad Pareto k̂: other optimizers and ``optimizer="auto"``,
 the mixture denominator, and the Laplace covariance correction (counterpart
 of ``pathfinder_tpu/multipath.py``).
 
-The K paths run as one batch on one device, or, at serving scale, as
-launches of ``max_paths_per_launch`` lanes each (``parallel/sharding.py``),
-whose outputs may stream into host memory as each launch completes
-(``offload_launches``) and may drop their trajectory arrays
-(``keep_traces=False``); the defaults come from the card's total memory.
-Failed paths are retried in bounded rounds that re-run only the failed
-lanes, compacted and padded to a power of two. Path ``i`` in round ``r``
-draws everything from the streams ``(seed, i, r, ...)``, so batch layout,
-launch cap and offload change no random number. Offload changes no bit. The
-batch layout and the cap can change the last bits (on a CUDA device a
-kernel's launch plan and a library's algorithm follow the batch), and
-through them, rarely, a decision that sits on a tie, such as the step at
-which a path's ``ftol`` test stops it.
+The K paths run as one batch on one device, or split over the ``paths`` axis
+of a device mesh (``mesh=``, ``parallel/sharding.py``), and, at serving
+scale, as launches of ``max_paths_per_launch`` lanes each, whose outputs may
+stream into host memory as each launch completes (``offload_launches``) and
+may drop their trajectory arrays (``keep_traces=False``); the defaults come
+from the card's total memory. Failed paths are retried in bounded rounds
+that re-run only the failed lanes, compacted, padded to a power of two and
+then to a multiple of the mesh's width. Path ``i`` in round ``r`` draws
+everything from the streams ``(seed, i, r, ...)``, so batch layout, mesh
+shape, launch cap and offload change no random number. Offload changes no
+bit, and neither does the mesh at a fixed per-device launch width: a mesh of
+``n`` blocks with ``max_paths_per_launch=n·c`` gives the bits of no mesh
+with ``max_paths_per_launch=c``. The per-device launch width can change the
+last bits (on a CUDA device a kernel's launch plan and a library's algorithm
+follow the batch), and through them, rarely, a decision that sits on a tie,
+such as the step at which a path's ``ftol`` test stops it.
 """
 
 from __future__ import annotations
@@ -43,10 +46,17 @@ from pathfinder_tpu_torch.ops.psis import PSISResult, psis
 from pathfinder_tpu_torch.ops.resample import resample_draws
 from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat
 from pathfinder_tpu_torch.parallel.sharding import (
+    Mesh,
+    check_mesh,
     chunk_launches,
     device_memory_bytes,
     lane_bytes,
     laplace_block,
+    make_path_executor,
+    mesh_device_bytes,
+    pad_paths,
+    paths_devices,
+    paths_width,
     plan_launches,
     state_bytes,
 )
@@ -54,20 +64,14 @@ from pathfinder_tpu_torch.singlepath import (
     PathfinderConfig,
     PathfinderResult,
     SinglePathState,
-    pathfinder_core,
     uniform_init_sampler,
     validate_dtype,
 )
 from pathfinder_tpu_torch.utils import rng
-from pathfinder_tpu_torch.utils.misc import resolve_device, tree_map
+from pathfinder_tpu_torch.utils.misc import indexed_device, resolve_device, tree_map
 from pathfinder_tpu_torch.utils.progress import ThrottledProgress
 
 __all__ = ["multipathfinder", "MultiPathfinderResult", "resample", "laplace_resample"]
-
-# options of the JAX entry point that this port does not have yet; passing
-# one raises NotImplementedError rather than being silently ignored
-_NOT_PORTED = ("mesh",)
-
 
 def _khat_remedy_hint(tried_auto: bool = False, tried_laplace: bool = False) -> str:
     """One line of remedies for a bad or very bad Pareto-k̂ verdict: the
@@ -231,7 +235,8 @@ class MultiPathfinderResult:
     fit_distribution_transformed: Any = None
     draws_transformed: Any = None
     transform: Any = None
-    # the launch cap the run used (None: one launch); resample() and
+    # the lanes of the run's launches on one device (the cap over a mesh
+    # divided by its width; None: one launch); resample() and
     # laplace_resample() work through the paths in blocks of it
     max_paths_per_launch: Optional[int] = None
 
@@ -314,6 +319,7 @@ def multipathfinder(
     gtol: float = 1e-8,
     dtype: Optional[torch.dtype] = None,
     device: Union[str, torch.device] = "cuda",
+    mesh: Optional[Mesh] = None,
     max_paths_per_launch: Optional[int] = None,
     keep_traces: bool = True,
     offload_launches: Optional[bool] = None,
@@ -345,6 +351,16 @@ def multipathfinder(
     ``device`` chooses where every tensor lives. The default, ``"cuda"``,
     runs the two Woodbury kernels on the card and raises when CUDA is not
     available; ``device="cpu"`` runs their plain torch versions.
+
+    ``mesh`` (``parallel.sharding.paths_mesh``) splits every launch's lanes
+    over the mesh's ``paths`` axis, one block a device, each run from a host
+    thread of its own, and gathers the states on the mesh's first device,
+    where the PSIS tail, ``resample`` and ``laplace_resample`` then run:
+    ``device`` must be that device. The paths are padded to a multiple of
+    the mesh's width, and ``max_paths_per_launch`` counts lanes over the
+    whole mesh (rounded down to a multiple of its width); on a CUDA device
+    its default comes from each block's share of its device's memory. A
+    mesh with a ``dim`` axis raises ``NotImplementedError``.
     ``ndraws_per_run`` defaults to ``max(ndraws_elbo, ceil(ndraws / nruns))``.
     ``importance_denominator``: ``"component"`` weighs each pooled draw
     against its own component, ``"mixture"`` against the whole mixture.
@@ -372,9 +388,7 @@ def multipathfinder(
     candidate reached the threshold, and keeps the correction only if k̂
     improves.
     """
-    bad = sorted(k for k in config_overrides if k in _NOT_PORTED)
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    check_mesh(mesh)
     # auto-mode candidate runs suppress the bad-k̂ hint: only the winner warns
     suppress_khat_hint = config_overrides.pop("_suppress_khat_hint", False)
     auto = _pop_auto_options(config_overrides, importance)
@@ -385,7 +399,7 @@ def multipathfinder(
             importance=importance, importance_denominator=importance_denominator,
             history_length=history_length, maxiters=maxiters, ntries=ntries,
             init_scale=init_scale, init_sampler=init_sampler, gtol=gtol,
-            dtype=dtype, device=device, max_paths_per_launch=max_paths_per_launch,
+            dtype=dtype, device=device, mesh=mesh, max_paths_per_launch=max_paths_per_launch,
             keep_traces=keep_traces, offload_launches=offload_launches, progress=progress,
         )
         winner = _run_auto(fn, ndraws, auto, shared, config_overrides)
@@ -397,6 +411,15 @@ def multipathfinder(
     if importance_denominator not in ("component", "mixture"):
         raise ValueError(f"unknown importance_denominator {importance_denominator!r}")
     dev = resolve_device(device)
+    if mesh is not None:
+        first = paths_devices(mesh)[0]
+        if indexed_device(dev) != first:
+            raise ValueError(
+                f"device={str(device)!r} is not the mesh's first device, {first}, where the "
+                "states are gathered and the PSIS tail runs; pass device="
+                f"{str(first)!r}"
+            )
+        dev = first
     if init is not None:
         init = torch.as_tensor(init, device=dev)
         if dim is None and init.ndim == 2:
@@ -457,26 +480,37 @@ def multipathfinder(
     cap, offload = max_paths_per_launch, offload_launches
     if dev.type == "cuda" and (cap is None or offload is None):
         cap, offload = plan_launches(
-            nruns,
+            pad_paths(nruns, mesh),
             lane_bytes(d, maxiters, history_length, ndraws_elbo, config.elbo_chunk,
                        ndraws_per_run, dtype, config.optimizer, importance_denominator, nruns),
             state_bytes(d, maxiters, history_length, ndraws_per_run, dtype, keep_traces),
-            device_memory_bytes(dev), cap=cap, offload=offload,
+            device_memory_bytes(dev) if mesh is None else mesh_device_bytes(mesh),
+            cap=cap, offload=offload, width=paths_width(mesh),
         )
+    # the PSIS tail's blocks: a launch's lanes on one device, the share its
+    # memory was planned for (and the blocks of the run without a mesh)
+    device_cap = None if cap is None else max(cap // paths_width(mesh), 1)
+    # slimmed per launch (and per block, on its device), so that a launch's
+    # trace is freed before the next
+    executor = make_path_executor(mesh, finish=None if keep_traces else _slim_traces)
 
     def run_round(path_ids: torch.Tensor, round_idx: int) -> SinglePathState:
+        n = path_ids.shape[0]
         if init is not None and round_idx == 0:
             x0s = init.to(dtype)
         else:
             stream = rng.Stream(seed, path_ids, round_idx, rng.INIT)
             x0s = sampler(stream, d, dtype, dev)
+        pad = pad_paths(n, mesh) - n
+        if pad:  # lanes for the whole mesh, repeating the leading paths
+            rep = torch.arange(pad, device=dev) % n
+            path_ids, x0s = torch.cat([path_ids, path_ids[rep]]), torch.cat([x0s, x0s[rep]])
 
         def launch(ids, x):
-            st = pathfinder_core(target, x, config, seed, ids, round_idx)
-            # slimmed per launch, so that a launch's trace is freed before the next
-            return st if keep_traces else _slim_traces(st)
+            return executor(ids, x, target, config, seed, round_idx)
 
-        return chunk_launches(launch, cap, bool(offload))(path_ids, x0s)
+        states = chunk_launches(launch, cap, mesh, bool(offload))(path_ids, x0s)
+        return tree_map(lambda t: t[:n], states) if pad else states
 
     reporter = ThrottledProgress(nruns, name="Multi-path Pathfinder") if progress else None
     states = run_round(torch.arange(nruns, device=dev), 0)
@@ -518,7 +552,7 @@ def multipathfinder(
     psis_result = (
         _compute_psis_result(
             target.logp, components, draws_knd, denominator=importance_denominator,
-            chunk=cap, device=dev,
+            chunk=device_cap, device=dev,
         )
         if importance
         else None
@@ -547,7 +581,7 @@ def multipathfinder(
         fit_distribution_transformed=fit_t,
         draws_transformed=draws_t,
         transform=tld,
-        max_paths_per_launch=cap,
+        max_paths_per_launch=device_cap,
     )
 
 

@@ -119,22 +119,34 @@ _launches_by_shape = {name: collections.Counter() for name in _launches}
 _libs = {}  # source name -> the loaded library
 _lib_logs = {}  # source name -> what nvcc (ptxas -v) said when it built it
 _lib_lock = threading.Lock()
+# the counts are updated from every thread that launches (one per mesh entry)
+_count_lock = threading.Lock()
 
 
 def launch_counts() -> dict:
-    return dict(_launches)
+    with _count_lock:
+        return dict(_launches)
 
 
 def launch_counts_by_shape() -> dict:
     """``{kernel: {(B, m, N, shared): launches}}`` since the last reset;
     ``shared`` marks B2 launches over a shared ``x`` of ``N`` columns."""
-    return {name: dict(c) for name, c in _launches_by_shape.items()}
+    with _count_lock:
+        return {name: dict(c) for name, c in _launches_by_shape.items()}
 
 
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
-        _launches_by_shape[name].clear()
+    with _count_lock:
+        for name in _launches:
+            _launches[name] = 0
+            _launches_by_shape[name].clear()
+
+
+def _count(name: str, shape: tuple) -> None:
+    """One launch of ``name`` at ``shape`` ``(B, m, N, shared)``."""
+    with _count_lock:
+        _launches[name] += 1
+        _launches_by_shape[name][shape] += 1
 
 
 # -- plain versions -----------------------------------------------------------
@@ -678,12 +690,17 @@ def general_kernel_resources() -> dict:
     """The same for the general source: ``{(name, dtype, NT): {...}}`` with
     ``name`` ``sample_and_logq_general`` or ``whiten_sumsq_general``
     (``factor_kernel``, NT its column tile) and ``dtype`` the storage dtype's
-    name."""
+    name, ``float32 (float64 sums)`` for the instantiation float32 takes at
+    m >= d."""
     load_general_library()
     names = ("sample_and_logq_general", "whiten_sumsq_general")
+
+    def key(t, mode, nt, sums):
+        wide = " (float64 sums)" if sums == "d" and t != "d" else ""
+        return names[int(mode)], _MANGLED_DTYPES[t] + wide, int(nt)
+
     return _ptxas_resources(_lib_logs[_GENERAL_SOURCE.name],
-                            rf"factor_kernelI{_MANGLED}Li(\d)ELi(\d)E",
-                            lambda t, mode, nt: (names[int(mode)], _MANGLED_DTYPES[t], int(nt)))
+                            rf"factor_kernelI{_MANGLED}Li(\d)ELi(\d)E(f|d)", key)
 
 
 # the shared-x kernel's modes (csrc/woodbury_shared.cu: kRank0, kOne, kWin)
@@ -775,8 +792,7 @@ def _launch(name, entry, tensors, plan, device, B, d, m, N):
         stream = torch.cuda.current_stream().cuda_stream
         code = entry(*pointers, B, d, m, N, *plan, stream)
     _check_code(name, code, plan)
-    _launches[name] += 1
-    _launches_by_shape[name][(B, m, N, False)] += 1
+    _count(name, (B, m, N, False))
 
 
 def _workspace(plan_ws, ctas, words, dtype, device):
@@ -804,8 +820,7 @@ def _launch_general(name, entry, tensors, device, B, d, m, N, plan=None):
         code = entry(_DTYPE_CODES[dtype], *pointers, B, d, m, N, *tuple(plan)[:8],
                      None if work is None else work.data_ptr(), stream)
     _check_code(name + "_general", code, plan)
-    _launches[name + "_general"] += 1
-    _launches_by_shape[name + "_general"][(B, m, N, False)] += 1
+    _count(name + "_general", (B, m, N, False))
 
 
 def _shared_ctas(plan: SharedPlan, B: int, P: int, num_sms: int) -> int:
@@ -829,8 +844,7 @@ def _launch_shared(entry, tensors, device, B, d, m, P, plan=None):
                      int(plan.ws), plan.smem, ctas, None if work is None else work.data_ptr(),
                      stream)
     _check_code("whiten_sumsq_shared", code, plan)
-    _launches["whiten_sumsq_shared"] += 1
-    _launches_by_shape["whiten_sumsq_shared"][(B, m, P, True)] += 1
+    _count("whiten_sumsq_shared", (B, m, P, True))
 
 
 def sample_and_logq(u, a_half, X, C, mu, logdet):

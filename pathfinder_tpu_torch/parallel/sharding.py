@@ -1,18 +1,31 @@
-"""Serving-scale launches over the paths axis (counterpart of
-``pathfinder_tpu/parallel/sharding.py``, without the device mesh).
+"""Path parallelism: the device mesh's paths axis and serving-scale launches
+(counterpart of ``pathfinder_tpu/parallel/sharding.py``; the ``dim`` axis,
+``paths_dim_mesh`` and ``parallel/dim_sharding.py``, is not ported yet).
+
+Across devices, a :class:`Mesh` with a ``paths`` axis splits each launch's
+lanes into one contiguous block per mesh entry, the counterpart of the JAX
+package's ``shard_map`` over ``P("paths")``: :func:`make_path_executor` runs
+each block on its device from a host thread of its own (so that one device's
+syncs overlap another's host work) and gathers the blocks, in block order,
+onto the mesh's first device. Paths never communicate, so a block is the
+unsharded run of its lanes: at a fixed per-device launch width every bit is
+that of the run without a mesh. A mesh may name one device several times;
+its blocks then share that device, as the JAX tests' virtual CPU devices
+share the host.
 
 Tens of thousands of paths do not fit one batch: one lane's trace, history
 and ELBO chunk are megabytes at d=1000. :func:`chunk_launches` runs a batch
 of paths as launches of one fixed lane count, and can stream each launch's
 output into host memory as it completes, so that the card holds one or two
 launches and never the whole pool. Every random number of a path comes from
-its ``(seed, path id, round)`` streams, so the cap and the offload change no
-random number. Offload changes no bit. The cap can change the last bits (on
-a CUDA device a kernel's launch plan and a library's algorithm follow the
-batch), and through them, rarely, a decision that sits on a tie, such as
-the step at which a path's ``ftol`` test stops it.
+its ``(seed, path id, round)`` streams, so the cap, the mesh and the offload
+change no random number. Offload changes no bit. The per-device launch width
+can change the last bits (on a CUDA device a kernel's launch plan and a
+library's algorithm follow the batch), and through them, rarely, a decision
+that sits on a tie, such as the step at which a path's ``ftol`` test stops
+it.
 
-The defaults come from this card's memory: :func:`plan_launches` takes the
+The defaults come from the card's memory: :func:`plan_launches` takes the
 card's total memory, a per-lane estimate of one launch's peak
 (:func:`lane_bytes`) and of the state a lane keeps (:func:`state_bytes`),
 all three fixed for a card and a configuration. The plan is taken from the
@@ -27,13 +40,26 @@ sizes its blocks by its own estimate, :func:`laplace_lane_bytes`.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-from pathfinder_tpu_torch.utils.misc import tree_map
+from pathfinder_tpu_torch.singlepath import pathfinder_core
+from pathfinder_tpu_torch.utils.misc import indexed_device, resolve_device, tree_map
 
 __all__ = [
+    "Mesh",
+    "paths_mesh",
+    "make_path_executor",
+    "paths_devices",
+    "paths_width",
+    "run_on_devices",
+    "check_mesh",
+    "mesh_device_bytes",
     "pad_paths",
     "chunk_launches",
     "lane_bytes",
@@ -44,6 +70,8 @@ __all__ = [
     "device_memory_bytes",
     "LAUNCH_SHARE",
     "OFFLOAD_SHARE",
+    "PATHS_AXIS",
+    "DIM_AXIS",
 ]
 
 # Of the card's memory: what one launch's estimated peak may take (the rest
@@ -54,19 +82,105 @@ LAUNCH_SHARE = 0.5
 OFFLOAD_SHARE = 0.25
 
 
-def pad_paths(n: int, cap: Optional[int] = None) -> int:
-    """Lanes that ``n`` paths occupy in launches of ``cap`` lanes: ``n``
-    rounded up to whole launches (``n`` itself without a cap). The padding
-    lanes repeat the leading paths and their results are dropped."""
-    if cap is None or cap >= n:
-        return n
-    return -(-n // cap) * cap
+PATHS_AXIS = "paths"
+DIM_AXIS = "dim"
 
 
-def chunk_launches(executor: Callable, cap: Optional[int], offload: bool = False) -> Callable:
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """Devices in an array with named axes, the counterpart of
+    ``jax.sharding.Mesh``: ``devices`` is a numpy array of
+    ``torch.device``s with one dimension per name in ``axis_names``. Every
+    CUDA device carries its index, and every entry is of one device type.
+    An entry may repeat."""
+
+    devices: np.ndarray
+    axis_names: tuple
+
+    def __post_init__(self):
+        devices = np.asarray(self.devices, dtype=object)
+        flat = [indexed_device(resolve_device(d)) for d in devices.flat]
+        if not flat:
+            raise ValueError("a mesh needs at least one device")
+        if len({d.type for d in flat}) != 1:
+            raise ValueError(f"a mesh's devices are of one type; got {flat}")
+        arr = np.empty(devices.shape, dtype=object)
+        arr.flat[:] = flat
+        names = tuple(self.axis_names)
+        if arr.ndim != len(names):
+            raise ValueError(f"{arr.ndim}-dimensional devices for the axes {names}")
+        object.__setattr__(self, "devices", arr)
+        object.__setattr__(self, "axis_names", names)
+
+    @property
+    def shape(self) -> dict:
+        """``{axis name: width}``, in axis order."""
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return self.devices.size
+
+
+def paths_mesh(devices=None) -> Mesh:
+    """A 1-D mesh with a ``paths`` axis over ``devices`` (torch devices or
+    their names), by default every CUDA device, ``cuda:0`` to ``cuda:n−1``.
+    Without CUDA the default raises: nothing falls back to the CPU. A device
+    named several times gives a mesh of several blocks on it (``["cpu"] *
+    4``, or ``["cuda:0"] * 2`` on one card)."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("paths_mesh() names every CUDA device, but CUDA is not available")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    arr = np.empty(len(devices), dtype=object)
+    arr[:] = list(devices)
+    return Mesh(arr, (PATHS_AXIS,))
+
+
+def check_mesh(mesh: Optional[Mesh]) -> None:
+    """Raise for a mesh the port cannot run yet: one with a ``dim`` axis."""
+    if mesh is not None and DIM_AXIS in mesh.axis_names:
+        raise NotImplementedError(f"not ported yet: the '{DIM_AXIS}' mesh axis")
+
+
+def paths_width(mesh: Optional[Mesh]) -> int:
+    """Blocks a launch splits into: the ``paths`` axis's width, or every
+    device of a mesh without one (1 without a mesh)."""
+    if mesh is None:
+        return 1
+    return mesh.shape.get(PATHS_AXIS, mesh.size)
+
+
+def paths_devices(mesh: Mesh) -> list:
+    """The device of each block: along the ``paths`` axis, the first entry
+    of the other axes (which replicate); every device of a mesh without a
+    ``paths`` axis."""
+    if PATHS_AXIS not in mesh.axis_names:
+        return list(mesh.devices.flat)
+    along = np.moveaxis(mesh.devices, mesh.axis_names.index(PATHS_AXIS), 0)
+    return list(along.reshape(along.shape[0], -1)[:, 0])
+
+
+def pad_paths(n: int, mesh: Optional[Mesh] = None, cap: Optional[int] = None) -> int:
+    """Lanes that ``n`` paths occupy: ``n`` rounded up to a multiple of the
+    mesh's ``paths`` width, then, with a ``cap`` below that, to whole
+    launches of ``cap`` lanes. The padding lanes repeat the leading paths
+    and their results are dropped."""
+    size = paths_width(mesh)
+    K = -(-n // size) * size
+    if cap is None or cap >= K:
+        return K
+    return -(-K // cap) * cap
+
+
+def chunk_launches(executor: Callable, cap: Optional[int], mesh: Optional[Mesh] = None,
+                   offload: bool = False) -> Callable:
     """Wrap ``executor(path_ids (B,), x0s (B, d)) -> state`` (batched over
     ``B``) so that a batch of more than ``cap`` paths runs as launches of
     ``cap`` lanes each, the last padded by repeating the leading lanes.
+    ``cap`` counts lanes over the whole mesh: it is rounded down to a
+    multiple of the mesh's ``paths`` width, never below one lane a block,
+    so that every launch uses the whole mesh.
 
     The chunks' outputs are written into buffers of the batch's own row
     count, one per leaf: on the device, or with ``offload`` in host memory
@@ -79,6 +193,9 @@ def chunk_launches(executor: Callable, cap: Optional[int], offload: bool = False
     """
     if cap is not None and cap <= 0:
         raise ValueError(f"max_paths_per_launch must be positive; got {cap}")
+    if cap is not None:
+        size = paths_width(mesh)
+        cap = max((cap // size) * size, size)
 
     def run(path_ids: torch.Tensor, x0s: torch.Tensor):
         K = path_ids.shape[0]
@@ -86,7 +203,7 @@ def chunk_launches(executor: Callable, cap: Optional[int], offload: bool = False
         n_chunks = -(-K // c)
         if n_chunks == 1 and not offload:
             return executor(path_ids, x0s)
-        pad = pad_paths(K, c) - K
+        pad = n_chunks * c - K
         if pad:
             path_ids = torch.cat([path_ids, path_ids[:pad]])
             x0s = torch.cat([x0s, x0s[:pad]])
@@ -130,6 +247,89 @@ def chunk_launches(executor: Callable, cap: Optional[int], offload: bool = False
         return bufs
 
     return run
+
+
+def make_path_executor(mesh: Optional[Mesh] = None, finish: Optional[Callable] = None):
+    """Build ``executor(path_ids (K,), x0s (K, d), target, config, seed,
+    round_idx) -> SinglePathState`` batched over the ``K`` lanes.
+
+    Without a mesh it runs ``pathfinder_core`` on the lanes where ``x0s``
+    lies. With a mesh, ``K`` must divide by its ``paths`` width
+    (:func:`pad_paths`): the lanes split into that many contiguous blocks,
+    block ``i`` moves to the ``i``-th device and runs there from a host
+    thread of its own, on the stream the caller has current on that device,
+    and the blocks are gathered in block order onto the mesh's first device.
+    ``finish`` (``keep_traces=False`` slims the traces) is applied to each
+    block on its device before the gather. An exception in any block
+    propagates once every block has ended; no block is retried elsewhere."""
+    check_mesh(mesh)
+
+    def one(path_ids, x0s, target, config, seed, round_idx):
+        st = pathfinder_core(target, x0s, config, seed, path_ids, round_idx)
+        return st if finish is None else finish(st)
+
+    if mesh is None:
+        return one
+    size = paths_width(mesh)
+    devices = paths_devices(mesh)
+
+    def sharded(path_ids, x0s, target, config, seed, round_idx):
+        K = path_ids.shape[0]
+        if K % size:
+            raise ValueError(
+                f"{K} lanes do not divide over the {size}-wide '{PATHS_AXIS}' mesh axis; "
+                "pad them with pad_paths"
+            )
+        per = K // size
+
+        def block(i, dev):
+            lo = i * per
+            return one(path_ids[lo:lo + per].to(dev), x0s[lo:lo + per].to(dev), target, config,
+                       seed, round_idx)
+
+        blocks = run_on_devices(devices, block)
+        if size == 1:
+            return blocks[0]
+        first = devices[0]
+        return tree_map(lambda *ts: torch.cat([t.to(first) for t in ts]), *blocks)
+
+    return sharded
+
+
+def run_on_devices(devices: list, fn: Callable) -> list:
+    """``[fn(i, devices[i]) for i ...]``, each call from a host thread of its
+    own (one device: the calling thread) with its device current. On CUDA
+    devices a thread enters the caller's current stream on every device, so
+    that its work and the caller's are ordered on one stream a device; on the
+    CPU it takes the caller's intra-op thread count, which a new thread does
+    not inherit. An exception in any call propagates once every call has
+    ended."""
+    streams = [torch.cuda.current_stream(d) for d in dict.fromkeys(devices) if d.type == "cuda"]
+    threads = torch.get_num_threads()
+
+    def call(i):
+        with contextlib.ExitStack() as stack:
+            if devices[i].type == "cuda":
+                for s in streams:
+                    stack.enter_context(torch.cuda.stream(s))
+                stack.enter_context(torch.cuda.device(devices[i]))
+            else:
+                torch.set_num_threads(threads)
+            return fn(i, devices[i])
+
+    if len(devices) == 1:
+        return [call(0)]
+    with ThreadPoolExecutor(max_workers=len(devices), thread_name_prefix="pathfinder-mesh") as pool:
+        futures = [pool.submit(call, i) for i in range(len(devices))]
+        return [f.result() for f in futures]
+
+
+def mesh_device_bytes(mesh: Mesh) -> int:
+    """The memory a block of ``mesh`` may plan with: the smallest device
+    total divided by the blocks it holds (a device named twice runs two
+    blocks at once)."""
+    devices = paths_devices(mesh)
+    return min(device_memory_bytes(d) // devices.count(d) for d in set(devices))
 
 
 def state_bytes(d: int, maxiters: int, history_length: int, ndraws: int,
@@ -226,7 +426,7 @@ def laplace_block(K: int, d: int, ndraws_per_run: int, dtype, method: str, devic
 
 
 def plan_launches(K: int, peak_per_lane: int, state_per_lane: int, device_bytes: int,
-                  cap: Optional[int] = None, offload: Optional[bool] = None):
+                  cap: Optional[int] = None, offload: Optional[bool] = None, width: int = 1):
     """``(cap, offload)`` for ``K`` paths on a card of ``device_bytes`` of
     memory. A ``cap`` or ``offload`` that is given is kept.
 
@@ -234,11 +434,16 @@ def plan_launches(K: int, peak_per_lane: int, state_per_lane: int, device_bytes:
     fits in ``LAUNCH_SHARE`` of the card's memory, split evenly (``None``:
     one launch). Without an offload choice the states go to the host when
     the run is chunked and the states of all ``K`` lanes would pass
-    ``OFFLOAD_SHARE`` of it."""
+    ``OFFLOAD_SHARE`` of it. On a mesh of ``width`` blocks the fit is a
+    block's, ``ceil(K / width)`` lanes against ``device_bytes`` (a block's
+    memory, :func:`mesh_device_bytes`), the cap counts lanes over the mesh,
+    and the states of all ``K`` lanes, gathered on the first device, count
+    against its share."""
     if cap is None:
+        Kd = -(-K // width)
         fit = max(1, int(LAUNCH_SHARE * device_bytes) // max(1, peak_per_lane))
-        n_chunks = -(-K // fit)
-        cap = None if n_chunks == 1 else -(-K // n_chunks)
+        n_chunks = -(-Kd // fit)
+        cap = None if n_chunks == 1 else -(-Kd // n_chunks) * width
     if offload is None:
         chunked = cap is not None and cap < K
         offload = chunked and K * state_per_lane > OFFLOAD_SHARE * device_bytes

@@ -6,7 +6,7 @@ import dataclasses
 
 import torch
 
-__all__ = ["findmax_skipnan", "tree_map", "resolve_device"]
+__all__ = ["findmax_skipnan", "tree_map", "resolve_device", "indexed_device"]
 
 
 def findmax_skipnan(values: torch.Tensor, valid_mask=None):
@@ -73,4 +73,11 @@ def resolve_device(device) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cpu' or 'cuda'")
+    return dev
+
+
+def indexed_device(dev: torch.device) -> torch.device:
+    """``dev`` with its index: ``cuda`` is the current CUDA device."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
     return dev

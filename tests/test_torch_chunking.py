@@ -188,7 +188,7 @@ def test_memory_rule_is_a_pure_function_of_device_memory():
     # a smaller card, a smaller cap; f64 doubles the floats
     assert sharding.plan_launches(32768, peak, slim, card // 4)[0] < cap
     assert sharding.lane_bytes(1000, 64, 6, 5, 8, 5, torch.float64) > peak
-    assert sharding.pad_paths(9) == 9 and sharding.pad_paths(9, 4) == 12 and sharding.pad_paths(9, 9) == 9
+    assert sharding.pad_paths(9) == 9 and sharding.pad_paths(9, cap=4) == 12 and sharding.pad_paths(9, cap=9) == 9
 
 
 @pytest.mark.parametrize("keep_traces", [True, False])

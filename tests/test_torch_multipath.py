@@ -218,13 +218,17 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_unported_options_raise():
-    """Only the device mesh is still to port; the serving-scale options of
-    the JAX entry point are taken."""
+    """Only the device mesh's ``dim`` axis is still to port; the serving-scale
+    options of the JAX entry point and a mesh over the paths are taken."""
+    from pathfinder_tpu_torch.parallel.sharding import Mesh, paths_mesh
+
     t = tzoo.StandardNormal(4)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        multipathfinder(t, 10, nruns=2, maxiters=3, device="cpu", mesh=None)
+    dim_mesh = Mesh(np.array([["cpu", "cpu"]], dtype=object), ("paths", "dim"))
+    with pytest.raises(NotImplementedError, match="'dim' mesh axis"):
+        multipathfinder(t, 10, nruns=2, maxiters=3, device="cpu", mesh=dim_mesh)
     r = multipathfinder(t, 10, nruns=3, maxiters=3, device="cpu", max_paths_per_launch=2,
-                        keep_traces=False, offload_launches=True, progress=False, progress_every=0)
+                        keep_traces=False, offload_launches=True, progress=False, progress_every=0,
+                        mesh=paths_mesh(["cpu"]))
     assert r.max_paths_per_launch == 2 and r.states.trace.xs.shape == (3, 0, 4)
 
 

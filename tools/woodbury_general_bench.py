@@ -55,17 +55,13 @@ def say(line):
 
 def cases():
     """``(name, label, B, d, m, N, dtype, timed)`` of every per-factor case,
-    and of the inputs drawn and not used between them
-    (``chip_smoke.GENERAL_SHARED_DRAWS``, name ``drawn``), in
-    ``chip_smoke.py``'s order, so that every case gets the same inputs as
+    in ``chip_smoke.py``'s order, so that every case gets the same inputs as
     there."""
     for dt_name in cs.GENERAL_DTYPES:
         for m in cs.GENERAL_RANKS:
             for name, shapes in (("sample_and_logq", cs.GENERAL_B1), ("whiten_sumsq", cs.GENERAL_B2)):
                 for label, B, d, N in shapes:
                     yield name, label, B, d, m, N, getattr(torch, dt_name), d == cs.D
-            for B, d, N in cs.GENERAL_SHARED_DRAWS:
-                yield "drawn", "odd" if d == 999 else "", B, d, m, N, getattr(torch, dt_name), False
     for label, B, d, m, N in cs.CONFIG2_B1:
         yield "sample_and_logq", label, B, d, m, N, torch.float32, True
     for label, B, d, m, N in cs.GENERAL_WINNER_B1:
@@ -129,28 +125,11 @@ def run_case(mod, name, args, plan=None):
 def one_case(rng, name, label, B, d, m, N, dtype, timed, opts, parent):
     """Check one case and time it; raises SystemExit (from ``cs.fail``) on a
     wrong result."""
-    offset = 1 if label.startswith("odd") else 0
-    if name == "drawn":  # inputs chip_smoke.py draws and does not use
-        cs._seeded_inputs(rng, B, d, m, N, dtype, True, offset)
-        return
-    args = cs._seeded_inputs(rng, B, d, m, N, dtype, False, offset)
+    draws = cs.general_inputs(rng, B, d, m, N, dtype, offset=1 if label.startswith("odd") else 0)
     plan = wk._general_rows_plan(B, d, m, N, dtype, wk._num_sms(0))
     tag = f"{name} [{label} B={B} d={d} m={m} N={N} {str(dtype).replace('torch.', '')}]"
-    got = run_case(wk, name, args)
-    if name == "sample_and_logq":
-        want = wk.sample_and_logq_torch(*args)
-        torch.cuda.synchronize()
-        err = max(cs.check_general(f"{tag} x", got[0], want[0], dtype),
-                  cs.check_general(f"{tag} logq", got[1], want[1], dtype))
-        again = run_case(wk, name, args)
-        same = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
-    else:
-        want = wk.whiten_sumsq_torch(*args[:5])
-        torch.cuda.synchronize()
-        err = cs.check_general(tag, got, want, dtype)
-        same = torch.equal(got, run_case(wk, name, args))
-    if not same:
-        cs.fail(f"{tag}: a repeated launch gave other bits")
+    err = max(cs.check_general_case(wk, name, tag, a, dtype) for a in draws)
+    args = draws[-1]
     line = f"{tag} plan={tuple(plan)} max_abs_err={err:.3e}"
     if timed and not opts.no_time:
         plain_fn = ((lambda: wk.sample_and_logq_torch(*args)) if name == "sample_and_logq" else
@@ -211,7 +190,7 @@ def main():
     failed = 0
     t0 = time.perf_counter()
     for case in cases():
-        if opts.only and case[0] != "drawn" and not any(
+        if opts.only and not any(
                 part in f"{case[0]} {case[1]} m={case[4]} {case[6]}" for part in opts.only.split(",")):
             continue
         try:
