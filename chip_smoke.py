@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path, its k̂-remedy path, its warm-start
 path (constrained models, NUTS and HMC from a Pathfinder result) and the
-paths axis of its device mesh on one CUDA card, and check them.
+paths and dim axes of its device mesh on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -86,11 +86,27 @@ Phases, each of which fails the run (exit code 1) on any error:
    (the same per-device width), with the component and with the mixture
    denominator, bitwise equal at every stage and launching the kernels as
    often; then ``nuts_chains`` on 4 chains warm-started from the headline
-   result over the mesh (100 + 100 transitions), bitwise equal to two
+   result over the mesh (50 + 50 transitions), bitwise equal to two
    unsharded ``nuts`` calls with chain ids 0–1 and 2–3. Each run's wall time
    and peak device memory are printed beside the card's name and power
    limit.
-9. Dtypes and ranks, the general kernel's paths: BASELINE config 2
+9. The dim axis of the mesh. First, with the kernel phases: B1 split in row
+   blocks, its partial (t = X_rᵀu_r and ‖u_r‖² of each block), the sums in
+   rank order and its resume (x on each block, logq from the summed ‖u‖²
+   and the full d), at the ELBO shape (800, 12, 5) with d = 1000 in 2 and 4
+   blocks, fast float32 and general float64, against the plain split
+   (``sample_and_logq_partial_torch``/``_resume_torch``) and the unsplit
+   kernel at the tolerances above, a repeat bitwise equal, one block's
+   launches timed L2-cold beside their plain versions and bounds, with the
+   plan each takes. Then the headline over ``paths_dim_mesh(1, ["cuda:0"] *
+   2)`` on 3 seeds and ``paths_dim_mesh(2, ["cuda:0"] * 4)`` on seed 0:
+   every path, the median k̂ and moment error in the headline band, both
+   split modes launched in every run, each mesh's repeat bitwise equal at
+   every stage; a ``(2, 1)`` mesh bitwise ``paths_mesh(["cuda:0"] * 2)``;
+   the float64 headline on the ``(1, 2)`` mesh against the unsharded run
+   (paths with the same fit iteration). Walls and peak device memory beside
+   the card's name and power limit.
+10. Dtypes and ranks, the general kernel's paths: BASELINE config 2
    (``pathfinder(CorrelatedGaussian(100), history_length=20)``) on 5 seeds
    with its moment errors inside the JAX band, ``history_length=50``, the
    headline at ``history_length`` 20 and 50, in float64 on 5 seeds (k̂ and
@@ -99,7 +115,7 @@ Phases, each of which fails the run (exit code 1) on any error:
    package's warning and outcome; each run launches the general kernel and
    never the fast one, and the earlier float32 phases never launch the
    general one.
-10. The memory rule: a chunked BFGS run and a blocked ``laplace_resample``
+11. The memory rule: a chunked BFGS run and a blocked ``laplace_resample``
    at d = 1000 under the rule's own choice, each estimate at least the
    measured peak and at most twice it.
 
@@ -1687,7 +1703,9 @@ def memory_rule_phase(pt, zoo):
 # the same per-device width, so bitwise equal at every stage; and nuts_chains
 # over the mesh against unsharded blocks with the same chain ids.
 MESH_BLOCKS = 2
-MESH_NUTS_WARMUP = MESH_NUTS_SAMPLES = 100
+# 50 + 50 transitions: short, since the whole script must end within its time
+# limit; the comparison is bitwise at every transition
+MESH_NUTS_WARMUP = MESH_NUTS_SAMPLES = 50
 
 
 def _bitwise_equal(a, b) -> bool:
@@ -1778,6 +1796,256 @@ def mesh_phase(pt, wk, zoo, headline, smi):
     return totals
 
 
+# The dim axis (phase 9): B1's row-split modes at the main path's ELBO shape,
+# (800, 12, 5) at d = 1000 in row blocks of 500 and 250, fast float32 and
+# general float64; then the headline over a (paths, dim) mesh on the one card.
+DIM_SPLIT_CASES = (("float32", 2), ("float32", 4), ("float64", 2), ("float64", 4))
+DIM_SEEDS = SEEDS[:3]  # the (1, 2) mesh's headline seeds, beside one run of the (2, 2) mesh
+SPLIT_KERNELS = ("sample_and_logq_partial", "sample_and_logq_resume")
+
+
+def split_bound_us(mode, B, d_r, m, N, itemsize):
+    """The bound of one row-block launch (as :func:`bound_us`): the partial
+    reads u and X and writes t and ‖u‖² (in the accumulation type); the
+    resume reads u, X, a½, μ, C, logdet, t and ‖u‖² and writes x and logq."""
+    acc = 8 if itemsize == 8 else 4
+    if mode == "partial":
+        moved = itemsize * B * d_r * (N + m) + acc * B * N * (m + 1)
+        flops = B * N * (2 * d_r * m + 2 * d_r)
+    else:
+        moved = (itemsize * (B * d_r * (2 * N + m + 2) + B * m * m + B + B * N)
+                 + acc * B * N * (m + 1))
+        flops = B * N * (2 * m * m + 2 * d_r * m + 4 * d_r)
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = flops / (F64_FLOPS_PER_S if itemsize == 8 else F32_FLOPS_PER_S)
+    return 1e6 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _split_run(wk, args, blocks, kernel=True, plan=None):
+    """B1 on ``args`` (u, a½, X, C, μ, logdet) split in ``blocks`` row blocks:
+    the partial of every block, the sums in rank order (as a row group sums
+    them), the resume of every block; ``(x, logq)``, on the kernels or on the
+    plain split. Fails if the blocks' logq differ."""
+    import torch
+
+    u, a_half, X, C, mu, logdet = args
+    d = u.shape[1]
+    r = d // blocks
+    cut = [(slice(None), slice(j * r, (j + 1) * r)) for j in range(blocks)]
+    if kernel:
+        partial = lambda u_, X_: wk._sample_and_logq_partial_cuda(u_, X_, d, plan=plan)  # noqa: E731
+        resume = lambda *a: wk._sample_and_logq_resume_cuda(*a, plan=plan)  # noqa: E731
+    else:
+        partial, resume = wk.sample_and_logq_partial_torch, wk.sample_and_logq_resume_torch
+    parts = [partial(u[c].contiguous(), X[c].contiguous()) for c in cut]
+    t, usq = parts[0]
+    for p in parts[1:]:
+        t, usq = t + p[0], usq + p[1]
+    outs = [resume(u[c].contiguous(), a_half[c].contiguous(), X[c].contiguous(), C,
+                   mu[c].contiguous(), logdet, t, usq, d) for c in cut]
+    if any(not torch.equal(o[1], outs[0][1]) for o in outs):
+        fail(f"B1 split in {blocks} blocks: the blocks' logq differ")
+    return torch.cat([o[0] for o in outs], dim=1), outs[0][1]
+
+
+def check_split_case(wk, tag, args, blocks, dtype, plan=None):
+    """B1 split on the kernels against the plain split and the unsplit kernel
+    (the general kernel where ``plan`` is given), a repeat bitwise equal; at
+    float32 with m >= d against the float64 plain version instead (as
+    :func:`check_general_case`). The max abs error."""
+    import torch
+
+    m, d = args[2].shape[-1], args[2].shape[-2]
+    got = _split_run(wk, args, blocks, plan=plan)
+    torch.cuda.synchronize()
+    if dtype == torch.float32 and m >= d:
+        want = wk.sample_and_logq_torch(*(a.double() for a in args))
+        err = max(check_general(f"B1 split [{tag}] x", got[0], want[0], dtype),
+                  check_general(f"B1 split [{tag}] logq", got[1], want[1], dtype))
+    else:
+        plain = _split_run(wk, args, blocks, kernel=False)
+        whole = wk._sample_and_logq_cuda(*args, general=True if plan else None, plan=plan)
+        err = max(check_general(f"B1 split [{tag}] x", got[0], plain[0], dtype),
+                  check_general(f"B1 split [{tag}] logq", got[1], plain[1], dtype),
+                  check_general(f"B1 split against unsplit [{tag}] x", got[0], whole[0], dtype),
+                  check_general(f"B1 split against unsplit [{tag}] logq", got[1], whole[1],
+                                dtype))
+    again = _split_run(wk, args, blocks, plan=plan)
+    if not (torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])):
+        fail(f"B1 split [{tag}]: a repeat gave other bits")
+    return err
+
+
+# B1's split modes on the kernels' other routes, in 2 blocks, untimed: every
+# dtype at every rank of GENERAL_RANKS on (8, 1000, m, 5) (float32 m = 0 and
+# 12 on the fast kernel, every other case on the general one); float32 at
+# d_r <= m < d ((8, 50, 40, 5), blocks of 25 rows) and at m >= d ((8, 26,
+# m, 5), the double-register instantiation, against the float64 plain
+# version over F32_EDGE_DRAWS draws); the general kernel's plan with its sums
+# in the global workspace ((4, 1000, 1000, 5) at a 16 KB limit)
+SPLIT_ROUTES_B, SPLIT_ROUTES_N = 8, 5
+SPLIT_EDGE = ((50, 40), (26, 40), (26, 100), (26, 258))
+SPLIT_WORKSPACE = (4, 1000, 1000, 5)
+
+
+def split_routes(wk, rng):
+    """The cases of SPLIT_ROUTES..SPLIT_WORKSPACE; one line each."""
+    import torch
+
+    B, N = SPLIT_ROUTES_B, SPLIT_ROUTES_N
+    cases = [(dt, D, m) for dt in GENERAL_DTYPES for m in GENERAL_RANKS]
+    cases += [("float32", d, m) for d, m in SPLIT_EDGE]
+    for dt_name, d, m in cases:
+        dtype = getattr(torch, dt_name)
+        tag = f"B={B} d={d} m={m} N={N} {dt_name} in 2 blocks"
+        route = "fast" if wk.uses_fast_kernel(dtype, m) else "general"
+        err = max(check_split_case(wk, tag, args, 2, dtype)
+                  for args in general_inputs(rng, B, d, m, N, dtype))
+        print(f"B1 split [{tag}] {route} kernel: max_abs_err={err:.3e}", flush=True)
+    B, d, m, N = SPLIT_WORKSPACE
+    plan = wk._general_rows_plan(B, d // 2, m, N, torch.float32, smem_limit=16384)
+    if not plan.ws:
+        fail(f"the 16 KB split plan {plan} did not put its sums in the workspace")
+    tag = f"workspace B={B} d={d} m={m} N={N} float32 in 2 blocks"
+    err = max(check_split_case(wk, tag, args, 2, torch.float32, plan)
+              for args in general_inputs(rng, B, d, m, N, torch.float32))
+    print(f"B1 split [{tag}] general kernel plan={tuple(plan)}: max_abs_err={err:.3e} "
+          "(against the float64 plain version)", flush=True)
+
+
+def dim_split_phase(wk):
+    """B1 split in row blocks on the card: the partial of every block, the
+    sums in rank order, the resume of every block, against the plain split
+    and the unsplit kernel, a repeat bitwise equal, at the headline's ELBO
+    chunk (DIM_SPLIT_CASES) and on the kernels' other routes
+    (:func:`split_routes`); L2-cold times of one block's launches at the
+    headline beside their plain versions and bounds."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(12)
+    B, d, m, N = K * 8, D, M, 5
+    rows_out = []
+    for dt_name, blocks in DIM_SPLIT_CASES:
+        dtype = getattr(torch, dt_name)
+        args = _seeded_inputs(rng, B, d, m, N, dtype)
+        u, a_half, X, C, mu, logdet = args
+        r = d // blocks
+        tag = f"{dt_name} d={d} in {blocks} blocks"
+        err = check_split_case(wk, tag, args, blocks, dtype)
+        c = (slice(None), slice(0, r))
+        ub, Xb, ab, mub = (t[c].contiguous() for t in (u, X, a_half, mu))
+        t_sum, usq_sum = wk._sample_and_logq_partial_cuda(ub, Xb, d)
+        item = torch.finfo(dtype).bits // 8
+        general = not wk.uses_fast_kernel(dtype, m)
+        plan = (wk._general_rows_plan(B, r, m, N, dtype) if general
+                else wk._launch_plan(B, r, m, N))
+        for mode, kernel, plain in (
+                ("partial", lambda: wk._sample_and_logq_partial_cuda(ub, Xb, d),
+                 lambda: wk.sample_and_logq_partial_torch(ub, Xb)),
+                ("resume", lambda: wk._sample_and_logq_resume_cuda(
+                    ub, ab, Xb, C, mub, logdet, t_sum, usq_sum, d),
+                 lambda: wk.sample_and_logq_resume_torch(
+                    ub, ab, Xb, C, mub, logdet, t_sum, usq_sum, d))):
+            ms, plain_ms = time_cold_ms(kernel), time_cold_ms(plain)
+            bound, by = split_bound_us(mode, B, r, m, N, item)
+            name = f"sample_and_logq_{mode}" + ("_general" if general else "")
+            rows_out.append(dict(name=name, dtype=dt_name, blocks=blocks, err=err, ms=ms,
+                                 plain_ms=plain_ms, bound_us=bound, bound_by=by))
+            print(f"kernel {name} [{tag}: one block B={B} d_r={r} m={m} N={N}] plan={tuple(plan)} "
+                  f"max_abs_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_us={bound:.2f} ({by}) share={bound / (1e3 * ms):.3f}", flush=True)
+    split_routes(wk, rng)
+    return rows_out
+
+
+def dim_phase(pt, wk, zoo, smi, main_khats):
+    """The headline over a (paths, dim) mesh on the one card:
+    ``paths_dim_mesh(1, ["cuda:0"] * 2)`` on DIM_SEEDS and
+    ``paths_dim_mesh(2, ["cuda:0"] * 4)`` on seed 0, every path succeeding, the
+    median k̂ and moment error in the headline band, repeats bitwise equal,
+    the split kernels launched on every run; a (2, 1) mesh bitwise the paths
+    mesh of the same two entries; the float64 headline on the (1, 2) mesh
+    against the unsharded run. Returns the kernels' launches of the float32
+    dim-mesh runs and of the float64 one."""
+    import torch
+
+    target = zoo.HierarchicalGaussian(D, seed=0)
+    mean_t, sd_t = zoo.hierarchical_gaussian_truth(D, seed=0)
+    totals = {name: 0 for name in wk.launch_counts()}
+    t_phase = time.perf_counter()
+
+    def timed(label, count=True, **options):
+        wk.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = pt.multipathfinder(target, 1000, nruns=K, maxiters=64, elbo_chunk=8, **options)
+        torch.cuda.synchronize()
+        secs, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+        grew = wk.launch_counts()
+        if count:
+            for n, c in grew.items():
+                totals[n] += c
+        print(f"dim phase [{label}]: wall_s={secs:.3f} peak_device_bytes={peak} "
+              f"paths_ok={int(res.states.success.sum())}/{K} "
+              f"khat={float(res.psis_result.pareto_shape):.4f} "
+              f"split_launches={ {n: grew[n] for n in SPLIT_KERNELS} } card: {smi}", flush=True)
+        return res, grew
+
+    khats, merrs, first = [], [], {}
+    for blocks, entries, seeds in ((1, 2, DIM_SEEDS), (2, 4, DIM_SEEDS[:1])):
+        mesh = pt.paths_dim_mesh(blocks, ["cuda:0"] * entries)
+        shape = tuple(mesh.devices.shape)  # (paths, dim)
+        for seed in seeds:
+            res, grew = timed(f"mesh {shape} seed {seed}", mesh=mesh, seed=seed)
+            khat, merr = _check_result(f"dim mesh {shape} seed {seed}", res, mean_t, sd_t)
+            if min(grew[n] for n in SPLIT_KERNELS) <= 0:
+                fail(f"dim mesh {shape} seed {seed}: a split kernel was not launched: {grew}")
+            print(f"dim phase [mesh {shape} seed {seed}]: khat={khat:.4f} (no mesh "
+                  f"{main_khats[seed]:.4f}) moment_err_mean_sd_units={merr:.4f} "
+                  f"logp_grad_evals={int(res.states.num_fn_evals.sum())}", flush=True)
+            khats.append(khat)
+            merrs.append(merr)
+            first.setdefault(shape, res)
+        again, _ = timed(f"mesh {shape} seed {seeds[0]}, repeat", mesh=mesh, seed=seeds[0])
+        stage = first_differing_stage(again, first[shape], target)
+        if stage is not None:
+            fail(f"dim mesh {shape}: a repeat differs first in the {stage[0]}: {stage[1]}")
+        del again
+    med_k, med_m = statistics.median(khats), statistics.median(merrs)
+    print(f"dim phase: median khat={med_k:.4f} band={KHAT_BAND}; median moment error="
+          f"{med_m:.4f} band={MOMENT_ERR_BAND}; repeats bitwise equal", flush=True)
+    if not KHAT_BAND[0] <= med_k <= KHAT_BAND[1]:
+        fail(f"dim mesh: median k-hat {med_k} outside the JAX band {KHAT_BAND}")
+    if not MOMENT_ERR_BAND[0] <= med_m <= MOMENT_ERR_BAND[1]:
+        fail(f"dim mesh: median moment error {med_m} outside the JAX band {MOMENT_ERR_BAND}")
+    del first
+
+    one, _ = timed("mesh (2, 1) seed 0", count=False,
+                   mesh=pt.paths_dim_mesh(2, ["cuda:0"] * 2), seed=0)
+    paths, _ = timed("paths mesh of 2 seed 0", count=False,
+                     mesh=pt.paths_mesh(["cuda:0"] * 2), seed=0)
+    stage = first_differing_stage(one, paths, target)
+    if stage is not None:
+        fail(f"dim width 1: differs from the paths mesh first in the {stage[0]}: {stage[1]}")
+    print("dim phase: a (2, 1) mesh bitwise the paths mesh of 2 at every stage", flush=True)
+    del one, paths
+
+    r64, _ = timed("float64 mesh (1, 2) seed 0", mesh=pt.paths_dim_mesh(1, ["cuda:0"] * 2),
+                   seed=0, dtype=torch.float64)
+    u64, _ = timed("float64 no mesh seed 0", count=False, seed=0, dtype=torch.float64)
+    same = int((r64.states.fit_iteration == u64.states.fit_iteration).sum())
+    gap = float((r64.states.fit_distribution.mean - u64.states.fit_distribution.mean).abs().max())
+    print(f"dim phase float64: {same}/{K} paths with the unsharded fit iteration; paths_ok="
+          f"{int(r64.states.success.sum())}/{int(u64.states.success.sum())}; largest gap of the "
+          f"fitted means {gap:.3e}", flush=True)
+    if int(r64.states.success.sum()) != K:
+        fail(f"dim mesh float64: {int(r64.states.success.sum())}/{K} paths succeeded")
+    print(f"dim phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return totals
+
+
 def main():
     try:
         import torch
@@ -1813,6 +2081,7 @@ def main():
     kernels = kernel_phase(wk)
     general_rows = general_kernel_phase(wk)
     shared_rows = shared_kernel_phase(wk)
+    split_rows = dim_split_phase(wk)
     if "--kernels-only" in sys.argv[1:]:  # for work on the kernels: stop after their phase
         print("kernel phase passed; stopping before the model phases", flush=True)
         return
@@ -1831,6 +2100,11 @@ def main():
             counts[name] += c
     if max(counts[n] for n in GENERAL_KERNELS) > 0:
         fail(f"a float32 phase at rank <= {wk.MAX_RANK} left the fast kernel: {counts}")
+    # the dim phase adds the launches of the split modes only: its other
+    # launches (the PSIS tail, float64) belong to paths counted above
+    for name, c in dim_phase(pt, wk, zoo, smi, main_khats).items():
+        if name.startswith(SPLIT_KERNELS):
+            counts[name] += c
     t_new = time.perf_counter()
     for phase in (config2_phase, float64_phase, low_precision_phase):
         for name, c in phase(pt, wk, zoo).items():
@@ -1881,6 +2155,15 @@ def main():
     item.update(bound_ms=head["tc_bound_us"] / 1e3, bound_by="operations",
                 cuda_core_bound_ms=head["bound_us"] / 1e3)
     summary.append(item)
+    # B1's row-split modes: the head is the (1, 2) mesh's block, the ELBO
+    # chunk's 500 rows; the error the largest over that dtype's cases
+    for name in ("sample_and_logq_partial", "sample_and_logq_resume"):
+        for general, dt_name, source in (
+                ("", "float32", "pathfinder_tpu_torch/csrc/woodbury_kernels.cu"),
+                ("_general", "float64", "pathfinder_tpu_torch/csrc/woodbury_general.cu")):
+            rows = [r for r in split_rows if r["name"] == name + general]
+            head = next(r for r in rows if r["blocks"] == 2)
+            summary.append(entry(name + general, source, rows, head, "sample_and_logq"))
     for item in summary:
         if item["launches"] <= 0:
             fail(f"{item['name']} was not launched on its path")

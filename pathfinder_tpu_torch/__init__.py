@@ -8,14 +8,15 @@ mixture denominator, ``laplace_resample``), constrained models (``transform=``,
 ``models.bayes.BayesModel``, the GLMs of ``models.zoo``), the HMC/NUTS warm
 start from a Pathfinder result (``integrations``), serving-scale runs
 (``max_paths_per_launch``, ``keep_traces``, ``offload_launches``), the
-``paths`` axis of a device mesh (``multipathfinder(mesh=paths_mesh(...))``,
-``nuts_chains(mesh=...)``) and result files (``utils.serialize``) run on any
-torch device; on a CUDA device the Woodbury sample+logq and whiten+sumsq steps
-run as hand-written CUDA kernels.
+``paths`` and ``dim`` axes of a device mesh
+(``multipathfinder(mesh=paths_mesh(...))`` or ``paths_dim_mesh(...)``,
+``nuts_chains(mesh=...)``, ``parallel.dim_sharding``) and result files
+(``utils.serialize``) run on any torch device; on a CUDA device the Woodbury
+sample+logq and whiten+sumsq steps run as hand-written CUDA kernels.
 
-The JAX package's names are exported where the port has them. Not here: the
-mesh's ``dim`` axis, ``paths_dim_mesh`` and ``parallel/dim_sharding.py``,
-which wait for its port.
+The JAX package's names are exported where it exports them. On the ``dim``
+axis the port splits the L-BFGS core's rows and evaluates the target whole
+on each block's first device, where GSPMD would partition the target too.
 """
 
 from pathfinder_tpu_torch.integrations.hmc import WoodburyMetric, hmc, hmc_warm_start
@@ -36,7 +37,11 @@ from pathfinder_tpu_torch.multipath import (
 from pathfinder_tpu_torch.ops.mvnormal import MvNormal, UniformMixture
 from pathfinder_tpu_torch.ops.psis import PSISResult, psis
 from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat, pdfactorize, pdunfactorize
-from pathfinder_tpu_torch.parallel.sharding import make_path_executor, paths_mesh
+from pathfinder_tpu_torch.parallel.sharding import (
+    make_path_executor,
+    paths_dim_mesh,
+    paths_mesh,
+)
 from pathfinder_tpu_torch.singlepath import (
     PathfinderConfig,
     PathfinderResult,
@@ -74,5 +79,6 @@ __all__ = [
     "nuts_warm_start",
     "warm_start_chains",
     "paths_mesh",
+    "paths_dim_mesh",
     "make_path_executor",
 ]

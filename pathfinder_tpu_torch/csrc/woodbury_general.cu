@@ -64,6 +64,14 @@
 //             x = a½ r + μ (in place in the slab and out by one bulk store,
 //             or straight to memory) and sums u², B2 sums r²; the sums go
 //             warp by warp, then CTA by CTA in rank order.
+//   row split B1 on a block of the rows of d (the mesh's dim axis) runs as two
+//             launches in two more modes: kPartial stops after the
+//             cluster's sum of pass 1 and writes t = X^T u of the block,
+//             (m, N) a factor in Acc, and pass 3 sums the block's u² only
+//             (nothing of a½, μ or M is staged); kResume skips pass 1,
+//             reads the t and ||u||^2 summed over the blocks outside the
+//             kernel, and runs passes 2 and 3 as B1 does, with logq from the
+//             summed ||u||^2 and the full dimension.
 //   memory    where the m × NC sums do not fit beside one row, the round
 //             narrows to one column tile, then M is read from global memory
 //             (after an L2 prefetch), then the sums live in a global
@@ -113,8 +121,9 @@ cudaError_t allow_max_smem(F kernel, std::atomic<unsigned long long>& ready) {
 }
 
 constexpr double kLog2Pi = 1.8378770664093453;
-// factor_kernel's modes: B1, and B2 with a block of columns per factor
-constexpr int kSample = 0, kWhiten = 1;
+// factor_kernel's modes: B1, and B2 with a block of columns per factor; B1's
+// partial and resume on a block of rows
+constexpr int kSample = 0, kWhiten = 1, kPartial = 2, kResume = 3;
 // dtype codes of the entry points (ops/kernels/woodbury_kernels.py mirrors them)
 constexpr int kF32 = 0, kF64 = 1, kF16 = 2, kBF16 = 3;
 
@@ -375,15 +384,19 @@ __device__ long long pfg_stamps[2][10];
 // (b, blockIdx.y) takes the column blocks blockIdx.y, blockIdx.y + gridDim.y,
 // ... of colblk columns each, in rounds of NC. in: u (B1) or x (B2); M: C
 // (B1) or Ci (B2); logdet and x_out for B1 only; col_out: logq (B1) or maha
-// (B2), (B, N).
+// (B2), (B, N). B1's partial writes t_io (B, m, N) and usq_io (B, N), in Acc;
+// its resume reads them, and dfull is the full dimension.
 template <typename T, int MODE, int NT, typename S>
 __global__ void __launch_bounds__(kThreads, 2)
 factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* __restrict__ X,
               const T* __restrict__ M, const T* __restrict__ mu, const T* __restrict__ logdet,
               T* __restrict__ x_out, T* __restrict__ col_out, int d, int m, int N, int tile,
-              int NC, int colblk, int whole, int mres, typename Num<T>::Acc* __restrict__ ws) {
+              int NC, int colblk, int whole, int mres, typename Num<T>::Acc* __restrict__ ws,
+              typename Num<T>::Acc* __restrict__ t_io, typename Num<T>::Acc* __restrict__ usq_io,
+              int dfull) {
   using Acc = typename Num<T>::Acc;
-  constexpr bool SAMPLE = MODE == kSample;
+  constexpr bool SAMPLE = MODE == kSample || MODE == kResume;  // writes x and logq
+  constexpr bool PARTIAL = MODE == kPartial, RESUME = MODE == kResume;
   constexpr int AL = 16 / sizeof(T);  // values of T in 16 bytes
   constexpr int HT = AL - 1;          // the most values in a run's head, or in its tail
   // B2 whitens the staged x in place where T is the accumulation type, and
@@ -441,7 +454,7 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
   const int k0 = split ? min(m, rank * ks) : 0, k1 = min(m, k0 + ks);
   const T* const Mrows = M + b * m * m + static_cast<size_t>(k0) * m;
   const T* sM = Mrows;
-  if (!mres && threadIdx.x == 0 && k1 > k0) {
+  if (!PARTIAL && !mres && threadIdx.x == 0 && k1 > k0) {
     const Span sp(pad_of(Mrows), (k1 - k0) * m, AL);
     if (sp.nb) prefetch_l2(Mrows + sp.h, sp.nb * sizeof(T));
   }
@@ -452,7 +465,7 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
   __syncthreads();
 
   uint32_t phase = 1;
-  bool m_staged = !mres;
+  bool m_staged = PARTIAL || !mres;  // the partial reads nothing of M
   int row0 = r0, n = 0, upad = 0;
   // the tile in shared memory
   T *su = t_at(Lay.u), *sX = t_at(Lay.X), *sa = t_at(Lay.a), *smu = t_at(Lay.mu);
@@ -477,7 +490,8 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
     n = max(0, min(tile, r1 - row0));
     const size_t g = b * d + row0;
     const T* const src[5] = {in + g * N, X + g * m, a_half + g, mu + g, Mrows};
-    const int len[5] = {whole ? n * N : 0, n * m, n, n, m_staged ? 0 : (k1 - k0) * m};
+    const int len[5] = {whole ? n * N : 0, n * m, PARTIAL ? 0 : n, PARTIAL ? 0 : n,
+                        m_staged ? 0 : (k1 - k0) * m};
     const int off[5] = {Lay.u, Lay.X, Lay.a, Lay.mu, Lay.M};
     int pad[5];
 #pragma unroll
@@ -573,7 +587,13 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
         for (int e = threadIdx.x; e < parts * MR * NCP; e += kThreads) tp[e] = Acc(0);
       __syncthreads();
 
-      if (m > 0) {
+      if (m > 0 && RESUME) {  // the t summed over the row blocks, in tg's layout
+        for (int e = threadIdx.x; e < CT * NT * MR; e += kThreads) {
+          const int c = e / MR, k = e - c * MR;
+          tg[e] = k < m && c < nc ? t_io[(b * m + k) * N + c0 + c] : Acc(0);
+        }
+        __syncthreads();
+      } else if (m > 0) {
         // pass 1: t = X^T v. Thread (part, slot) sums, for each pair q ≡ slot
         // (mod L) of rank tile kt and column tile ct, X[i, kt] v[i, ct] over
         // its rows i ≡ part (mod P); where a warp holds several row parts of
@@ -639,6 +659,13 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
         }
         __syncthreads();
         PFG_STAMP(3);
+        if (PARTIAL && rank == 0)  // the block's t, for the sum over the blocks
+          for (int e = threadIdx.x; e < m * nc; e += kThreads) {
+            const int k = e / nc, c = e - k * nc;
+            t_io[(b * m + k) * N + c0 + c] = tg[c * MR + k];
+          }
+      }
+      if (m > 0 && !PARTIAL) {
         // pass 2: rows [k0, k1) of s = M t. Where the CTA forms all of s (m <=
         // kSplitM), a thread per entry (k, c) sums over M's columns l in
         // order; else a warp per (row k, column tile ct), its lanes over l.
@@ -708,7 +735,7 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
             r[j] = ct * NT + j < nc ? v_at(i, ct * NT + j) : Acc(0);
             xs[j] = S(0);
           }
-          for (int kt = 0; kt < KT; ++kt) {
+          for (int kt = 0; kt < (PARTIAL ? 0 : KT); ++kt) {
             Acc xk[kRK];
             x_tile(i, kt, xk);
 #pragma unroll
@@ -730,6 +757,9 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
                 else xg[static_cast<size_t>(i) * N + ct * NT + j] = xv;
               }
             }
+          } else if constexpr (PARTIAL) {
+#pragma unroll
+            for (int j = 0; j < NT; ++j) q[j] = mad(r[j], r[j], q[j]);
           } else {
 #pragma unroll
             for (int j = 0; j < NT; ++j) {
@@ -761,12 +791,19 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
         for (int c = threadIdx.x; c < nc; c += kThreads) {
           Acc q = ql[c];
           for (int r = 1; r < CS; ++r) q += cluster.map_shared_rank(ql, r)[c];
-          const Acc out = SAMPLE ? Acc(-0.5) * (Acc(d) * Acc(kLog2Pi) + ldb + q) : q;
-          col_out[b * N + c0 + c] = Num<T>::narrow(out);
+          if constexpr (PARTIAL) {
+            usq_io[b * N + c0 + c] = q;
+          } else {
+            // the resume's logq from the summed ||u||^2 and the full dimension
+            const Acc out = RESUME ? Acc(-0.5) * (Acc(dfull) * Acc(kLog2Pi) + ldb +
+                                                  usq_io[b * N + c0 + c])
+                            : SAMPLE ? Acc(-0.5) * (Acc(d) * Acc(kLog2Pi) + ldb + q) : q;
+            col_out[b * N + c0 + c] = Num<T>::narrow(out);
+          }
         }
       // with no X^T v to exchange a round has one cluster barrier only: a
       // second keeps a CTA from writing its next sums while rank 0 reads these
-      if (CS > 1 && m == 0) cluster.sync();
+      if (CS > 1 && (m == 0 || RESUME)) cluster.sync();
       PFG_STAMP(7);
     }
   }
@@ -800,17 +837,22 @@ bool fplan_ok(const FPlan& p, int B, int d, int m, int N, bool ws) {
   return p.smem == L.total;
 }
 
+// The pointers and ints every mode passes on to factor_kernel.
+struct FArgs {
+  const void *in, *a_half, *X, *M, *mu, *logdet;
+  void *x_out, *col_out, *ws, *t_io, *usq_io;
+  int d, m, N, dfull;
+};
+
 template <typename T, int MODE, int NT, typename S>
-int launch_factor(const FPlan& p, int B, const void* in, const void* a_half, const void* X,
-                  const void* M, const void* mu, const void* logdet, void* x_out, void* col_out,
-                  int d, int m, int N, void* ws, cudaStream_t stream) {
+int launch_factor(const FPlan& p, int B, const FArgs& a, cudaStream_t stream) {
   using Acc = typename Num<T>::Acc;
   auto kernel = factor_kernel<T, MODE, NT, S>;
   static std::atomic<unsigned long long> ready{0};
   if (const cudaError_t e = allow_max_smem(kernel, ready); e != cudaSuccess) {
     return static_cast<int>(e);
   }
-  const int nblk = (N + p.colblk - 1) / p.colblk;
+  const int nblk = (a.N + p.colblk - 1) / p.colblk;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * p.cluster, nblk < 65535 ? nblk : 65535);
   cfg.blockDim = dim3(p.threads);
@@ -824,46 +866,36 @@ int launch_factor(const FPlan& p, int B, const void* in, const void* a_half, con
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const T*>(in), static_cast<const T*>(a_half),
-      static_cast<const T*>(X), static_cast<const T*>(M), static_cast<const T*>(mu),
-      static_cast<const T*>(logdet), static_cast<T*>(x_out), static_cast<T*>(col_out), d, m, N,
-      p.tile, p.nc, p.colblk, p.whole, p.mres, static_cast<Acc*>(ws));
+      &cfg, kernel, static_cast<const T*>(a.in), static_cast<const T*>(a.a_half),
+      static_cast<const T*>(a.X), static_cast<const T*>(a.M), static_cast<const T*>(a.mu),
+      static_cast<const T*>(a.logdet), static_cast<T*>(a.x_out), static_cast<T*>(a.col_out), a.d,
+      a.m, a.N, p.tile, p.nc, p.colblk, p.whole, p.mres, static_cast<Acc*>(a.ws),
+      static_cast<Acc*>(a.t_io), static_cast<Acc*>(a.usq_io), a.dfull);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 template <typename T, int MODE, typename S>
-int launch_tile(const FPlan& p, int B, const void* in, const void* a_half, const void* X,
-                const void* M, const void* mu, const void* logdet, void* x_out, void* col_out,
-                int d, int m, int N, void* ws, cudaStream_t stream) {
-  if (col_tile(N) == 5)
-    return launch_factor<T, MODE, 5, S>(p, B, in, a_half, X, M, mu, logdet, x_out, col_out, d, m,
-                                        N, ws, stream);
-  return launch_factor<T, MODE, 4, S>(p, B, in, a_half, X, M, mu, logdet, x_out, col_out, d, m, N,
-                                      ws, stream);
+int launch_tile(const FPlan& p, int B, const FArgs& a, cudaStream_t stream) {
+  if (col_tile(a.N) == 5) return launch_factor<T, MODE, 5, S>(p, B, a, stream);
+  return launch_factor<T, MODE, 4, S>(p, B, a, stream);
 }
 
 template <typename T, int MODE>
-int launch_checked(const FPlan& p, int B, const void* in, const void* a_half, const void* X,
-                   const void* M, const void* mu, const void* logdet, void* x_out, void* col_out,
-                   int d, int m, int N, void* ws, cudaStream_t stream) {
-  if (!fplan_ok<T>(p, B, d, m, N, ws != nullptr)) return -1;
+int launch_checked(const FPlan& p, int B, const FArgs& a, cudaStream_t stream) {
+  if (!fplan_ok<T>(p, B, a.d, a.m, a.N, a.ws != nullptr)) return -1;
   if constexpr (std::is_same_v<T, float>) {
-    if (m >= d)  // the register chains in double (see the head of this file)
-      return launch_tile<T, MODE, double>(p, B, in, a_half, X, M, mu, logdet, x_out, col_out, d,
-                                          m, N, ws, stream);
+    // the register chains in double (see the head of this file); a block of
+    // rows takes the instantiation of its full dimension
+    if (a.m >= a.dfull) return launch_tile<T, MODE, double>(p, B, a, stream);
   }
-  return launch_tile<T, MODE, typename Num<T>::Acc>(p, B, in, a_half, X, M, mu, logdet, x_out,
-                                                    col_out, d, m, N, ws, stream);
+  return launch_tile<T, MODE, typename Num<T>::Acc>(p, B, a, stream);
 }
 
 template <int MODE>
-int dispatch_factor(int dtype, const FPlan& p, int B, const void* in, const void* a_half,
-                    const void* X, const void* M, const void* mu, const void* logdet, void* x_out,
-                    void* col_out, int d, int m, int N, void* ws, cudaStream_t stream) {
-#define PF_CASE(CODE, T)                                                                      \
-  case CODE:                                                                                  \
-    return launch_checked<T, MODE>(p, B, in, a_half, X, M, mu, logdet, x_out, col_out, d, m, N, \
-                                   ws, stream);
+int dispatch_factor(int dtype, const FPlan& p, int B, const FArgs& a, cudaStream_t stream) {
+#define PF_CASE(CODE, T) \
+  case CODE:             \
+    return launch_checked<T, MODE>(p, B, a, stream);
   switch (dtype) {
     PF_CASE(kF32, float) PF_CASE(kF64, double) PF_CASE(kF16, __half) PF_CASE(kBF16, __nv_bfloat16)
   }
@@ -881,16 +913,44 @@ int pfg_sample_logq(int dtype, const void* u, const void* a_half, const void* X,
                     const void* mu, const void* logdet, void* x, void* logq, int B, int d, int m,
                     int N, int cluster, int threads, int tile, int nc, int colblk, int whole,
                     int mres, int smem, void* ws, cudaStream_t stream) {
-  return dispatch_factor<kSample>(dtype, {cluster, threads, tile, nc, colblk, whole, mres, smem}, B, u,
-                                  a_half, X, C, mu, logdet, x, logq, d, m, N, ws, stream);
+  const FArgs a{u, a_half, X, C, mu, logdet, x, logq, ws, nullptr, nullptr, d, m, N, d};
+  return dispatch_factor<kSample>(dtype, {cluster, threads, tile, nc, colblk, whole, mres, smem},
+                                  B, a, stream);
 }
 
 int pfg_whiten_sumsq(int dtype, const void* x, const void* a_half, const void* X, const void* Ci,
                      const void* mu, void* maha, int B, int d, int m, int N, int cluster,
                      int threads, int tile, int nc, int colblk, int whole, int mres, int smem,
                      void* ws, cudaStream_t stream) {
-  return dispatch_factor<kWhiten>(dtype, {cluster, threads, tile, nc, colblk, whole, mres, smem}, B, x,
-                                  a_half, X, Ci, mu, nullptr, nullptr, maha, d, m, N, ws, stream);
+  const FArgs a{x, a_half, X, Ci, mu, nullptr, nullptr, maha, ws, nullptr, nullptr, d, m, N, d};
+  return dispatch_factor<kWhiten>(dtype, {cluster, threads, tile, nc, colblk, whole, mres, smem},
+                                  B, a, stream);
+}
+
+// B1's partial on a block of d rows: t (B, m, N) and usq (B, N) in the
+// accumulation type. Nothing of a½, μ or C is read; X stands in for their
+// pointers. dfull is the full dimension: it picks the instantiation, the
+// resume's.
+int pfg_sample_partial(int dtype, const void* u, const void* X, void* t, void* usq, int B, int d,
+                       int m, int N, int dfull, int cluster, int threads, int tile, int nc,
+                       int colblk, int whole, int mres, int smem, void* ws,
+                       cudaStream_t stream) {
+  const FArgs a{u, X, X, X, X, nullptr, nullptr, nullptr, ws, t, usq, d, m, N, dfull};
+  return dispatch_factor<kPartial>(dtype, {cluster, threads, tile, nc, colblk, whole, mres, smem},
+                                   B, a, stream);
+}
+
+// B1's resume on a block of d rows from the t and usq summed over the blocks;
+// dfull is the full dimension, for logq.
+int pfg_sample_resume(int dtype, const void* u, const void* a_half, const void* X, const void* C,
+                      const void* mu, const void* logdet, const void* t, const void* usq, void* x,
+                      void* logq, int B, int d, int m, int N, int dfull, int cluster,
+                      int threads, int tile, int nc, int colblk, int whole, int mres, int smem,
+                      void* ws, cudaStream_t stream) {
+  const FArgs a{u, a_half, X, C, mu, logdet, x, logq, ws, const_cast<void*>(t),
+                const_cast<void*>(usq), d, m, N, dfull};
+  return dispatch_factor<kResume>(dtype, {cluster, threads, tile, nc, colblk, whole, mres, smem},
+                                  B, a, stream);
 }
 
 #ifdef PFG_PHASES

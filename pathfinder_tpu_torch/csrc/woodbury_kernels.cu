@@ -48,7 +48,13 @@
 //             skipped, and pass 2 adds nothing to v.
 //
 // B1 and B2 are one kernel template with two modes: B1 writes x and logq
-// (‖u‖² summed in pass 2), B2 sums ‖w‖² and writes it.
+// (‖u‖² summed in pass 2), B2 sums ‖w‖² and writes it. Two more modes run
+// B1 split over the rows of d (the mesh's dim axis: each device holds a
+// block of rows): kPartial stops at the cluster's sum of pass 1 and writes
+// t = Xᵀu of the block, (m, N) a factor, and the block's ‖u‖² (pass 2 sums
+// u² only, nothing of a½, μ or M is staged); kResume skips pass 1, reads the
+// t and ‖u‖² summed over the blocks outside the kernel, and runs pass 2 as
+// B1 does, with logq from the summed ‖u‖² and the full dimension.
 //
 // Plain C interface, loaded with ctypes. The Python wrapper computes the
 // launch plan (cluster size, threads, shared memory bytes, tile rows); the
@@ -86,8 +92,9 @@ cudaError_t allow_max_smem(F kernel, std::atomic<unsigned long long>& ready) {
 }
 
 constexpr float kLog2Pi = 1.8378770664093453f;
-// the kernel's modes: B1, and B2 with a block of columns per factor
-constexpr int kSample = 0, kWhiten = 1;
+// the kernel's modes: B1, and B2 with a block of columns per factor; B1's
+// partial and resume on a block of rows
+constexpr int kSample = 0, kWhiten = 1, kPartial = 2, kResume = 3;
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 // the rank the kernel is instantiated for: m rounded up to a multiple of 4
@@ -260,19 +267,22 @@ __device__ inline void pass1_flush(float (&acc)[4 * NT], float* tp, int NC, int 
   if (lane < 4 * NT && j < nt) tp[(p * MR + 4 * g + kk) * NC + cc + j] += v;
 }
 
-// Pass 2 over the n rows: r = v + X s for columns col..col+nt. B1 sums
-// ‖u‖² into q and writes x = a½ r + μ in place (gx == nullptr) or to gx; B2
-// sums ‖r‖² into q. One thread per row; the NT products X s run side by
-// side, k outermost, so that their FMA chains overlap. Where s is small
-// (MR·NT ≤ 64: the main path's 12 × 5) every thread holds it in registers.
-// With m = 0, X reads as zeros and the product X s adds nothing.
-template <int MR, int NT, bool SAMPLE>
+// Pass 2 over the n rows: r = v + X s for columns col..col+nt. B1 (and its
+// resume) sums ‖u‖² into q and writes x = a½ r + μ in place (gx == nullptr)
+// or to gx; B2 sums ‖r‖² into q; B1's partial sums ‖u‖² only. One thread
+// per row; the NT products X s run side by side, k outermost, so that their
+// FMA chains overlap. Where s is small (MR·NT ≤ 64: the main path's 12 × 5)
+// every thread holds it in registers. With m = 0, X reads as zeros and the
+// product X s adds nothing.
+template <int MR, int NT, int MODE>
 __device__ inline void pass2_rows(float (&q)[NT], float* __restrict__ su,
                                   const float* __restrict__ sX, const float* __restrict__ sa,
                                   const float* __restrict__ smu, bool vecX, int n, int N,
                                   int m, int col, const float* __restrict__ s, int nt,
                                   float* __restrict__ gx) {
-  constexpr bool kHold = MR * NT <= 64;
+  constexpr bool SAMPLE = MODE == kSample || MODE == kResume;
+  constexpr bool kNorm = MODE == kPartial;  // ‖u‖² only: no X s, nothing written
+  constexpr bool kHold = !kNorm && MR * NT <= 64;
   float sr[kHold ? MR * NT : 1];
   if constexpr (kHold) {
 #pragma unroll
@@ -286,6 +296,7 @@ __device__ inline void pass2_rows(float (&q)[NT], float* __restrict__ su,
       r[j] = j < nt ? ur[j] : 0.f;
       xs[j] = 0.f;
     }
+    if constexpr (!kNorm)
 #pragma unroll(MR <= 16 ? MR / 4 : 2)
     for (int k4 = 0; k4 < MR / 4; ++k4) {
       float xk[4];
@@ -322,6 +333,9 @@ __device__ inline void pass2_rows(float (&q)[NT], float* __restrict__ su,
           else ur[j] = xv;
         }
       }
+    } else if (kNorm) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) q[j] = fmaf(r[j], r[j], q[j]);
     } else {
 #pragma unroll
       for (int j = 0; j < NT; ++j) q[j] = fmaf(r[j] + xs[j], r[j] + xs[j], q[j]);
@@ -341,15 +355,18 @@ __device__ inline void pass2_flush(float (&q)[NT], float* qp, int NC, int cc, in
 // One factor b per cluster; CTA `rank` of the cluster owns rows [r0, r1),
 // staged in ceil((r1 − r0)/tile) tiles (one where they fit).
 // in: u (B1) or x (B2); M: C (B1) or Ci (B2); logdet and x_out for B1 only;
-// col_out: logq (B1) or maha (B2).
+// col_out: logq (B1) or maha (B2). B1's partial writes t_io (B, m, N) and
+// usq_io (B, N); its resume reads them, and dfull is the full dimension.
 template <int MR, int NT, int MODE>
 __global__ void __launch_bounds__(cta_threads(MR), 2)
 woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
                 const float* __restrict__ X, const float* __restrict__ M,
                 const float* __restrict__ mu, const float* __restrict__ logdet,
                 float* __restrict__ x_out, float* __restrict__ col_out,
-                int d, int m, int N, int tile) {
-  constexpr bool SAMPLE = MODE == kSample;
+                float* __restrict__ t_io, float* __restrict__ usq_io,
+                int d, int m, int N, int tile, int dfull) {
+  constexpr bool SAMPLE = MODE == kSample || MODE == kResume;  // writes x and logq
+  constexpr bool PARTIAL = MODE == kPartial, RESUME = MODE == kResume;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
@@ -396,7 +413,8 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
     n = min(tile, r1 - row0);
     const size_t g = b * d + row0;
     const float* const src[5] = {in + g * N, X + g * m, a_half + g, mu + g, M + b * m * m};
-    const int len[5] = {n * N, n * m, n, n, m * m};
+    // the partial reads nothing of a½, μ or M
+    const int len[5] = {n * N, n * m, PARTIAL ? 0 : n, PARTIAL ? 0 : n, PARTIAL ? 0 : m * m};
 #pragma unroll
     for (int k = 0; k < 5; ++k) pad[k] = len[k] ? pad_of(src[k]) : 0;
     su = buf[0] + pad[0]; sX = buf[1] + pad[1]; sa = buf[2] + pad[2]; smu = buf[3] + pad[3];
@@ -447,7 +465,13 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
     for (int e = threadIdx.x; e < parts * MR * NC; e += blockDim.x) tp[e] = 0.f;
     for (int e = threadIdx.x; e < warps * NC; e += blockDim.x) qp[e] = 0.f;
     __syncthreads();
-    if (m > 0) {  // with no low-rank part there is no Xᵀv to form or exchange
+    if (m > 0 && RESUME) {  // the t summed over the row blocks, in tg's layout
+      for (int e = threadIdx.x; e < MR * NC; e += blockDim.x) {
+        const int k = e / NC, j = e % NC;
+        tg[e] = k < m && j < nc ? t_io[(b * m + k) * N + c0 + j] : 0.f;
+      }
+      __syncthreads();
+    } else if (m > 0) {  // with no low-rank part there is no Xᵀv to form or exchange
       for (int t = 0; t < ntiles; ++t) {
         if (!resident) stage_tile(t);
         for (int cc = 0; cc < nc; cc += NT) {
@@ -472,16 +496,23 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
         tg[e] = acc;
       }
       __syncthreads();
+      if (PARTIAL && rank == 0)  // the block's t, for the sum over the blocks
+        for (int e = threadIdx.x; e < m * nc; e += blockDim.x) {
+          const int k = e / nc, j = e % nc;
+          t_io[(b * m + k) * N + c0 + j] = tg[k * NC + j];
+        }
     }
-    // s = M t, column-major, zero in rows k >= m and in columns j >= nc
-    for (int e = threadIdx.x; e < (NC + 4) * MR; e += blockDim.x) {
-      const int j = e / MR, k = e % MR;
-      float acc = 0.f;
-      if (k < m && j < nc)
-        for (int l = 0; l < m; ++l) acc = fmaf(sM[k * m + l], tg[l * NC + j], acc);
-      s[e] = acc;
+    if (!PARTIAL) {
+      // s = M t, column-major, zero in rows k >= m and in columns j >= nc
+      for (int e = threadIdx.x; e < (NC + 4) * MR; e += blockDim.x) {
+        const int j = e / MR, k = e % MR;
+        float acc = 0.f;
+        if (k < m && j < nc)
+          for (int l = 0; l < m; ++l) acc = fmaf(sM[k * m + l], tg[l * NC + j], acc);
+        s[e] = acc;
+      }
+      __syncthreads();
     }
-    __syncthreads();
     for (int t = 0; t < ntiles; ++t) {
       if (!resident) stage_tile(t);
       float* gx = SAMPLE && !resident ? x_out + (b * d + row0) * N : nullptr;
@@ -490,8 +521,8 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
         float q[NT];
 #pragma unroll
         for (int j = 0; j < NT; ++j) q[j] = 0.f;
-        pass2_rows<MR, NT, SAMPLE>(q, su, sX, sa, smu, vecX, n, N, m, c0 + cc, s + cc * MR, nt,
-                                   gx);
+        pass2_rows<MR, NT, MODE>(q, su, sX, sa, smu, vecX, n, N, m, c0 + cc, s + cc * MR, nt,
+                                 gx);
         pass2_flush<NT>(q, qp, NC, cc, nt);
       }
     }
@@ -509,12 +540,17 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
       for (int c = threadIdx.x; c < nc; c += blockDim.x) {
         float q = 0.f;
         for (int r = 0; r < CS; ++r) q += peer(ql, r)[c];
-        col_out[b * N + c0 + c] =
-            SAMPLE ? -0.5f * (static_cast<float>(d) * kLog2Pi + ldb + q) : q;
+        if (PARTIAL) usq_io[b * N + c0 + c] = q;
+        else if (RESUME)  // logq from the summed ‖u‖² and the full dimension
+          col_out[b * N + c0 + c] =
+              -0.5f * (static_cast<float>(dfull) * kLog2Pi + ldb + usq_io[b * N + c0 + c]);
+        else
+          col_out[b * N + c0 + c] =
+              SAMPLE ? -0.5f * (static_cast<float>(d) * kLog2Pi + ldb + q) : q;
       }
     // with no Xᵀv to exchange a round has one cluster barrier only: a second
     // keeps a CTA from writing its next sums while rank 0 still reads these
-    if (CS > 1 && m == 0) cluster.sync();
+    if (CS > 1 && (m == 0 || RESUME)) cluster.sync();
   }
   if (CS > 1) cluster.sync();  // no CTA leaves while another reads its shared memory
   if (threadIdx.x == 0) bulk_wait_read();
@@ -535,10 +571,15 @@ bool plan_ok(const Plan& p, int B, int d, int m, int N) {
   return p.smem == 4 * Layout(p.tile, m, N, mr, parts, g * parts).total;
 }
 
+// The pointers and ints every mode passes on to the kernel.
+struct Args {
+  const float *in, *a_half, *X, *M, *mu, *logdet;
+  float *x_out, *col_out, *t_io, *usq_io;
+  int d, m, N, dfull;
+};
+
 template <int MR, int NT, int MODE>
-int launch(const Plan& p, int B, const float* in, const float* a_half, const float* X,
-           const float* M, const float* mu, const float* logdet, float* x_out, float* col_out,
-           int d, int m, int N, cudaStream_t stream) {
+int launch(const Plan& p, int B, const Args& a, cudaStream_t stream) {
   auto kernel = woodbury_kernel<MR, NT, MODE>;
   static std::atomic<unsigned long long> ready{0};
   if (const cudaError_t e = allow_max_smem(kernel, ready); e != cudaSuccess) {
@@ -556,20 +597,18 @@ int launch(const Plan& p, int B, const float* in, const float* a_half, const flo
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, in, a_half, X, M, mu, logdet, x_out,
-                                           col_out, d, m, N, p.tile);
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, kernel, a.in, a.a_half, a.X, a.M, a.mu, a.logdet, a.x_out,
+                         a.col_out, a.t_io, a.usq_io, a.d, a.m, a.N, p.tile, a.dfull);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 template <int MODE, int NT>
-int dispatch_rank(const Plan& p, int B, const float* in, const float* a_half, const float* X,
-                  const float* M, const float* mu, const float* logdet, float* x_out,
-                  float* col_out, int d, int m, int N, cudaStream_t stream) {
-#define PF_CASE(MR)                                                                         \
-  case MR:                                                                                  \
-    return launch<MR, NT, MODE>(p, B, in, a_half, X, M, mu, logdet, x_out, col_out, d, m, \
-                                N, stream);
-  switch (rank_tile(m)) {
+int dispatch_rank(const Plan& p, int B, const Args& a, cudaStream_t stream) {
+#define PF_CASE(MR) \
+  case MR:          \
+    return launch<MR, NT, MODE>(p, B, a, stream);
+  switch (rank_tile(a.m)) {
     PF_CASE(4) PF_CASE(8) PF_CASE(12) PF_CASE(16) PF_CASE(20) PF_CASE(24) PF_CASE(28) PF_CASE(32)
   }
 #undef PF_CASE
@@ -577,15 +616,13 @@ int dispatch_rank(const Plan& p, int B, const float* in, const float* a_half, co
 }
 
 template <int MODE>
-int dispatch(const Plan& p, int B, const float* in, const float* a_half, const float* X,
-             const float* M, const float* mu, const float* logdet, float* x_out, float* col_out,
-             int d, int m, int N, cudaStream_t stream) {
-  if (!plan_ok(p, B, d, m, N)) return -1;
-  switch (col_tile(N)) {
+int dispatch(const Plan& p, int B, const Args& a, cudaStream_t stream) {
+  if (!plan_ok(p, B, a.d, a.m, a.N)) return -1;
+  switch (col_tile(a.N)) {
     case 5:
-      return dispatch_rank<MODE, 5>(p, B, in, a_half, X, M, mu, logdet, x_out, col_out, d, m, N, stream);
+      return dispatch_rank<MODE, 5>(p, B, a, stream);
     default:
-      return dispatch_rank<MODE, 4>(p, B, in, a_half, X, M, mu, logdet, x_out, col_out, d, m, N, stream);
+      return dispatch_rank<MODE, 4>(p, B, a, stream);
   }
 }
 
@@ -599,15 +636,34 @@ int pf_sample_logq(const float* u, const float* a_half, const float* X, const fl
                    const float* mu, const float* logdet, float* x, float* logq, int B, int d,
                    int m, int N, int cluster, int threads, int smem, int tile,
                    cudaStream_t stream) {
-  return dispatch<kSample>({cluster, threads, smem, tile}, B, u, a_half, X, C, mu, logdet, x,
-                           logq, d, m, N, stream);
+  const Args a{u, a_half, X, C, mu, logdet, x, logq, nullptr, nullptr, d, m, N, d};
+  return dispatch<kSample>({cluster, threads, smem, tile}, B, a, stream);
 }
 
 int pf_whiten_sumsq(const float* x, const float* a_half, const float* X, const float* Ci,
                     const float* mu, float* maha, int B, int d, int m, int N, int cluster,
                     int threads, int smem, int tile, cudaStream_t stream) {
-  return dispatch<kWhiten>({cluster, threads, smem, tile}, B, x, a_half, X, Ci, mu, nullptr,
-                           nullptr, maha, d, m, N, stream);
+  const Args a{x, a_half, X, Ci, mu, nullptr, nullptr, maha, nullptr, nullptr, d, m, N, d};
+  return dispatch<kWhiten>({cluster, threads, smem, tile}, B, a, stream);
+}
+
+// B1's partial on a block of d rows: t (B, m, N) and usq (B, N). Nothing of
+// a½, μ or C is read; X stands in for their pointers.
+int pf_sample_partial(const float* u, const float* X, float* t, float* usq, int B, int d, int m,
+                      int N, int cluster, int threads, int smem, int tile, cudaStream_t stream) {
+  const Args a{u, X, X, X, X, nullptr, nullptr, nullptr, t, usq, d, m, N, d};
+  return dispatch<kPartial>({cluster, threads, smem, tile}, B, a, stream);
+}
+
+// B1's resume on a block of d rows from the t and usq summed over the blocks;
+// dfull is the full dimension, for logq.
+int pf_sample_resume(const float* u, const float* a_half, const float* X, const float* C,
+                     const float* mu, const float* logdet, const float* t, const float* usq,
+                     float* x, float* logq, int B, int d, int m, int N, int dfull, int cluster,
+                     int threads, int smem, int tile, cudaStream_t stream) {
+  const Args a{u, a_half, X, C, mu, logdet, x, logq, const_cast<float*>(t),
+               const_cast<float*>(usq), d, m, N, dfull};
+  return dispatch<kResume>({cluster, threads, smem, tile}, B, a, stream);
 }
 
 }  // extern "C"

@@ -431,8 +431,10 @@ def nuts_chains(
     summarized there. A block is the unsharded run of its chains, so a
     block of ``c`` chains gives the bits of ``nuts`` on those chains alone
     with the same ``chain_ids``. ``value_and_grad`` must compute where its
-    inputs lie, as the zoo's targets do. A mesh with a ``dim`` axis raises
-    ``NotImplementedError``."""
+    inputs lie, as the zoo's targets do. A mesh with a ``dim`` axis as its
+    second (``paths_dim_mesh``) replicates over it, as the JAX package does:
+    the chains split over the first axis, each block on that row's first
+    device."""
     x0s, single = sampler_inputs(x0s, metric, kwargs.get("device", "cuda"))
     if single:
         raise ValueError("x0s must have shape (C, d): one row per chain")

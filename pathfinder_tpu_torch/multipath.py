@@ -50,6 +50,7 @@ from pathfinder_tpu_torch.parallel.sharding import (
     check_mesh,
     chunk_launches,
     device_memory_bytes,
+    dim_width,
     lane_bytes,
     laplace_block,
     make_path_executor,
@@ -360,7 +361,12 @@ def multipathfinder(
     the mesh's width, and ``max_paths_per_launch`` counts lanes over the
     whole mesh (rounded down to a multiple of its width); on a CUDA device
     its default comes from each block's share of its device's memory. A
-    mesh with a ``dim`` axis raises ``NotImplementedError``.
+    mesh with a ``dim`` axis as well (``parallel.sharding.paths_dim_mesh``)
+    splits each block's parameter rows over that axis, one host thread a
+    row block, summing every reduction over ``d`` in rank order and
+    evaluating the target on the block's gathered rows on its first device
+    (``parallel/sharding.py``); ``d`` must divide by its width, and only
+    ``optimizer="lbfgs"`` runs there (others raise ``NotImplementedError``).
     ``ndraws_per_run`` defaults to ``max(ndraws_elbo, ceil(ndraws / nruns))``.
     ``importance_denominator``: ``"component"`` weighs each pooled draw
     against its own component, ``"mixture"`` against the whole mixture.
@@ -482,7 +488,8 @@ def multipathfinder(
         cap, offload = plan_launches(
             pad_paths(nruns, mesh),
             lane_bytes(d, maxiters, history_length, ndraws_elbo, config.elbo_chunk,
-                       ndraws_per_run, dtype, config.optimizer, importance_denominator, nruns),
+                       ndraws_per_run, dtype, config.optimizer, importance_denominator, nruns,
+                       dim_width(mesh)),
             state_bytes(d, maxiters, history_length, ndraws_per_run, dtype, keep_traces),
             device_memory_bytes(dev) if mesh is None else mesh_device_bytes(mesh),
             cap=cap, offload=offload, width=paths_width(mesh),

@@ -36,6 +36,16 @@ Shapes (batch ``B`` of independent factors, dimension ``d``, rank ``m``,
 may be 0 (a diagonal factor). B2 also takes one block ``x (d, P)`` shared by
 all ``B`` factors and returns ``(B, P)``: one launch over (factor group,
 column tile), with no copy of ``x`` per factor.
+
+B1 also runs split over the rows (the mesh's ``dim`` axis, each device
+holding a block of ``d_r`` rows), as two launches of the same per-factor
+kernels in two more modes: :func:`sample_and_logq_partial` reads the
+block's ``u`` and ``X`` rows and writes the partial ``t = X_rᵀ u_r (B, m,
+N)`` and ``‖u_r‖² (B, N)``, in the accumulation dtype; after the caller
+has summed those over the blocks, :func:`sample_and_logq_resume` forms
+``s = C t`` and writes the block's rows of ``x`` and ``logq`` from the
+summed ``‖u‖²`` and the full ``d``. Each launch's plan is the unsplit
+plan at ``d_r`` rows.
 """
 
 from __future__ import annotations
@@ -57,6 +67,10 @@ import torch
 __all__ = [
     "sample_and_logq",
     "sample_and_logq_torch",
+    "sample_and_logq_partial",
+    "sample_and_logq_partial_torch",
+    "sample_and_logq_resume",
+    "sample_and_logq_resume_torch",
     "whiten_sumsq",
     "whiten_sumsq_torch",
     "launch_counts",
@@ -112,9 +126,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bflo
 # launches of each kernel since the last reset, in all and per shape
 # ``(B, m, N, shared)`` (plain-version calls on CPU tensors do not count);
 # ``*_general`` are the general kernel's, ``whiten_sumsq_shared`` the
-# shared-x kernel's
-_launches = {"sample_and_logq": 0, "whiten_sumsq": 0,
-             "sample_and_logq_general": 0, "whiten_sumsq_general": 0, "whiten_sumsq_shared": 0}
+# shared-x kernel's, ``*_partial`` and ``*_resume`` B1's two row-split modes
+_launches = {name: 0 for name in (
+    "sample_and_logq", "whiten_sumsq", "sample_and_logq_general", "whiten_sumsq_general",
+    "whiten_sumsq_shared", "sample_and_logq_partial", "sample_and_logq_resume",
+    "sample_and_logq_partial_general", "sample_and_logq_resume_general")}
 _launches_by_shape = {name: collections.Counter() for name in _launches}
 _libs = {}  # source name -> the loaded library
 _lib_logs = {}  # source name -> what nvcc (ptxas -v) said when it built it
@@ -167,6 +183,30 @@ def sample_and_logq_torch(u, a_half, X, C, mu, logdet):
     core = u + X @ (C @ (X.mT @ u))
     x = a_half[..., None] * core + mu[..., None]
     usq = torch.sum(u * u, dim=-2)
+    logq = -0.5 * (d * _LOG_2PI + logdet[..., None] + usq)
+    return x.to(dtype), logq.to(dtype)
+
+
+def _acc_dtype(dtype):
+    """The dtype the kernels accumulate ``dtype`` in: float64 for float64,
+    float32 otherwise."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def sample_and_logq_partial_torch(u, X):
+    """B1's partial on a block of rows: ``(t = Xᵀ u (..., m, N), ‖u‖²
+    (..., N))`` in the accumulation dtype."""
+    u, X = _upcast(u, X)
+    return X.mT @ u, torch.sum(u * u, dim=-2)
+
+
+def sample_and_logq_resume_torch(u, a_half, X, C, mu, logdet, t, usq, d):
+    """B1's resume on a block of rows from the summed ``t`` and ``‖u‖²``:
+    ``x = a½ ∘ (u + X (C t)) + μ`` on the block and
+    ``logq = −(d·log2π + logdet + ‖u‖²)/2`` with the full ``d``."""
+    dtype = u.dtype
+    u, a_half, X, C, mu, logdet = _upcast(u, a_half, X, C, mu, logdet)
+    x = a_half[..., None] * (u + X @ (C @ t)) + mu[..., None]
     logq = -0.5 * (d * _LOG_2PI + logdet[..., None] + usq)
     return x.to(dtype), logq.to(dtype)
 
@@ -598,6 +638,10 @@ def _bind_fast(fast) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     fast.pf_sample_logq.argtypes = [p] * 8 + [i] * 8 + [p]
     fast.pf_sample_logq.restype = i
+    fast.pf_sample_partial.argtypes = [p] * 4 + [i] * 8 + [p]
+    fast.pf_sample_partial.restype = i
+    fast.pf_sample_resume.argtypes = [p] * 10 + [i] * 9 + [p]
+    fast.pf_sample_resume.restype = i
     fast.pf_whiten_sumsq.argtypes = [p] * 6 + [i] * 8 + [p]
     fast.pf_whiten_sumsq.restype = i
     fast.pf_max_rank.argtypes = []
@@ -612,6 +656,10 @@ def _bind_general(general) -> None:
     general.pfg_sample_logq.restype = i
     general.pfg_whiten_sumsq.argtypes = [i] + [p] * 6 + [i] * 12 + [p, p]
     general.pfg_whiten_sumsq.restype = i
+    general.pfg_sample_partial.argtypes = [i] + [p] * 4 + [i] * 13 + [p, p]
+    general.pfg_sample_partial.restype = i
+    general.pfg_sample_resume.argtypes = [i] + [p] * 10 + [i] * 13 + [p, p]
+    general.pfg_sample_resume.restype = i
     general.pfg_round.argtypes = []
     general.pfg_round.restype = i
     if general.pfg_round() != _R_ROUND:
@@ -670,9 +718,10 @@ def load_shared_library() -> ctypes.CDLL:
 def kernel_resources() -> dict:
     """Registers and spills of each fast-kernel instantiation as ``ptxas
     -v`` reported them at build time: ``{(name, MR, NT): {"registers": r,
-    "spill_stores": bytes, "spill_loads": bytes}}``."""
+    "spill_stores": bytes, "spill_loads": bytes}}``, ``name`` the mode's
+    (B1, B2, B1's partial and resume)."""
     load_library()
-    names = ("sample_and_logq", "whiten_sumsq")
+    names = ("sample_and_logq", "whiten_sumsq", "sample_and_logq_partial", "sample_and_logq_resume")
     return _ptxas_resources(
         _lib_logs[_SOURCE.name], r"woodbury_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
         lambda mr, nt, mode: (names[int(mode)], int(mr), int(nt)))
@@ -693,7 +742,8 @@ def general_kernel_resources() -> dict:
     name, ``float32 (float64 sums)`` for the instantiation float32 takes at
     m >= d."""
     load_general_library()
-    names = ("sample_and_logq_general", "whiten_sumsq_general")
+    names = ("sample_and_logq_general", "whiten_sumsq_general", "sample_and_logq_partial_general",
+             "sample_and_logq_resume_general")
 
     def key(t, mode, nt, sums):
         wide = " (float64 sums)" if sums == "d" and t != "d" else ""
@@ -784,13 +834,13 @@ def _check_code(name, code, plan):
         raise RuntimeError(f"{name} kernel launch failed with cudaError {code}")
 
 
-def _launch(name, entry, tensors, plan, device, B, d, m, N):
+def _launch(name, entry, tensors, plan, device, B, d, m, N, extra=()):
     """Launch the fast kernel's ``entry`` on the current stream with
-    ``plan`` and count it."""
+    ``plan`` and count it; ``extra`` ints follow ``N``."""
     pointers = _pointers(tensors)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = entry(*pointers, B, d, m, N, *plan, stream)
+        code = entry(*pointers, B, d, m, N, *extra, *plan, stream)
     _check_code(name, code, plan)
     _count(name, (B, m, N, False))
 
@@ -804,11 +854,11 @@ def _workspace(plan_ws, ctas, words, dtype, device):
     return torch.empty(ctas * words, dtype=acc, device=device)
 
 
-def _launch_general(name, entry, tensors, device, B, d, m, N, plan=None):
+def _launch_general(name, entry, tensors, device, B, d, m, N, plan=None, extra=()):
     """Launch the general source's ``entry`` on the current stream and count
     it under ``name + "_general"``; ``plan`` defaults to
-    :func:`_general_rows_plan`. The workspace, where the plan asks for one,
-    is allocated here."""
+    :func:`_general_rows_plan`, ``extra`` ints follow ``N``. The workspace,
+    where the plan asks for one, is allocated here."""
     dtype = tensors[0].dtype
     plan = plan or _general_rows_plan(B, d, m, N, dtype, _num_sms(device.index))
     ctas = B * plan.cluster * min(-(-N // plan.colblk), 65535)
@@ -817,7 +867,7 @@ def _launch_general(name, entry, tensors, device, B, d, m, N, plan=None):
     pointers = _pointers(tensors)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = entry(_DTYPE_CODES[dtype], *pointers, B, d, m, N, *tuple(plan)[:8],
+        code = entry(_DTYPE_CODES[dtype], *pointers, B, d, m, N, *extra, *tuple(plan)[:8],
                      None if work is None else work.data_ptr(), stream)
     _check_code(name + "_general", code, plan)
     _count(name + "_general", (B, m, N, False))
@@ -886,6 +936,86 @@ def _sample_and_logq_cuda(u, a_half, X, C, mu, logdet, general=None, plan=None):
         plan = _launch_plan(B, d, m, N, _num_sms(u.device.index))
         _launch("sample_and_logq", load_library().pf_sample_logq, tensors, plan, u.device,
                 B, d, m, N)
+    return x, logq
+
+
+def sample_and_logq_partial(u, X, d):
+    """B1's partial on a block of rows ``u (..., d_r, N)``, ``X (..., d_r,
+    m)``: ``(t (..., m, N), ‖u‖² (..., N))`` in the accumulation dtype.
+    ``d`` is the full dimension: on the card it chooses the general
+    kernel's instantiation, as the resume's ``d`` does."""
+    if u.device.type == "cpu":
+        return sample_and_logq_partial_torch(u, X)
+    if u.device.type != "cuda":
+        raise ValueError(f"unsupported device {u.device}")
+    return _sample_and_logq_partial_cuda(u, X, d)
+
+
+def _sample_and_logq_partial_cuda(u, X, d_full, general=None, plan=None):
+    """B1's partial on the card, routed as :func:`_sample_and_logq_cuda`."""
+    batch, B, d, m, N = _flat_shapes(u, X)
+    _check_cuda_args([("u", u, batch + (d, N)), ("X", X, batch + (d, m))], u.device)
+    acc = _acc_dtype(u.dtype)
+    t = torch.empty(batch + (m, N), dtype=acc, device=u.device)
+    usq = torch.empty(batch + (N,), dtype=acc, device=u.device)
+    if B == 0 or N == 0:
+        return t, usq
+    tensors = (u, X, t, usq)
+    if general is None:
+        general = not uses_fast_kernel(u.dtype, m)
+    if general:
+        _launch_general("sample_and_logq_partial", load_general_library().pfg_sample_partial,
+                        tensors, u.device, B, d, m, N, plan=plan, extra=(d_full,))
+    else:
+        plan = _launch_plan(B, d, m, N, _num_sms(u.device.index))
+        _launch("sample_and_logq_partial", load_library().pf_sample_partial, tensors, plan,
+                u.device, B, d, m, N)
+    return t, usq
+
+
+def sample_and_logq_resume(u, a_half, X, C, mu, logdet, t, usq, d):
+    """B1's resume on a block of rows from the summed ``t (..., m, N)`` and
+    ``‖u‖² (..., N)`` (accumulation dtype) and the full dimension ``d``:
+    ``(x (..., d_r, N), logq (..., N))``."""
+    if u.device.type == "cpu":
+        return sample_and_logq_resume_torch(u, a_half, X, C, mu, logdet, t, usq, d)
+    if u.device.type != "cuda":
+        raise ValueError(f"unsupported device {u.device}")
+    return _sample_and_logq_resume_cuda(u, a_half, X, C, mu, logdet, t, usq, d)
+
+
+def _sample_and_logq_resume_cuda(u, a_half, X, C, mu, logdet, t, usq, d_full, general=None,
+                                 plan=None):
+    """B1's resume on the card, routed as :func:`_sample_and_logq_cuda`."""
+    batch, B, d, m, N = _flat_shapes(u, X)
+    _check_cuda_args(
+        [
+            ("u", u, batch + (d, N)),
+            ("a_half", a_half, batch + (d,)),
+            ("X", X, batch + (d, m)),
+            ("C", C, batch + (m, m)),
+            ("mu", mu, batch + (d,)),
+            ("logdet", logdet, batch),
+        ],
+        u.device,
+    )
+    _check_cuda_args([("t", t, batch + (m, N)), ("usq", usq, batch + (N,))], u.device)
+    if t.dtype != _acc_dtype(u.dtype):
+        raise TypeError(f"t and usq are {t.dtype}, expected {_acc_dtype(u.dtype)}")
+    x = torch.empty_like(u)
+    logq = torch.empty(batch + (N,), dtype=u.dtype, device=u.device)
+    if B == 0 or N == 0:
+        return x, logq
+    tensors = (u, a_half, X, C, mu, logdet, t, usq, x, logq)
+    if general is None:
+        general = not uses_fast_kernel(u.dtype, m)
+    if general:
+        _launch_general("sample_and_logq_resume", load_general_library().pfg_sample_resume,
+                        tensors, u.device, B, d, m, N, plan=plan, extra=(d_full,))
+    else:
+        plan = _launch_plan(B, d, m, N, _num_sms(u.device.index))
+        _launch("sample_and_logq_resume", load_library().pf_sample_resume, tensors, plan,
+                u.device, B, d, m, N, extra=(d_full,))
     return x, logq
 
 

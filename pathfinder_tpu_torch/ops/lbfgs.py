@@ -27,6 +27,7 @@ from pathfinder_tpu_torch.ops.trajectory import (
     should_abort_nonfinite,
 )
 from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat, solve_triangular
+from pathfinder_tpu_torch.utils.rows import sum_rows
 
 __all__ = [
     "OptimizationTrace",
@@ -45,9 +46,11 @@ __all__ = [
 
 def gilbert_init(alpha, s, y):
     """Diagonal H₀ refresh, Gilbert & Lemaréchal (1989) eq. 4.9, per lane."""
-    a = torch.sum(y * alpha * y, dim=-1, keepdim=True)
-    b = torch.sum(y * s, dim=-1, keepdim=True)
-    c = torch.sum(s / alpha * s, dim=-1, keepdim=True)
+    a, b, c = sum_rows(
+        torch.sum(y * alpha * y, dim=-1, keepdim=True),
+        torch.sum(y * s, dim=-1, keepdim=True),
+        torch.sum(s / alpha * s, dim=-1, keepdim=True),
+    )
     return b / (a / alpha + y * y - (a / c) * (s / alpha) ** 2)
 
 
@@ -58,9 +61,9 @@ def _compact_pieces(S_masked, Y_masked, alpha, mask):
     J = S_masked.shape[-2]
     eyeJ = torch.eye(J, dtype=alpha.dtype, device=alpha.device)
     mm = mask[..., :, None] * mask[..., None, :]
-    R = torch.triu(S_masked @ Y_masked.mT) * mm + eyeJ * (1.0 - mask)[..., None, :]
+    SY, YaY = sum_rows(S_masked @ Y_masked.mT, Y_masked @ (alpha[..., None, :] * Y_masked).mT)
+    R = torch.triu(SY) * mm + eyeJ * (1.0 - mask)[..., None, :]
     E = torch.diagonal(R, dim1=-2, dim2=-1) * mask
-    YaY = Y_masked @ (alpha[..., None, :] * Y_masked).mT
     return R, E, YaY, eyeJ
 
 
@@ -80,8 +83,10 @@ def _two_loop_direction(g, alpha, S, Y, pos, hlen):
 
     R, E, YaY, _ = _compact_pieces(S_ord, Y_ord, alpha, mask)
 
-    u1 = (Y_ord @ (alpha * g)[..., None])[..., 0]  # B₁ᵀ g
-    u2 = (S_ord @ g[..., None])[..., 0]  # B₂ᵀ g
+    u1, u2 = sum_rows(
+        (Y_ord @ (alpha * g)[..., None])[..., 0],  # B₁ᵀ g
+        (S_ord @ g[..., None])[..., 0],  # B₂ᵀ g
+    )
     w = solve_triangular(R, u2[..., None], upper=True)  # R⁻¹ u2
     inner = -u1[..., None] + E[..., None] * w + YaY @ w
     d2 = solve_triangular(R.mT, inner, upper=False)  # R⁻ᵀ(...)
@@ -131,7 +136,7 @@ def minimize_lbfgs_trace(
         g, alpha = st["g"], st["alpha"]
         direction = _two_loop_direction(g, alpha, st["S"], st["Y"], st["pos"], st["hlen"])
         # safeguard: scaled steepest descent if not a descent direction
-        bad_dir = ~(torch.sum(g * direction, dim=-1) < 0)
+        bad_dir = ~(sum_rows(torch.sum(g * direction, dim=-1)) < 0)
         direction = torch.where(bad_dir[:, None], -alpha * g, direction)
         alpha0 = torch.where(
             st["it"] == 0, initial_step_size(st["x"], st["f"], g), torch.ones_like(st["f"])
@@ -143,8 +148,8 @@ def minimize_lbfgs_trace(
         # curvature-guarded history update
         svec = x_new - st["x"]
         yvec = ls.g - st["g"]
-        curv = torch.sum(yvec * svec, dim=-1)
-        accept = progress & (curv > epsilon_curvature * torch.sum(yvec * yvec, dim=-1))
+        curv, yy = sum_rows(torch.sum(yvec * svec, dim=-1), torch.sum(yvec * yvec, dim=-1))
+        accept = progress & (curv > epsilon_curvature * yy)
         if J > 0:
             write = (st["pos"] + 1) % J
             S, Y = st["S"].clone(), st["Y"].clone()
@@ -265,8 +270,8 @@ def lbfgs_history_aux(
     y_steps = grads[:, :-1] - grads[:, 1:]  # ∇logp_l − ∇logp_{l+1}
     point_mask = trace.point_mask
     step_valid = point_mask[:, 1:]
-    curv = torch.sum(y_steps * s_steps, dim=-1)
-    accept = step_valid & (curv > epsilon_curvature * torch.sum(y_steps**2, dim=-1))
+    curv, yy = sum_rows(torch.sum(y_steps * s_steps, dim=-1), torch.sum(y_steps**2, dim=-1))
+    accept = step_valid & (curv > epsilon_curvature * yy)
     num_rejected = torch.sum(step_valid & ~accept, dim=-1)
 
     alpha = torch.ones_like(xs[:, 0])

@@ -22,6 +22,8 @@ from typing import Callable, Optional
 
 import torch
 
+from pathfinder_tpu_torch.utils.rows import max_rows, sum_rows
+
 __all__ = [
     "LineSearchResult",
     "hager_zhang_line_search",
@@ -75,9 +77,8 @@ def resolve_c1(c1, line_search: str) -> float:
 
 def initial_step_size(x0, f0, g0, psi0=0.01):
     """First-iteration step guess (HZ's ``InitialHagerZhang`` I0 rule)."""
-    xinf = x0.abs().amax(dim=-1)
-    ginf = g0.abs().amax(dim=-1)
-    gnormsq = torch.sum(g0 * g0, dim=-1)
+    xinf, ginf = max_rows(x0.abs().amax(dim=-1), g0.abs().amax(dim=-1))
+    gnormsq = sum_rows(torch.sum(g0 * g0, dim=-1))
     a_x = psi0 * xinf / torch.clamp(ginf, min=1e-32)
     a_f = psi0 * f0.abs() / torch.clamp(gnormsq, min=1e-32)
     one = torch.ones_like(f0)
@@ -131,7 +132,7 @@ def hager_zhang_line_search(
     dtype = x.dtype
     K = x.shape[0]
     p = direction
-    dphi0 = torch.sum(g0 * p, dim=-1)
+    dphi0 = sum_rows(torch.sum(g0 * p, dim=-1))
     zero = torch.zeros_like(f0)
     eps_k = epsilon * f0.abs()
     delta, sigma = c1, c2
@@ -156,7 +157,7 @@ def hager_zhang_line_search(
         c = s["c"]
         phi_c, g_c = value_and_grad(x + c[:, None] * p)
         phi_c, g_c = phi_c.to(dtype), g_c.to(dtype)
-        dphi_c = torch.sum(g_c * p, dim=-1)
+        dphi_c = sum_rows(torch.sum(g_c * p, dim=-1))
         nev = s["nev"] + 1
         bad = ~(torch.isfinite(phi_c) & torch.isfinite(dphi_c))
 
@@ -301,7 +302,7 @@ def backtracking_line_search(
     dtype = x.dtype
     K = x.shape[0]
     p = direction
-    dphi0 = torch.sum(g0 * p, dim=-1)
+    dphi0 = sum_rows(torch.sum(g0 * p, dim=-1))
     if active is None:
         active = torch.ones(K, dtype=torch.bool, device=x.device)
     s = dict(
@@ -478,7 +479,7 @@ def more_thuente_line_search(
     dtype = x.dtype
     K = x.shape[0]
     p = direction
-    dphi0 = torch.sum(g0 * p, dim=-1)
+    dphi0 = sum_rows(torch.sum(g0 * p, dim=-1))
     zero = torch.zeros_like(f0)
     gtest = c1 * dphi0  # slope of the sufficient-decrease line
     if active is None:
@@ -505,7 +506,7 @@ def more_thuente_line_search(
         stp = s["stp"]
         fp, g_p = value_and_grad(x + stp[:, None] * p)
         fp, g_p = fp.to(dtype), g_p.to(dtype)
-        dp = torch.sum(g_p * p, dim=-1)
+        dp = sum_rows(torch.sum(g_p * p, dim=-1))
         bad = ~(torch.isfinite(fp) & torch.isfinite(dp))
 
         suff = fp <= f0 + stp * gtest
@@ -609,7 +610,7 @@ def wolfe_line_search(
     dtype = x.dtype
     K = x.shape[0]
     p = direction
-    dphi0 = torch.sum(g0 * p, dim=-1)
+    dphi0 = sum_rows(torch.sum(g0 * p, dim=-1))
     zero = torch.zeros_like(f0)
     eps = torch.finfo(dtype).eps
     if active is None:
@@ -648,7 +649,7 @@ def wolfe_line_search(
 
         phi_a, g_a = value_and_grad(x + a[:, None] * p)
         phi_a, g_a = phi_a.to(dtype), g_a.to(dtype)
-        dphi_a = torch.sum(g_a * p, dim=-1)
+        dphi_a = sum_rows(torch.sum(g_a * p, dim=-1))
         bad = ~(torch.isfinite(phi_a) & torch.isfinite(dphi_a))
         suff = phi_a <= f0 + c1 * a * dphi0
         curv = dphi_a.abs() <= -c2 * dphi0

@@ -9,6 +9,12 @@ written for a diagonal ``A``. Draws are ``(..., n, N)`` column blocks, as in
 the JAX package. Every sampler takes a :class:`~pathfinder_tpu_torch.utils.
 rng.Stream` for its noise, or the noise itself as ``u=`` (tests inject the
 JAX package's draws this way).
+
+Under a row group (``utils/rows.py``, the mesh's ``dim`` axis) a normal
+holds a member's rows: ``dim`` is still the full dimension, a stream gives
+the member its rows of the unsplit noise, and B1 runs split: its partial
+``(Xᵀu, ‖u‖²)`` on the member's rows, summed over the members, then its
+resume on them. The log density (B2) has no split mode yet and raises there.
 """
 
 from __future__ import annotations
@@ -22,9 +28,12 @@ import torch
 from pathfinder_tpu_torch.utils.misc import tree_map
 from pathfinder_tpu_torch.ops.kernels.woodbury_kernels import (
     sample_and_logq,
+    sample_and_logq_partial,
+    sample_and_logq_resume,
     whiten_sumsq,
 )
 from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat
+from pathfinder_tpu_torch.utils import rows
 from pathfinder_tpu_torch.utils.rng import Stream
 
 __all__ = ["MvNormal", "UniformMixture", "fit_mvnormal"]
@@ -41,7 +50,7 @@ class MvNormal:
 
     @property
     def dim(self) -> int:
-        return self.mean.shape[-1]
+        return rows.full_dim(self.mean.shape[-1])
 
     @property
     def dtype(self):
@@ -50,8 +59,9 @@ class MvNormal:
     def _noise(self, stream: Optional[Stream], ndraws, u):
         if u is not None:
             return u.to(self.dtype).contiguous()
-        z = stream.normal(self.dim * ndraws, self.dtype, self.mean.device)
-        return z.reshape(z.shape[:-1] + (self.dim, ndraws))
+        n = self.mean.shape[-1]  # a row group's member draws its rows of the (dim, ndraws) block
+        z = stream.normal(n * ndraws, self.dtype, self.mean.device, start=rows.row_offset() * ndraws)
+        return z.reshape(z.shape[:-1] + (n, ndraws))
 
     def _kernel_args(self):
         F = self.cov.factor
@@ -61,6 +71,9 @@ class MvNormal:
         """Log density of the columns of ``x (..., n, N)``: ``(..., N)``. A
         2-D ``x (n, P)`` beside batched normals is shared by all of them
         and is not copied per normal: ``(..., P)``."""
+        if rows.in_group():
+            raise NotImplementedError(
+                "MvNormal.logpdf on the 'dim' mesh axis: B2 has no split mode yet")
         F = self.cov.factor
         if not F.diag_A:
             maha = self.cov.invquad(x - self.mean[..., None])
@@ -80,6 +93,13 @@ class MvNormal:
         and logq from the already-drawn ``‖u‖²``: no second solve."""
         F = self.cov.factor
         u = self._noise(stream, ndraws, u)
+        if rows.in_group():
+            if not F.diag_A:
+                raise NotImplementedError("a dense covariance on the 'dim' mesh axis")
+            a_half, X, mean = self._kernel_args()
+            t, usq = rows.sum_rows(*sample_and_logq_partial(u, X, self.dim))
+            return sample_and_logq_resume(u, a_half, X, F.C.contiguous(), mean,
+                                          F.log_det.contiguous(), t, usq, self.dim)
         if not F.diag_A:
             x = self.cov.unwhiten(u) + self.mean[..., None]
             usq = torch.sum(u * u, dim=-2)

@@ -20,6 +20,7 @@ from typing import Callable, Optional
 import torch
 
 from pathfinder_tpu_torch.ops.linesearch import resolve_c1, resolve_line_search
+from pathfinder_tpu_torch.utils.rows import is_lead, max_rows
 
 __all__ = [
     "OptimizationTrace",
@@ -36,7 +37,7 @@ def should_abort_nonfinite(logp_value, grad_logp, fail_on_nonfinite=True):
     bad = (
         torch.isnan(logp_value)
         | (logp_value == torch.inf)
-        | (~torch.isfinite(grad_logp)).any(dim=-1)
+        | max_rows((~torch.isfinite(grad_logp)).any(dim=-1))
     )
     return bad & fail_on_nonfinite
 
@@ -44,7 +45,7 @@ def should_abort_nonfinite(logp_value, grad_logp, fail_on_nonfinite=True):
 def scale_aware_gtol(gtol_user, g0, dtype):
     """The user's ``gtol`` floored at 25 eps times ``min(1, |g0|∞)``."""
     floor = 25 * torch.finfo(dtype).eps
-    g0_scale = g0.abs().amax(dim=-1)
+    g0_scale = max_rows(g0.abs().amax(dim=-1))
     g0_scale = torch.where(
         torch.isfinite(g0_scale) & (g0_scale > 0), g0_scale,
         torch.ones_like(g0_scale),
@@ -149,12 +150,12 @@ def minimize_trace(
         xs[lanes, it_new] = torch.where(wr[:, None], x_new, xs[lanes, it_new])
         fs[lanes, it_new] = torch.where(wr, -f_new, fs[lanes, it_new])
         gs[lanes, it_new] = torch.where(wr[:, None], -g_new, gs[lanes, it_new])
-        if progress_every > 0:
+        if progress_every > 0 and is_lead():
             report = wr & (it_new % progress_every == 0)
             for it_k, lp in zip(it_new[report].tolist(), (-f_new)[report].tolist()):
                 print(f"  {name} iter {it_k}/{maxiters} logp={lp:.4g}")
 
-        converged = g_new.abs().amax(dim=-1) <= gtol_eff
+        converged = max_rows(g_new.abs().amax(dim=-1)) <= gtol_eff
         if ftol_rel > 0:
             stalled = progress & ((f - f_new) <= ftol_rel * (f_new.abs() + ftol_rel))
         else:

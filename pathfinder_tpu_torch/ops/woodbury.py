@@ -27,6 +27,12 @@ JAX package's XLA has them. A bfloat16 factor therefore runs those two in
 float32 and rounds each result to bfloat16 once. float16 has neither in
 torch nor in the JAX package's CPU LAPACK, and raises ``NotImplementedError``
 in both.
+
+Under a row group (``utils/rows.py``: the core's rows split over the mesh's
+``dim`` axis) the tensors hold a member's rows of ``n``, and every
+reduction over ``n`` (the Gram ``XᵀX``, ``log det A``, ``Xᵀx`` and the
+column sums) is summed over the members. A dense ``A`` has no row split
+and raises there.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from pathfinder_tpu_torch.utils.rows import in_group, sum_rows
 
 __all__ = [
     "WoodburyFactor",
@@ -103,7 +111,7 @@ class WoodburyFactor:
 
     def _core(self, M, x):
         # x + X (M (Xᵀ x))
-        return x + self.X @ (M @ (self.X.mT @ x))
+        return x + self.X @ (M @ sum_rows(self.X.mT @ x))
 
     # -- factor applications --------------------------------------------------
     def L_mul(self, x):
@@ -186,6 +194,8 @@ def pdfactorize(
             f"D {tuple(D.shape)}"
         )
     diag = _is_diag(A, B)
+    if not diag and in_group():
+        raise NotImplementedError("a dense A on the 'dim' mesh axis: it has no row split")
     dtype = torch.promote_types(torch.promote_types(A.dtype, B.dtype), D.dtype)
     A, B, D = A.to(dtype), B.to(dtype), D.to(dtype)
     m = B.shape[-1]
@@ -201,11 +211,11 @@ def pdfactorize(
         log_det_A = 2.0 * torch.sum(torch.log(_diag_of(a_half)), dim=-1)
     if m == 0:
         core0 = torch.zeros(B.shape[:-2] + (0, 0), dtype=dtype, device=B.device)
-        return WoodburyFactor(a_half, X, core0, core0, log_det_A)
+        return WoodburyFactor(a_half, X, core0, core0, sum_rows(log_det_A))
 
     eps = torch.finfo(dtype).eps
     eye = torch.eye(m, dtype=dtype, device=B.device)
-    G = X.mT @ X
+    G, log_det_A = sum_rows(X.mT @ X, log_det_A)
     # the ridge scale comes from the DATA Gram, measured before the
     # masked-column identity is injected (see the JAX package's note: an
     # absolute floor drives I + KᵀDK indefinite near convergence)
@@ -251,7 +261,7 @@ def pdunfactorize(F: WoodburyFactor):
     else:
         A = F.a_half @ F.a_half.mT
         B = F.a_half @ F.X
-    G = F.X.mT @ F.X
+    G = sum_rows(F.X.mT @ F.X)
     D = F.C + F.C.mT + F.C @ G @ F.C.mT
     return A, B, D
 
@@ -321,7 +331,7 @@ class WoodburyPDMat:
     def mul(self, x) -> torch.Tensor:
         """``W x`` for ``x (..., n, N)``."""
         Ax = x * self.A[..., None] if self.diag_A else self.A @ x
-        return Ax + self.B @ (self.D @ (self.B.mT @ x))
+        return Ax + self.B @ (self.D @ sum_rows(self.B.mT @ x))
 
     def solve(self, x) -> torch.Tensor:
         """``W⁻¹ x``."""
@@ -335,7 +345,7 @@ class WoodburyPDMat:
         ``A⁻¹ + (A⁻¹B) D' (A⁻¹B)ᵀ`` with ``D' = Ci + Ciᵀ + Ciᵀ G Ci``.
         ``method`` is the factorization of the result."""
         F = self.factor
-        G = F.X.mT @ F.X
+        G = sum_rows(F.X.mT @ F.X)
         D_inv = F.Ci + F.Ci.mT + F.Ci.mT @ G @ F.Ci
         if F.diag_A:
             A_inv = 1.0 / self.A
@@ -349,14 +359,14 @@ class WoodburyPDMat:
 
     def quad(self, x) -> torch.Tensor:
         """``xᵀ W x`` per column: ``(..., n, N) -> (..., N)``."""
-        Bx = self.B.mT @ x
         Ax = x * self.A[..., None] if self.diag_A else self.A @ x
-        return torch.sum(x * Ax, dim=-2) + torch.sum(Bx * (self.D @ Bx), dim=-2)
+        xAx, Bx = sum_rows(torch.sum(x * Ax, dim=-2), self.B.mT @ x)
+        return xAx + torch.sum(Bx * (self.D @ Bx), dim=-2)
 
     def invquad(self, x) -> torch.Tensor:
         """``xᵀ W⁻¹ x`` per column: ``(..., n, N) -> (..., N)``."""
         v = self.factor.L_solve(x)
-        return torch.sum(v * v, dim=-2)
+        return sum_rows(torch.sum(v * v, dim=-2))
 
     def whiten(self, x) -> torch.Tensor:
         """``L⁻¹ x``."""

@@ -1,6 +1,5 @@
-"""Path parallelism: the device mesh's paths axis and serving-scale launches
-(counterpart of ``pathfinder_tpu/parallel/sharding.py``; the ``dim`` axis,
-``paths_dim_mesh`` and ``parallel/dim_sharding.py``, is not ported yet).
+"""Path parallelism: the device mesh's ``paths`` and ``dim`` axes and
+serving-scale launches (counterpart of ``pathfinder_tpu/parallel/sharding.py``).
 
 Across devices, a :class:`Mesh` with a ``paths`` axis splits each launch's
 lanes into one contiguous block per mesh entry, the counterpart of the JAX
@@ -12,6 +11,20 @@ unsharded run of its lanes: at a fixed per-device launch width every bit is
 that of the run without a mesh. A mesh may name one device several times;
 its blocks then share that device, as the JAX tests' virtual CPU devices
 share the host.
+
+A mesh with a ``dim`` axis (:func:`paths_dim_mesh`) also splits each
+block's parameter rows over that axis, the counterpart of the JAX
+package's GSPMD run of the whole core on ``P("paths", "dim")``-sharded
+inputs: each block's lanes run as a row group (``utils/rows.py``), one host
+thread a ``dim`` entry, each running ``pathfinder_core`` on its contiguous
+rows of ``d`` and summing every reduction over ``d`` with its peers in rank
+order. The target is evaluated whole, on the group's first device, where
+GSPMD would partition it too: the results are the same, only the target's
+memory is not split. Only the L-BFGS optimizer runs there (every line
+search); the others hold ``(d, d)`` matrices or reductions the group does
+not see, and raise. The row blocks of a block are joined along ``d`` and
+the blocks gathered as on the ``paths`` axis, so everything after the core
+runs on the full states. A ``dim`` width of 1 is the run without it.
 
 Tens of thousands of paths do not fit one batch: one lane's trace, history
 and ELBO chunk are megabytes at d=1000. :func:`chunk_launches` runs a batch
@@ -42,22 +55,28 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from pathfinder_tpu_torch.singlepath import pathfinder_core
+from pathfinder_tpu_torch.ops.kernels.woodbury_kernels import load_library
+from pathfinder_tpu_torch.singlepath import SinglePathState, pathfinder_core
 from pathfinder_tpu_torch.utils.misc import indexed_device, resolve_device, tree_map
+from pathfinder_tpu_torch.utils.rows import RowGroup, row_target
 
 __all__ = [
     "Mesh",
     "paths_mesh",
+    "paths_dim_mesh",
     "make_path_executor",
     "paths_devices",
     "paths_width",
+    "dim_width",
     "run_on_devices",
+    "run_row_groups",
     "check_mesh",
     "mesh_device_bytes",
     "pad_paths",
@@ -122,43 +141,78 @@ class Mesh:
         return self.devices.size
 
 
+def device_list(devices, name: str) -> np.ndarray:
+    """``devices`` as a 1-D object array, by default every CUDA device,
+    ``cuda:0`` to ``cuda:n−1``; without CUDA the default raises."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{name}() names every CUDA device, but CUDA is not available")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    arr = np.empty(len(devices), dtype=object)
+    arr[:] = list(devices)
+    return arr
+
+
 def paths_mesh(devices=None) -> Mesh:
     """A 1-D mesh with a ``paths`` axis over ``devices`` (torch devices or
     their names), by default every CUDA device, ``cuda:0`` to ``cuda:n−1``.
     Without CUDA the default raises: nothing falls back to the CPU. A device
     named several times gives a mesh of several blocks on it (``["cpu"] *
     4``, or ``["cuda:0"] * 2`` on one card)."""
-    if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("paths_mesh() names every CUDA device, but CUDA is not available")
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    arr = np.empty(len(devices), dtype=object)
-    arr[:] = list(devices)
-    return Mesh(arr, (PATHS_AXIS,))
+    return Mesh(device_list(devices, "paths_mesh"), (PATHS_AXIS,))
+
+
+def paths_dim_mesh(n_paths_axis: int, devices=None) -> Mesh:
+    """A 2-D ``('paths', 'dim')`` mesh of ``n_paths_axis`` rows over
+    ``devices`` (default: every CUDA device), in order: the paths split over
+    the first axis and, within each block, the parameter dimension over the
+    second. Raises ``ValueError`` where the devices do not factor."""
+    arr = device_list(devices, "paths_dim_mesh")
+    if arr.size % n_paths_axis != 0:
+        raise ValueError(
+            f"{arr.size} devices do not factor into a ({n_paths_axis}, ·) paths×dim mesh"
+        )
+    return Mesh(arr.reshape(n_paths_axis, -1), (PATHS_AXIS, DIM_AXIS))
 
 
 def check_mesh(mesh: Optional[Mesh]) -> None:
-    """Raise for a mesh the port cannot run yet: one with a ``dim`` axis."""
-    if mesh is not None and DIM_AXIS in mesh.axis_names:
-        raise NotImplementedError(f"not ported yet: the '{DIM_AXIS}' mesh axis")
+    """Raise for a mesh whose axes are not ``paths`` and ``dim``, each named
+    at most once. Both axes are ported; on the ``dim`` axis the executor
+    runs the L-BFGS core only (:func:`make_path_executor`)."""
+    if mesh is None:
+        return
+    names = mesh.axis_names
+    if len(set(names)) != len(names) or not set(names) <= {PATHS_AXIS, DIM_AXIS}:
+        raise ValueError(f"a mesh's axes are '{PATHS_AXIS}' and '{DIM_AXIS}'; got {names}")
+
+
+def dim_width(mesh: Optional[Mesh]) -> int:
+    """Row blocks a path's ``d`` splits into: the ``dim`` axis's width (1
+    without one)."""
+    return 1 if mesh is None else mesh.shape.get(DIM_AXIS, 1)
 
 
 def paths_width(mesh: Optional[Mesh]) -> int:
-    """Blocks a launch splits into: the ``paths`` axis's width, or every
-    device of a mesh without one (1 without a mesh)."""
-    if mesh is None:
-        return 1
-    return mesh.shape.get(PATHS_AXIS, mesh.size)
+    """Blocks a launch splits into: the ``paths`` axis's width (1 without a
+    mesh or without the axis)."""
+    return 1 if mesh is None else mesh.shape.get(PATHS_AXIS, 1)
+
+
+def _block_grid(mesh: Mesh) -> np.ndarray:
+    """The devices as a ``(paths, dim)`` grid: row ``i`` is block ``i``'s
+    row group."""
+    names, grid = mesh.axis_names, mesh.devices
+    if PATHS_AXIS not in names:
+        grid, names = grid[None], (PATHS_AXIS,) + names
+    if DIM_AXIS not in names:
+        grid, names = grid[..., None], names + (DIM_AXIS,)
+    return np.transpose(grid, (names.index(PATHS_AXIS), names.index(DIM_AXIS)))
 
 
 def paths_devices(mesh: Mesh) -> list:
     """The device of each block: along the ``paths`` axis, the first entry
-    of the other axes (which replicate); every device of a mesh without a
-    ``paths`` axis."""
-    if PATHS_AXIS not in mesh.axis_names:
-        return list(mesh.devices.flat)
-    along = np.moveaxis(mesh.devices, mesh.axis_names.index(PATHS_AXIS), 0)
-    return list(along.reshape(along.shape[0], -1)[:, 0])
+    of the ``dim`` axis (where the block's states are joined)."""
+    return list(_block_grid(mesh)[:, 0])
 
 
 def pad_paths(n: int, mesh: Optional[Mesh] = None, cap: Optional[int] = None) -> int:
@@ -261,7 +315,16 @@ def make_path_executor(mesh: Optional[Mesh] = None, finish: Optional[Callable] =
     and the blocks are gathered in block order onto the mesh's first device.
     ``finish`` (``keep_traces=False`` slims the traces) is applied to each
     block on its device before the gather. An exception in any block
-    propagates once every block has ended; no block is retried elsewhere."""
+    propagates once every block has ended; no block is retried elsewhere.
+
+    With a ``dim`` axis of width ``w > 1``, ``d`` must divide by ``w``, and
+    block ``i`` runs as a row group over row ``i`` of the mesh's ``(paths,
+    dim)`` grid (the module docstring): the core of member ``j`` takes rows
+    ``[j·d/w, (j+1)·d/w)`` of the block's ``x0s``, on its device, from a
+    host thread of its own, and the members' states are joined along ``d``
+    on the block's first device. Only ``optimizer="lbfgs"`` runs there. The
+    kernels are built before the threads start, so that no member waits on
+    another's first build."""
     check_mesh(mesh)
 
     def one(path_ids, x0s, target, config, seed, round_idx):
@@ -270,30 +333,71 @@ def make_path_executor(mesh: Optional[Mesh] = None, finish: Optional[Callable] =
 
     if mesh is None:
         return one
-    size = paths_width(mesh)
-    devices = paths_devices(mesh)
+    size, width = paths_width(mesh), dim_width(mesh)
+    grid = _block_grid(mesh)
 
     def sharded(path_ids, x0s, target, config, seed, round_idx):
-        K = path_ids.shape[0]
+        K, d = x0s.shape
         if K % size:
             raise ValueError(
                 f"{K} lanes do not divide over the {size}-wide '{PATHS_AXIS}' mesh axis; "
                 "pad them with pad_paths"
             )
-        per = K // size
+        if d % width:
+            raise ValueError(
+                f"parameter dimension {d} is not divisible by the {width}-wide "
+                f"'{DIM_AXIS}' mesh axis"
+            )
+        if width > 1 and config.optimizer != "lbfgs":
+            raise NotImplementedError(
+                f"optimizer={config.optimizer!r} on the '{DIM_AXIS}' mesh axis: only the "
+                "L-BFGS core runs with its rows split"
+            )
+        per, rows = K // size, d // width
 
-        def block(i, dev):
+        def block(i, j, dev):
             lo = i * per
-            return one(path_ids[lo:lo + per].to(dev), x0s[lo:lo + per].to(dev), target, config,
-                       seed, round_idx)
+            ids, x = path_ids[lo:lo + per].to(dev), x0s[lo:lo + per].to(dev)
+            if width == 1:
+                return one(ids, x, target, config, seed, round_idx)
+            x = x[:, j * rows:(j + 1) * rows].contiguous()
+            return one(ids, x, row_target(target), config, seed, round_idx)
 
-        blocks = run_on_devices(devices, block)
+        shards = run_row_groups(grid, d, block)
+        blocks = [join_rows(shards[i * width:(i + 1) * width], grid[i, 0])
+                  for i in range(size)]
         if size == 1:
             return blocks[0]
-        first = devices[0]
+        first = grid[0, 0]
         return tree_map(lambda *ts: torch.cat([t.to(first) for t in ts]), *blocks)
 
     return sharded
+
+
+def join_rows(shards: list, device) -> SinglePathState:
+    """The states of a row group's members (rank order) as one state on
+    ``device``, member 0's: every array with a ``d`` axis (the trace's points
+    and gradients, the fitted normal's mean, diagonal and factors, the
+    draws) joined along it; the rest, which every member holds alike, as
+    member 0 has it."""
+    if len(shards) == 1:
+        return shards[0]
+
+    def cat(get, axis):
+        return torch.cat([get(s).to(device) for s in shards], dim=axis)
+
+    head = shards[0]
+    fit = head.fit_distribution
+    factor = dataclasses.replace(fit.cov.factor,
+                                 a_half=cat(lambda s: s.fit_distribution.cov.factor.a_half, -1),
+                                 X=cat(lambda s: s.fit_distribution.cov.factor.X, -2))
+    cov = dataclasses.replace(fit.cov, A=cat(lambda s: s.fit_distribution.cov.A, -1),
+                              B=cat(lambda s: s.fit_distribution.cov.B, -2), factor=factor)
+    trace = dataclasses.replace(head.trace, xs=cat(lambda s: s.trace.xs, -1),
+                                gradients=cat(lambda s: s.trace.gradients, -1))
+    fit = dataclasses.replace(fit, mean=cat(lambda s: s.fit_distribution.mean, -1), cov=cov)
+    return dataclasses.replace(head, trace=trace, fit_distribution=fit,
+                               draws=cat(lambda s: s.draws, -2))
 
 
 def run_on_devices(devices: list, fn: Callable) -> list:
@@ -303,9 +407,14 @@ def run_on_devices(devices: list, fn: Callable) -> list:
     that its work and the caller's are ordered on one stream a device; on the
     CPU it takes the caller's intra-op thread count, which a new thread does
     not inherit. An exception in any call propagates once every call has
-    ended."""
+    ended: the first in call order that is not a peer's broken barrier (a
+    row group's members raise ``threading.BrokenBarrierError`` when one of
+    them fails, ``utils/rows.py``). On CUDA devices torch's linear-algebra
+    library is loaded first (:func:`_load_cuda_linalg`)."""
     streams = [torch.cuda.current_stream(d) for d in dict.fromkeys(devices) if d.type == "cuda"]
     threads = torch.get_num_threads()
+    if streams and len(devices) > 1:
+        _load_cuda_linalg(next(d for d in devices if d.type == "cuda"))
 
     def call(i):
         with contextlib.ExitStack() as stack:
@@ -321,14 +430,59 @@ def run_on_devices(devices: list, fn: Callable) -> list:
         return [call(0)]
     with ThreadPoolExecutor(max_workers=len(devices), thread_name_prefix="pathfinder-mesh") as pool:
         futures = [pool.submit(call, i) for i in range(len(devices))]
-        return [f.result() for f in futures]
+        errors = [f.exception() for f in futures]
+    causes = [e for e in errors if e is not None and not isinstance(e, threading.BrokenBarrierError)]
+    if causes or any(errors):
+        raise (causes or [e for e in errors if e is not None])[0]
+    return [f.result() for f in futures]
+
+
+def run_row_groups(grid, d: int, fn: Callable) -> list:
+    """``fn(i, j, device)`` for every entry of the ``(blocks, width)`` device
+    grid, each from a host thread of its own (:func:`run_on_devices`); the
+    results in grid order, block by block. With ``width > 1`` the calls of
+    block ``i`` run as the members ``j`` of one :class:`RowGroup` over ``d``
+    rows (``utils/rows.py``), and on CUDA the kernels are built before the
+    threads start, so that no member waits on another's first build; with
+    ``width == 1`` they run in no group."""
+    grid = np.asarray(grid, dtype=object)
+    width = grid.shape[1]
+    groups = [RowGroup(row, d) for row in grid] if width > 1 else None
+    devices = list(grid.flat)  # block i's member j is entry i·width + j
+    if groups is not None and devices[0].type == "cuda":
+        load_library()
+
+    def call(k, dev):
+        i, j = divmod(k, width)
+        with groups[i].member(j) if groups is not None else contextlib.nullcontext():
+            return fn(i, j, dev)
+
+    return run_on_devices(devices, call)
+
+
+_linalg_lock = threading.Lock()
+_linalg_loaded = False
+
+
+def _load_cuda_linalg(device) -> None:
+    """Load torch's CUDA linear-algebra library, once a process. torch loads
+    it at the first call that needs it (a triangular solve, a Cholesky), and
+    that loading raises ("lazy wrapper should be called at most once") when
+    two threads make their first such call at once, as a mesh's threads do
+    in a process whose first run is a mesh run."""
+    global _linalg_loaded
+    with _linalg_lock:
+        if not _linalg_loaded:
+            one = torch.ones(1, 1, device=device)
+            torch.linalg.solve_triangular(one, one, upper=True)
+            _linalg_loaded = True
 
 
 def mesh_device_bytes(mesh: Mesh) -> int:
-    """The memory a block of ``mesh`` may plan with: the smallest device
-    total divided by the blocks it holds (a device named twice runs two
-    blocks at once)."""
-    devices = paths_devices(mesh)
+    """The memory a mesh entry may plan with: the smallest device total
+    divided by the entries it holds (a device named twice runs two blocks,
+    or two members of a row group, at once)."""
+    devices = list(mesh.devices.flat)
     return min(device_memory_bytes(d) // devices.count(d) for d in set(devices))
 
 
@@ -365,7 +519,8 @@ MIXTURE_COPIES = 5
 
 def lane_bytes(d: int, maxiters: int, history_length: int, ndraws_elbo: int,
                elbo_chunk: int, ndraws: int, dtype=torch.float32, optimizer="lbfgs",
-               importance_denominator: str = "component", nruns: int = 0) -> int:
+               importance_denominator: str = "component", nruns: int = 0,
+               dim_width: int = 1) -> int:
     """An upper estimate of one lane's share of a launch's peak device
     memory.
 
@@ -384,9 +539,20 @@ def lane_bytes(d: int, maxiters: int, history_length: int, ndraws_elbo: int,
     lane's ``N`` pooled draws also take a column of each of the ``nruns``
     components in the denominator's block (``MIXTURE_COPIES`` arrays of
     them), since those blocks are a launch's paths. Measured on the card:
-    ``tools/serving_memory.py``."""
+    ``tools/serving_memory.py``.
+
+    On a mesh whose ``dim`` axis is ``dim_width > 1`` wide a lane's rows are
+    split: a member holds the estimate at ``d / dim_width`` rows, and the
+    group's first member also the target's evaluation at the full width,
+    an ELBO chunk's gathered draws and the target's temporaries (``4·d·N``
+    a candidate, as above). The estimate is that first member's, which
+    every member of the mesh plans with."""
     f = torch.finfo(dtype).bits // 8
     J, L, C = history_length, maxiters, min(elbo_chunk, maxiters)
+    if dim_width > 1:
+        rows = lane_bytes(-(-d // dim_width), maxiters, history_length, ndraws_elbo,
+                          elbo_chunk, ndraws, dtype, optimizer, importance_denominator, nruns)
+        return rows + C * f * 4 * d * ndraws_elbo
     held = f * (2 * (L + 1) * d + (L + 1) + (2 * L + 2 * (L + 1)) * d)
 
     def sample(n):

@@ -8,6 +8,11 @@ every point
 paths of a batch run as one leading axis. Every random number comes from a
 stream keyed by ``(seed, path, round, purpose, candidate)``, so a path's
 result does not depend on which batch it runs in.
+
+The core also runs as one member of a row group (``utils/rows.py``: the
+mesh's ``dim`` axis, ``parallel/sharding.make_path_executor``): ``x0s``
+then holds the member's rows of ``d``, the noise its rows of the unsplit
+streams, and every reduction over ``d`` is summed over the members.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from pathfinder_tpu_torch.ops.lbfgs import (
 )
 from pathfinder_tpu_torch.ops.mvnormal import MvNormal, fit_mvnormal
 from pathfinder_tpu_torch.ops.optimizers import resolve_optimizer
-from pathfinder_tpu_torch.utils import rng
+from pathfinder_tpu_torch.utils import rng, rows
 from pathfinder_tpu_torch.utils.misc import resolve_device, tree_map
 
 __all__ = [
@@ -127,9 +132,11 @@ def candidate_dists(trace: OptimizationTrace, aux, history_length: int) -> Calla
 
 def elbo_noise(seed: int, path_ids, round_idx, cand_idx, d: int, ndraws: int, dtype, device):
     """The ELBO noise of candidates ``cand_idx (K, C)`` of paths ``path_ids
-    (K,)``: ``u (K, C, d, ndraws)``, one stream per (path, round, candidate)."""
+    (K,)``: ``u (K, C, d, ndraws)``, one stream per (path, round, candidate).
+    In a row group ``d`` is the member's rows, drawn from its rows of the
+    unsplit ``(d, ndraws)`` block."""
     stream = rng.Stream(seed, path_ids[:, None], round_idx, rng.ELBO, cand_idx)
-    z = stream.normal(d * ndraws, dtype, device)
+    z = stream.normal(d * ndraws, dtype, device, start=rows.row_offset() * ndraws)
     return z.reshape(cand_idx.shape + (d, ndraws))
 
 
@@ -145,7 +152,7 @@ def pathfinder_core(
     cfg = config
     K, d = x0s.shape
     dtype = x0s.dtype
-    minimize = resolve_optimizer(cfg.optimizer, target, dim=d)
+    minimize = resolve_optimizer(cfg.optimizer, target, dim=rows.full_dim(d))
     # progress_every only where asked for: a user optimizer need not take it
     progress = {"progress_every": cfg.progress_every} if cfg.progress_every > 0 else {}
     trace = minimize(

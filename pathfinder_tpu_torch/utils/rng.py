@@ -86,6 +86,8 @@ class Stream:
 
     ``uniform(n)`` / ``normal(n)`` return ``(*batch, n)``: element ``e`` of a
     stream is the same number whatever ``n`` and whatever the batch holds.
+    ``normal(n, start=s)`` gives elements ``s .. s+n−1``, the rows of a
+    row-split core (``utils/rows.py``).
     """
 
     seed: int
@@ -98,13 +100,13 @@ class Stream:
         if isinstance(self.round, int) and not 0 <= self.round < MAX_ROUND:
             raise ValueError(f"stream round {self.round} outside [0, {MAX_ROUND})")
 
-    def _words(self, nblocks: int, device) -> torch.Tensor:
+    def _words(self, nblocks: int, device, first: int = 0) -> torch.Tensor:
         path = _as_long(self.path, device)
         rnd = _as_long(self.round, device)
         cand = _as_long(self.candidate, device)
         batch = torch.broadcast_shapes(path.shape, rnd.shape, cand.shape)
         shape = batch + (nblocks,)
-        c0 = torch.arange(nblocks, dtype=torch.int64, device=device).expand(shape)
+        c0 = torch.arange(first, first + nblocks, dtype=torch.int64, device=device).expand(shape)
         c1 = (cand & _MASK32)[..., None].expand(shape)
         c2 = (((rnd << 8) | self.purpose) & _MASK32)[..., None].expand(shape)
         c3 = (path & _MASK32)[..., None].expand(shape)
@@ -118,13 +120,16 @@ class Stream:
         u = (words.to(torch.float64) + 0.5) * 2.0**-32
         return u.to(dtype)
 
-    def normal(self, n: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
-        """``(*batch, n)`` standard normals by Box-Muller on word pairs."""
-        npairs = -(-n // 2)
-        words = self._words(-(-npairs // 2), device)[..., : 2 * npairs]
+    def normal(self, n: int, dtype=torch.float32, device="cpu", start: int = 0) -> torch.Tensor:
+        """``(*batch, n)`` standard normals by Box-Muller on word pairs:
+        elements ``start .. start+n−1`` of the stream (a block of 4 words
+        gives 4 of them)."""
+        first, skip = divmod(start, 4)
+        npairs = -(-(n + skip) // 2)
+        words = self._words(-(-npairs // 2), device, first)[..., : 2 * npairs]
         u = (words.to(torch.float64) + 0.5) * 2.0**-32
         u1, u2 = u[..., 0::2], u[..., 1::2]
         r = torch.sqrt(-2.0 * torch.log(u1))
         theta = (2.0 * math.pi) * u2
         z = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
-        return z.reshape(z.shape[:-2] + (2 * npairs,))[..., :n].to(dtype)
+        return z.reshape(z.shape[:-2] + (2 * npairs,))[..., skip:skip + n].to(dtype)

@@ -20,7 +20,8 @@ the port without a mesh.
   4, the CG optimizer, retry rounds, offloaded launches, the mixture
   denominator, ``optimizer="auto"`` and a path count the width does not
   divide.
-* A mesh with a ``dim`` axis raises; an exception in one block propagates;
+* On a mesh with a ``dim`` axis another optimizer than L-BFGS raises; an
+  exception in one block propagates;
   the kernels' launch counts and the zoo's per-device copies are safe from
   several threads.
 """
@@ -190,13 +191,16 @@ def test_mesh_is_bitwise_the_run_at_the_same_per_device_width(case):
 
 
 def test_dim_axis_raises_and_device_must_be_the_first():
+    """The ``dim`` axis runs the L-BFGS core only (``test_torch_dim_sharding.py``
+    holds what it runs); another optimizer raises there."""
     mesh = sharding.Mesh(np.array([["cpu", "cpu"]], dtype=object), ("paths", "dim"))
     assert mesh.shape == {"paths": 1, "dim": 2}
     t = tzoo.StandardNormal(4)
     with pytest.raises(NotImplementedError, match="'dim' mesh axis"):
-        multipathfinder(t, 10, nruns=2, maxiters=3, device="cpu", mesh=mesh)
+        multipathfinder(t, 10, nruns=2, maxiters=3, device="cpu", mesh=mesh, optimizer="bfgs")
     with pytest.raises(NotImplementedError, match="'dim' mesh axis"):
-        make_path_executor(mesh)
+        make_path_executor(mesh)(torch.arange(2), torch.zeros(2, 4), t,
+                                 tsinglepath.PathfinderConfig(optimizer="newton"), 0, 0)
     with pytest.raises(ValueError, match="lanes do not divide"):
         make_path_executor(paths_mesh(["cpu"] * 2))(
             torch.arange(3), torch.zeros(3, 4), t, tsinglepath.PathfinderConfig(), 0, 0)

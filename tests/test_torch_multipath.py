@@ -218,14 +218,18 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_unported_options_raise():
-    """Only the device mesh's ``dim`` axis is still to port; the serving-scale
-    options of the JAX entry point and a mesh over the paths are taken."""
+    """Every option of the JAX entry point is taken: a mesh over the paths
+    and the parameter dimension, and the serving-scale options. On the
+    ``dim`` axis only the L-BFGS core runs; another optimizer raises."""
     from pathfinder_tpu_torch.parallel.sharding import Mesh, paths_mesh
 
     t = tzoo.StandardNormal(4)
     dim_mesh = Mesh(np.array([["cpu", "cpu"]], dtype=object), ("paths", "dim"))
-    with pytest.raises(NotImplementedError, match="'dim' mesh axis"):
-        multipathfinder(t, 10, nruns=2, maxiters=3, device="cpu", mesh=dim_mesh)
+    assert dim_mesh.shape == {"paths": 1, "dim": 2}
+    r = multipathfinder(t, 10, nruns=2, maxiters=3, device="cpu", mesh=dim_mesh)
+    assert r.states.draws.shape == (2, 4, 5) and bool(torch.isfinite(r.draws).all())
+    with pytest.raises(NotImplementedError, match="optimizer='cg' on the 'dim' mesh axis"):
+        multipathfinder(t, 10, nruns=2, maxiters=3, device="cpu", mesh=dim_mesh, optimizer="cg")
     r = multipathfinder(t, 10, nruns=3, maxiters=3, device="cpu", max_paths_per_launch=2,
                         keep_traces=False, offload_launches=True, progress=False, progress_every=0,
                         mesh=paths_mesh(["cpu"]))

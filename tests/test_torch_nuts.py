@@ -216,9 +216,11 @@ def test_nuts_nonfinite_start_is_visible_not_stuck():
         tnuts.nuts_chains(1, vg, None, x0, num_samples=10, num_warmup=5)
     from pathfinder_tpu_torch.parallel.sharding import Mesh, paths_mesh
 
+    # a ("paths", "dim") mesh splits the chains over its first axis and
+    # replicates over the second: the chain start is still checked
     dim_mesh = Mesh(np.array([["cpu", "cpu"]], dtype=object), ("paths", "dim"))
-    with pytest.raises(NotImplementedError, match="'dim' mesh axis"):
-        tnuts.nuts_chains(1, vg, None, x0[:1], mesh=dim_mesh)
+    with pytest.raises(ValueError, match="chains \\[1\\] start at"):
+        tnuts.nuts_chains(1, vg, None, x0, mesh=dim_mesh)
     with pytest.raises(ValueError, match="not divisible over the 2-wide 'paths' mesh axis"):
         tnuts.nuts_chains(1, vg, None, x0[:1], mesh=paths_mesh(["cpu"] * 2))
     with pytest.raises(ValueError, match="one row per chain"):

@@ -4,6 +4,7 @@ estimates, on one card.
 
     python3 tools/serving_memory.py [B ...]          # default: 512 1024 2048
     python3 tools/serving_memory.py --remedies [B]   # default B: 256
+    python3 tools/serving_memory.py --dim [B]        # default B: 512
 
 At the headline configuration (``HierarchicalGaussian(1000)``, maxiters=64,
 history_length=6, ndraws_elbo=5, elbo_chunk=8, 5 draws a path, f32) the
@@ -24,6 +25,16 @@ optimizer the rule names (``lbfgs``, ``cg``, ``bfgs``, ``newton``) against
 components (``diag`` and ``full``) against ``laplace_lane_bytes``; and the
 mixture denominator over a block of B paths' draws with every one of 4·B
 components against the term ``lane_bytes`` adds for it.
+
+The third runs the executor of a ``paths_dim_mesh(1, devices)`` on B
+paths, the lanes' rows split over the ``dim`` axis: over 2 and over 4
+distinct cards where the machine has them, and over one card named twice.
+For each device it prints the peak above what was allocated before, per
+lane, beside the estimate that device's entry is planned with: the group's
+first device against ``lane_bytes(dim_width=w)`` (its rows, the target's
+full-width evaluation and the joined state), every other against
+``lane_bytes`` at ``d / w`` rows; a card named twice holds two entries and
+is planned for twice the first's estimate (``mesh_device_bytes``).
 
 Needs a CUDA card and ``nvcc``; prints the card's name and power limit first.
 """
@@ -131,6 +142,52 @@ def remedies(target, B):
           f"estimate/measured={est / (peak / B):.3f}", flush=True)
 
 
+def dim_meshes(target, B):
+    cfg = PathfinderConfig(maxiters=MAXITERS, history_length=J, ndraws_elbo=N_ELBO,
+                           ndraws=NDRAWS, elbo_chunk=CHUNK)
+    count = torch.cuda.device_count()
+    layouts = [[f"cuda:{i}" for i in range(w)] for w in (2, 4) if w <= count]
+    layouts.append(["cuda:0"] * 2)
+    for names in layouts:
+        w = len(names)
+        mesh = sharding.paths_dim_mesh(1, names)
+        executor = sharding.make_path_executor(mesh)
+        lead_est = sharding.lane_bytes(D, MAXITERS, J, N_ELBO, CHUNK, NDRAWS, dim_width=w)
+        member_est = sharding.lane_bytes(D // w, MAXITERS, J, N_ELBO, CHUNK, NDRAWS)
+        for lanes in (64, B):  # the first launch warms every device up
+            ids, x0s = starts(lanes)
+            devices = list(dict.fromkeys(torch.device(n) for n in names))
+            for dev in devices:
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+            before = {dev: torch.cuda.memory_allocated(dev) for dev in devices}
+            for dev in devices:
+                torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            state = executor(ids, x0s, target, cfg, 0, 0)
+            for dev in devices:
+                torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t0
+            if lanes == 64:
+                del state
+                continue
+            for dev in devices:
+                per = (torch.cuda.max_memory_allocated(dev) - before[dev]) / lanes
+                entries = names.count(str(dev))
+                if dev == devices[0]:
+                    est = lead_est + (entries - 1) * member_est
+                    planned = entries * lead_est
+                    role = "first device" + (f", {entries} entries" if entries > 1 else "")
+                else:
+                    est = planned = member_est
+                    role = "member"
+                print(f"dim mesh {names} B={lanes}: {dev} ({role}) wall_s={secs:.3f} "
+                      f"paths_ok={int(state.success.sum())}/{lanes} peak_per_lane={per:.0f} "
+                      f"estimate={est} estimate/measured={est / per:.3f} planned={planned} "
+                      f"planned/measured={planned / per:.3f}", flush=True)
+            del state
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("a CUDA card is required")
@@ -141,6 +198,8 @@ def main():
     args = sys.argv[1:]
     if args and args[0] == "--remedies":
         remedies(target, int(args[1]) if len(args) > 1 else 256)
+    elif args and args[0] == "--dim":
+        dim_meshes(target, int(args[1]) if len(args) > 1 else 512)
     else:
         launches(target, [int(a) for a in args] or [512, 1024, 2048])
 
