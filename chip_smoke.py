@@ -86,7 +86,7 @@ Phases, each of which fails the run (exit code 1) on any error:
    (the same per-device width), with the component and with the mixture
    denominator, bitwise equal at every stage and launching the kernels as
    often; then ``nuts_chains`` on 4 chains warm-started from the headline
-   result over the mesh (50 + 50 transitions), bitwise equal to two
+   result over the mesh (25 + 25 transitions), bitwise equal to two
    unsharded ``nuts`` calls with chain ids 0–1 and 2–3. Each run's wall time
    and peak device memory are printed beside the card's name and power
    limit.
@@ -104,8 +104,23 @@ Phases, each of which fails the run (exit code 1) on any error:
    split modes launched in every run, each mesh's repeat bitwise equal at
    every stage; a ``(2, 1)`` mesh bitwise ``paths_mesh(["cuda:0"] * 2)``;
    the float64 headline on the ``(1, 2)`` mesh against the unsharded run
-   (paths with the same fit iteration). Walls and peak device memory beside
-   the card's name and power limit.
+   (paths with the same fit iteration). B2 split the same way: its partial
+   (t = X_rᵀv_r of each block) and resume (each block's ‖w_r‖², summed in
+   rank order) at the PSIS shape (100, 12, 10), d = 1000 in 2 and 4 blocks,
+   fast float32 and general float64, timed alike, and on every route as B1;
+   on its path, ``MvNormal.logpdf`` of a dim-mesh result's pooled draws
+   under their components through ``dim_map`` on two entries of the card,
+   float32 and float64, against the unsharded ``logpdf``, a repeat bitwise
+   equal, both B2 split modes launched. Every optimizer on the ``(1, 2)``
+   mesh: the remedy path (``optimizer="auto", auto_laplace=True``) on seeds
+   0–2 with phase 4's winner on each and k̂ within 0.005 of it, the median
+   in the auto band, a repeat bitwise equal; BFGS at the headline against
+   the unsharded BFGS run (the same paths succeed, fit iterations equal on
+   95% of paths, |Δk̂| ≤ 0.01), its peak beside ``lane_bytes``; Newton on
+   config 2 against the unsharded run; the port's ``minimize_cg_trace`` as a
+   user callable, its trajectory bitwise the unsharded ``optimizer="cg"``
+   run's. Walls and peak device memory beside the card's name and power
+   limit.
 10. Dtypes and ranks, the general kernel's paths: BASELINE config 2
    (``pathfinder(CorrelatedGaussian(100), history_length=20)``) on 5 seeds
    with its moment errors inside the JAX band, ``history_length=50``, the
@@ -929,6 +944,7 @@ def remedy_phase(pt, wk, zoo, main_khats):
 
     auto = dict(optimizer="auto", auto_laplace=True)
     khats, merrs, times, first = [], [], [], None
+    auto_runs = {}  # seed -> (winner, k-hat), for the dim phase's remedy path
     for seed in REMEDY_SEEDS:
         res, secs, by_shape = run(seed, **auto)
         khat, merr = _check_result(f"auto seed {seed}", res, mean_t, sd_t)
@@ -950,6 +966,7 @@ def remedy_phase(pt, wk, zoo, main_khats):
         khats.append(khat)
         merrs.append(merr)
         times.append(secs)
+        auto_runs[seed] = (res.config.optimizer, khat)
         first = first if first is not None else res
     repeat, secs, _ = run(SEEDS[0], **auto)
     times.append(secs)
@@ -1024,7 +1041,7 @@ def remedy_phase(pt, wk, zoo, main_khats):
           f"{float(chunked.pareto_shape):.4f}", flush=True)
     if not (same_q and same_w):
         fail("remedy mixture: the blocked mixture denominator differs from the unblocked one")
-    return totals
+    return totals, auto_runs
 
 
 def remedy_stage_times(pt, zoo):
@@ -1703,9 +1720,10 @@ def memory_rule_phase(pt, zoo):
 # the same per-device width, so bitwise equal at every stage; and nuts_chains
 # over the mesh against unsharded blocks with the same chain ids.
 MESH_BLOCKS = 2
-# 50 + 50 transitions: short, since the whole script must end within its time
-# limit; the comparison is bitwise at every transition
-MESH_NUTS_WARMUP = MESH_NUTS_SAMPLES = 50
+# 25 + 25 transitions: short, since the whole script must end within its time
+# limit (the dim phase's optimizer paths took the time of the rest); the
+# comparison is bitwise at every transition
+MESH_NUTS_WARMUP = MESH_NUTS_SAMPLES = 25
 
 
 def _bitwise_equal(a, b) -> bool:
@@ -1797,21 +1815,33 @@ def mesh_phase(pt, wk, zoo, headline, smi):
 
 
 # The dim axis (phase 9): B1's row-split modes at the main path's ELBO shape,
-# (800, 12, 5) at d = 1000 in row blocks of 500 and 250, fast float32 and
-# general float64; then the headline over a (paths, dim) mesh on the one card.
+# (800, 12, 5), and B2's at the component denominator's PSIS shape, (100, 12,
+# 10), at d = 1000 in row blocks of 500 and 250, fast float32 and general
+# float64; then the headline over a (paths, dim) mesh on the one card.
 DIM_SPLIT_CASES = (("float32", 2), ("float32", 4), ("float64", 2), ("float64", 4))
 DIM_SEEDS = SEEDS[:3]  # the (1, 2) mesh's headline seeds, beside one run of the (2, 2) mesh
 SPLIT_KERNELS = ("sample_and_logq_partial", "sample_and_logq_resume")
+B2_SPLIT_KERNELS = ("whiten_sumsq_partial", "whiten_sumsq_resume")
 
 
 def split_bound_us(mode, B, d_r, m, N, itemsize):
-    """The bound of one row-block launch (as :func:`bound_us`): the partial
-    reads u and X and writes t and ‖u‖² (in the accumulation type); the
-    resume reads u, X, a½, μ, C, logdet, t and ‖u‖² and writes x and logq."""
+    """The bound of one row-block launch (as :func:`bound_us`): B1's partial
+    reads u and X and writes t and ‖u‖² (in the accumulation type); its
+    resume reads u, X, a½, μ, C, logdet, t and ‖u‖² and writes x and logq.
+    B2's partial ("whiten partial") reads x, X, a½ and μ and writes t; its
+    resume reads x, X, a½, μ, Ci and t and writes the block's ‖w‖² (in the
+    accumulation type): the whitening (2 operations a value), X s (2·m),
+    w = v + X s and its square summed (3)."""
     acc = 8 if itemsize == 8 else 4
     if mode == "partial":
         moved = itemsize * B * d_r * (N + m) + acc * B * N * (m + 1)
         flops = B * N * (2 * d_r * m + 2 * d_r)
+    elif mode == "whiten partial":
+        moved = itemsize * B * d_r * (N + m + 2) + acc * B * N * m
+        flops = B * N * (2 * d_r * m + 2 * d_r)
+    elif mode == "whiten resume":
+        moved = itemsize * (B * d_r * (N + m + 2) + B * m * m) + acc * B * N * (m + 1)
+        flops = B * N * (2 * m * m + 2 * d_r * m + 5 * d_r)
     else:
         moved = (itemsize * (B * d_r * (2 * N + m + 2) + B * m * m + B + B * N)
                  + acc * B * N * (m + 1))
@@ -1876,6 +1906,57 @@ def check_split_case(wk, tag, args, blocks, dtype, plan=None):
     return err
 
 
+def _split_run_b2(wk, args, blocks, kernel=True, plan=None):
+    """B2 on ``args`` (x, a½, X, Ci, μ, ·) split in ``blocks`` row blocks: the
+    partial of every block, t summed in rank order, the resume of every
+    block and its ‖w‖² summed in rank order (as a row group sums them): the
+    Mahalanobis terms in the accumulation type, on the kernels or on the
+    plain split."""
+    x, a_half, X, Ci, mu, _ = args
+    d = x.shape[1]
+    r = d // blocks
+    cut = [(slice(None), slice(j * r, (j + 1) * r)) for j in range(blocks)]
+    if kernel:
+        partial = lambda *a: wk._whiten_sumsq_partial_cuda(*a, d, plan=plan)  # noqa: E731
+        resume = lambda *a: wk._whiten_sumsq_resume_cuda(*a, d, plan=plan)  # noqa: E731
+    else:
+        partial, resume = wk.whiten_sumsq_partial_torch, wk.whiten_sumsq_resume_torch
+    blk = [tuple(a[c].contiguous() for a in (x, a_half, X, mu)) for c in cut]
+    ts = [partial(*b) for b in blk]
+    t = ts[0]
+    for p in ts[1:]:
+        t = t + p
+    qs = [resume(xb, ab, Xb, Ci, mub, t) for xb, ab, Xb, mub in blk]
+    q = qs[0]
+    for p in qs[1:]:
+        q = q + p
+    return q
+
+
+def check_b2_split_case(wk, tag, args, blocks, dtype, plan=None):
+    """B2 split on the kernels against the plain split and the unsplit kernel,
+    both in the storage dtype, and a repeat bitwise equal; at float32 with
+    m >= d against the float64 plain version instead. The max abs error."""
+    import torch
+
+    m, d = args[2].shape[-1], args[2].shape[-2]
+    got = _split_run_b2(wk, args, blocks, plan=plan)
+    torch.cuda.synchronize()
+    name = f"B2 split [{tag}] maha"
+    if dtype == torch.float32 and m >= d:
+        err = check_general(name, got, wk.whiten_sumsq_torch(*(a.double() for a in args[:5])),
+                            dtype)
+    else:
+        plain = _split_run_b2(wk, args, blocks, kernel=False)
+        whole = wk._whiten_sumsq_cuda(*args[:5], general=True if plan else None, plan=plan)
+        err = max(check_general(name, got.to(dtype), plain.to(dtype), dtype),
+                  check_general(f"B2 split against unsplit [{tag}] maha", got.to(dtype), whole,
+                                dtype))
+    if not torch.equal(_split_run_b2(wk, args, blocks, plan=plan), got):
+        fail(f"B2 split [{tag}]: a repeat gave other bits")
+    return err
+
+
 # B1's split modes on the kernels' other routes, in 2 blocks, untimed: every
 # dtype at every rank of GENERAL_RANKS on (8, 1000, m, 5) (float32 m = 0 and
 # 12 on the fast kernel, every other case on the general one); float32 at
@@ -1889,28 +1970,32 @@ SPLIT_WORKSPACE = (4, 1000, 1000, 5)
 
 
 def split_routes(wk, rng):
-    """The cases of SPLIT_ROUTES..SPLIT_WORKSPACE; one line each."""
+    """The cases of SPLIT_ROUTES..SPLIT_WORKSPACE for B1's split and B2's;
+    one line each."""
     import torch
 
     B, N = SPLIT_ROUTES_B, SPLIT_ROUTES_N
     cases = [(dt, D, m) for dt in GENERAL_DTYPES for m in GENERAL_RANKS]
     cases += [("float32", d, m) for d, m in SPLIT_EDGE]
+    checks = (("B1", check_split_case), ("B2", check_b2_split_case))
     for dt_name, d, m in cases:
         dtype = getattr(torch, dt_name)
         tag = f"B={B} d={d} m={m} N={N} {dt_name} in 2 blocks"
         route = "fast" if wk.uses_fast_kernel(dtype, m) else "general"
-        err = max(check_split_case(wk, tag, args, 2, dtype)
-                  for args in general_inputs(rng, B, d, m, N, dtype))
-        print(f"B1 split [{tag}] {route} kernel: max_abs_err={err:.3e}", flush=True)
+        for which, check in checks:
+            err = max(check(wk, tag, args, 2, dtype)
+                      for args in general_inputs(rng, B, d, m, N, dtype))
+            print(f"{which} split [{tag}] {route} kernel: max_abs_err={err:.3e}", flush=True)
     B, d, m, N = SPLIT_WORKSPACE
     plan = wk._general_rows_plan(B, d // 2, m, N, torch.float32, smem_limit=16384)
     if not plan.ws:
         fail(f"the 16 KB split plan {plan} did not put its sums in the workspace")
     tag = f"workspace B={B} d={d} m={m} N={N} float32 in 2 blocks"
-    err = max(check_split_case(wk, tag, args, 2, torch.float32, plan)
-              for args in general_inputs(rng, B, d, m, N, torch.float32))
-    print(f"B1 split [{tag}] general kernel plan={tuple(plan)}: max_abs_err={err:.3e} "
-          "(against the float64 plain version)", flush=True)
+    for which, check in checks:
+        err = max(check(wk, tag, args, 2, torch.float32, plan)
+                  for args in general_inputs(rng, B, d, m, N, torch.float32))
+        print(f"{which} split [{tag}] general kernel plan={tuple(plan)}: max_abs_err={err:.3e} "
+              "(against the float64 plain version)", flush=True)
 
 
 def dim_split_phase(wk):
@@ -1925,7 +2010,7 @@ def dim_split_phase(wk):
 
     rng = np.random.default_rng(12)
     B, d, m, N = K * 8, D, M, 5
-    rows_out = []
+    rows_out = dim_split_b2(wk, rng)
     for dt_name, blocks in DIM_SPLIT_CASES:
         dtype = getattr(torch, dt_name)
         args = _seeded_inputs(rng, B, d, m, N, dtype)
@@ -1959,7 +2044,46 @@ def dim_split_phase(wk):
     return rows_out
 
 
-def dim_phase(pt, wk, zoo, smi, main_khats):
+def dim_split_b2(wk, rng):
+    """B2 split in row blocks at the PSIS shape (DIM_SPLIT_CASES), against
+    the plain split and the unsplit kernel, a repeat bitwise equal; one
+    block's launches timed L2-cold beside their plain versions and bounds.
+    The rows of the kernels' line."""
+    import torch
+
+    B, d, m, N = K, D, M, 10
+    rows_out = []
+    for dt_name, blocks in DIM_SPLIT_CASES:
+        dtype = getattr(torch, dt_name)
+        args = _seeded_inputs(rng, B, d, m, N, dtype)
+        x, a_half, X, Ci, mu, _ = args
+        r = d // blocks
+        tag = f"{dt_name} d={d} in {blocks} blocks"
+        err = check_b2_split_case(wk, tag, args, blocks, dtype)
+        c = (slice(None), slice(0, r))
+        xb, Xb, ab, mub = (t[c].contiguous() for t in (x, X, a_half, mu))
+        t_sum = wk._whiten_sumsq_partial_cuda(xb, ab, Xb, mub, d)
+        item = torch.finfo(dtype).bits // 8
+        general = not wk.uses_fast_kernel(dtype, m)
+        plan = (wk._general_rows_plan(B, r, m, N, dtype) if general
+                else wk._launch_plan(B, r, m, N))
+        for mode, kernel, plain in (
+                ("partial", lambda: wk._whiten_sumsq_partial_cuda(xb, ab, Xb, mub, d),
+                 lambda: wk.whiten_sumsq_partial_torch(xb, ab, Xb, mub)),
+                ("resume", lambda: wk._whiten_sumsq_resume_cuda(xb, ab, Xb, Ci, mub, t_sum, d),
+                 lambda: wk.whiten_sumsq_resume_torch(xb, ab, Xb, Ci, mub, t_sum))):
+            ms, plain_ms = time_cold_ms(kernel), time_cold_ms(plain)
+            bound, by = split_bound_us(f"whiten {mode}", B, r, m, N, item)
+            name = f"whiten_sumsq_{mode}" + ("_general" if general else "")
+            rows_out.append(dict(name=name, dtype=dt_name, blocks=blocks, err=err, ms=ms,
+                                 plain_ms=plain_ms, bound_us=bound, bound_by=by))
+            print(f"kernel {name} [{tag}: one block B={B} d_r={r} m={m} N={N}] plan={tuple(plan)} "
+                  f"max_abs_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_us={bound:.2f} ({by}) share={bound / (1e3 * ms):.3f}", flush=True)
+    return rows_out
+
+
+def dim_phase(pt, wk, zoo, smi, main_khats, auto_runs):
     """The headline over a (paths, dim) mesh on the one card:
     ``paths_dim_mesh(1, ["cuda:0"] * 2)`` on DIM_SEEDS and
     ``paths_dim_mesh(2, ["cuda:0"] * 4)`` on seed 0, every path succeeding, the
@@ -1975,22 +2099,27 @@ def dim_phase(pt, wk, zoo, smi, main_khats):
     totals = {name: 0 for name in wk.launch_counts()}
     t_phase = time.perf_counter()
 
-    def timed(label, count=True, **options):
+    def add(grew):
+        for n, c in grew.items():
+            totals[n] += c
+
+    def timed(label, count=True, target=target, **options):
         wk.reset_launch_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res = pt.multipathfinder(target, 1000, nruns=K, maxiters=64, elbo_chunk=8, **options)
+        options = dict(dict(nruns=K, maxiters=64, elbo_chunk=8), **options)
+        res = pt.multipathfinder(target, 1000, **options)
         torch.cuda.synchronize()
         secs, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
         grew = wk.launch_counts()
         if count:
-            for n, c in grew.items():
-                totals[n] += c
+            add(grew)
         print(f"dim phase [{label}]: wall_s={secs:.3f} peak_device_bytes={peak} "
-              f"paths_ok={int(res.states.success.sum())}/{K} "
+              f"paths_ok={int(res.states.success.sum())}/{res.states.success.numel()} "
               f"khat={float(res.psis_result.pareto_shape):.4f} "
-              f"split_launches={ {n: grew[n] for n in SPLIT_KERNELS} } card: {smi}", flush=True)
+              f"split_launches={ {n: c for n, c in grew.items() if n.startswith(SPLIT_KERNELS) and c} } "
+              f"card: {smi}", flush=True)
         return res, grew
 
     khats, merrs, first = [], [], {}
@@ -2020,6 +2149,7 @@ def dim_phase(pt, wk, zoo, smi, main_khats):
         fail(f"dim mesh: median k-hat {med_k} outside the JAX band {KHAT_BAND}")
     if not MOMENT_ERR_BAND[0] <= med_m <= MOMENT_ERR_BAND[1]:
         fail(f"dim mesh: median moment error {med_m} outside the JAX band {MOMENT_ERR_BAND}")
+    add(dim_logpdf_path(wk, first[(1, 2)], "float32", smi))
     del first
 
     one, _ = timed("mesh (2, 1) seed 0", count=False,
@@ -2042,7 +2172,174 @@ def dim_phase(pt, wk, zoo, smi, main_khats):
           f"fitted means {gap:.3e}", flush=True)
     if int(r64.states.success.sum()) != K:
         fail(f"dim mesh float64: {int(r64.states.success.sum())}/{K} paths succeeded")
+    add(dim_logpdf_path(wk, r64, "float64", smi))
+    del r64, u64
+    add(dim_optimizer_paths(pt, wk, zoo, smi, auto_runs, timed))
     print(f"dim phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return totals
+
+
+def dim_logpdf_path(wk, res, dt_name, smi):
+    """B2's split on its path: ``MvNormal.logpdf`` of a dim-mesh result's
+    pooled draws under their own components (the component denominator's
+    PSIS log q, (100, 12, 10) at d = 1000) through ``dim_map`` on
+    ``dim_mesh(["cuda:0"] * 2)``, the user's way: the leaves placed with d
+    leading by ``shard_dim``, the normals built inside the function. Against
+    the same function unsharded, at the B2 split's tolerances; a repeat
+    bitwise equal; both B2 split modes launched and the unsplit B2 not.
+    Returns the launches of the first driven run."""
+    import torch
+
+    from pathfinder_tpu_torch.ops.mvnormal import MvNormal
+    from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat
+    from pathfinder_tpu_torch.parallel.dim_sharding import dim_map, dim_mesh, shard_dim
+
+    comps = res.fit_distribution.components
+    cov = comps.cov
+    leaves = (cov.A.mT, cov.B.transpose(0, 1), cov.D, comps.mean.mT,
+              res.draws_per_component.permute(2, 0, 1))  # d leading: (d, K), (d, K, m), ...
+
+    def logq(A, B, D_, mean, x):
+        W = WoodburyPDMat.from_parts(A.mT, B.transpose(0, 1), D_)
+        return MvNormal(mean.mT.contiguous(), W).logpdf(x.transpose(0, 1).contiguous())
+
+    mesh = dim_mesh(["cuda:0"] * 2)
+    run = dim_map(logq, mesh, out_split=False)
+    placed = shard_dim(leaves, mesh, dim=D)
+    want = logq(*leaves)
+    torch.cuda.synchronize()
+    wk.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = run(*placed).gather()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    grew = wk.launch_counts()
+    dtype = getattr(torch, dt_name)
+    split = [n + ("_general" if dtype == torch.float64 else "") for n in B2_SPLIT_KERNELS]
+    unsplit = "whiten_sumsq" + ("_general" if dtype == torch.float64 else "")
+    if min(grew[n] for n in split) <= 0 or grew[unsplit] > 0:
+        fail(f"dim logpdf [{dt_name}]: B2's split modes not launched, or the unsplit one was: "
+             f"{grew}")
+    err = check_close(f"dim logpdf [{dt_name}] against the unsharded logpdf", got, want,
+                      GENERAL_F64_TOL if dtype == torch.float64 else SUM_TOL)
+    if not torch.equal(run(*placed).gather(), got):
+        fail(f"dim logpdf [{dt_name}]: a repeat gave other bits")
+    print(f"dim phase [logpdf {dt_name} via dim_map on 2 entries, B={K} d={D} m={M} N="
+          f"{leaves[-1].shape[-1]}]: max_abs_err={err:.3e} against the unsharded logpdf, repeat "
+          f"bitwise equal, wall_s={secs:.3f} launches={ {n: grew[n] for n in split} } card: {smi}",
+          flush=True)
+    return grew
+
+
+# the dim axis's other optimizers: k̂ of the remedy path's winner on the (1,
+# 2) mesh within this of the unsharded run's on each seed; BFGS's fit
+# iterations equal on at least this share of paths and its median |Δk̂| at
+# most this (float32 reductions in another order); Newton on BASELINE config
+# 2 (CorrelatedGaussian(100), history_length=20) with 8 paths
+AUTO_DIM_KHAT_TOL = 0.005
+BFGS_DIM_FIT_SHARE = 0.95
+BFGS_DIM_KHAT_TOL = 0.01
+NEWTON_DIM_PATHS = 8
+
+
+def dim_optimizer_paths(pt, wk, zoo, smi, auto_runs, timed):
+    """Every optimizer on ``paths_dim_mesh(1, ["cuda:0"] * 2)``: the remedy
+    path (``optimizer="auto", auto_laplace=True``) on REMEDY_SEEDS against
+    phase 4's winners and k̂, a repeat bitwise equal; BFGS at the headline on
+    seed 0 against the unsharded BFGS run, its peak beside ``lane_bytes``;
+    Newton on config 2 against the unsharded run; the port's CG as a user
+    callable against the unsharded ``optimizer="cg"`` run, its trajectory
+    bitwise. ``timed`` is the dim phase's runner. Returns the launches of
+    the mesh runs."""
+    import torch
+
+    from pathfinder_tpu_torch.ops.cg import minimize_cg_trace
+    from pathfinder_tpu_torch.parallel import sharding
+
+    target = zoo.HierarchicalGaussian(D, seed=0)
+    mean_t, sd_t = zoo.hierarchical_gaussian_truth(D, seed=0)
+    mesh = pt.paths_dim_mesh(1, ["cuda:0"] * 2)
+    totals = {name: 0 for name in wk.launch_counts()}
+
+    def on_mesh(label, **options):
+        res, grew = timed(label, count=False, mesh=mesh, **options)
+        # config 2's rank 40 takes the general kernel's split modes
+        if min(grew[n] + grew[n + "_general"] for n in SPLIT_KERNELS) <= 0:
+            fail(f"dim {label}: a split kernel of B1 was not launched: {grew}")
+        for n, c in grew.items():
+            totals[n] += c
+        return res
+
+    khats, first = [], None
+    for seed in REMEDY_SEEDS:
+        res = on_mesh(f"auto mesh (1, 2) seed {seed}", seed=seed, optimizer="auto",
+                      auto_laplace=True)
+        khat, merr = _check_result(f"dim auto seed {seed}", res, mean_t, sd_t)
+        winner, khat0 = auto_runs[seed]
+        print(f"dim phase [auto mesh (1, 2) seed {seed}]: winner={res.config.optimizer} "
+              f"(no mesh {winner}) khat={khat:.4f} (no mesh {khat0:.4f}) "
+              f"moment_err_mean_sd_units={merr:.4f}", flush=True)
+        if res.config.optimizer != winner or abs(khat - khat0) > AUTO_DIM_KHAT_TOL:
+            fail(f"dim auto seed {seed}: winner {res.config.optimizer} k-hat {khat} against "
+                 f"{winner} {khat0} without the mesh")
+        khats.append(khat)
+        first = first if first is not None else res
+    again = on_mesh(f"auto mesh (1, 2) seed {REMEDY_SEEDS[0]}, repeat", seed=REMEDY_SEEDS[0],
+                    optimizer="auto", auto_laplace=True)
+    stage = first_differing_stage(again, first, target)
+    if stage is not None:
+        fail(f"dim auto: a repeat differs first in the {stage[0]}: {stage[1]}")
+    med_k = statistics.median(khats)
+    print(f"dim phase auto: median khat={med_k:.4f} band={AUTO_KHAT_BAND}; repeat bitwise equal",
+          flush=True)
+    if not AUTO_KHAT_BAND[0] <= med_k <= AUTO_KHAT_BAND[1]:
+        fail(f"dim auto: median k-hat {med_k} outside the JAX band {AUTO_KHAT_BAND}")
+    del first, again
+
+    ref, _ = timed("bfgs no mesh seed 0", count=False, seed=0, optimizer="bfgs")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = on_mesh("bfgs mesh (1, 2) seed 0", seed=0, optimizer="bfgs")
+    peak = torch.cuda.max_memory_allocated()
+    est = sharding.lane_bytes(D, 64, 6, 5, 8, 10, torch.float32, "bfgs", dim_width=2)
+    same = float((got.states.fit_iteration == ref.states.fit_iteration).float().mean())
+    dk = abs(float(got.psis_result.pareto_shape) - float(ref.psis_result.pareto_shape))
+    print(f"dim phase [bfgs mesh (1, 2) seed 0]: paths_ok={int(got.states.success.sum())}/"
+          f"{int(ref.states.success.sum())} fit iterations equal on {same:.2%} of paths, "
+          f"|dkhat|={dk:.4f}; peak_device_bytes={peak} for both members on the one card, "
+          f"{peak / 2 / K:.0f} a lane a member against lane_bytes(dim_width=2)={est} "
+          f"(the first member's) card: {smi}", flush=True)
+    if not torch.equal(got.states.success, ref.states.success):
+        fail("dim bfgs: the paths that succeeded differ from the unsharded run's")
+    if same < BFGS_DIM_FIT_SHARE or dk > BFGS_DIM_KHAT_TOL:
+        fail(f"dim bfgs: fit iterations equal on {same:.2%} of paths, |dkhat| {dk}")
+    del ref, got
+
+    config2 = zoo.CorrelatedGaussian(100, seed=0)
+    kw = dict(target=config2, nruns=NEWTON_DIM_PATHS, maxiters=128, history_length=20,
+              ndraws_elbo=100, seed=0, optimizer="newton")
+    ref, _ = timed("newton config 2 no mesh", count=False, **kw)
+    got = on_mesh("newton config 2 mesh (1, 2)", **kw)
+    same = int((got.states.fit_iteration == ref.states.fit_iteration).sum())
+    gap = float((got.states.fit_distribution.mean - ref.states.fit_distribution.mean).abs().max())
+    print(f"dim phase [newton config 2]: paths_ok={int(got.states.success.sum())}/"
+          f"{NEWTON_DIM_PATHS}, {same}/{NEWTON_DIM_PATHS} at the unsharded fit iteration, largest "
+          f"gap of the fitted means {gap:.3e}", flush=True)
+    if not (bool(got.states.success.all()) and torch.equal(got.states.success,
+                                                            ref.states.success)):
+        fail("dim newton: a path failed, or the paths that succeeded differ")
+    if same < BFGS_DIM_FIT_SHARE * NEWTON_DIM_PATHS:
+        fail(f"dim newton: {same}/{NEWTON_DIM_PATHS} paths at the unsharded fit iteration")
+    del ref, got
+
+    ref, _ = timed("cg no mesh seed 0", count=False, seed=0, optimizer="cg")
+    got = on_mesh("cg as a user callable mesh (1, 2) seed 0", seed=0,
+                  optimizer=minimize_cg_trace)
+    for name in ("xs", "gradients", "num_fn_evals"):
+        if not torch.equal(getattr(got.states.trace, name), getattr(ref.states.trace, name)):
+            fail(f"dim callable: the trace's {name} differ from the unsharded cg run's")
+    print("dim phase [cg as a user callable mesh (1, 2) seed 0]: its trajectory (xs, gradients, "
+          "evaluations) bitwise the unsharded optimizer='cg' run", flush=True)
     return totals
 
 
@@ -2078,33 +2375,48 @@ def main():
     wk.load_library()
     print(f"build: kernels built and loaded in {time.perf_counter() - t0:.2f}s", flush=True)
 
+    def stamp(name):
+        print(f"chip_smoke: {name} starts at {time.perf_counter() - t_start:.1f}s", flush=True)
+
     kernels = kernel_phase(wk)
+    stamp("the general kernel phase")
     general_rows = general_kernel_phase(wk)
+    stamp("the shared-x kernel phase")
     shared_rows = shared_kernel_phase(wk)
+    stamp("the split kernel phase")
     split_rows = dim_split_phase(wk)
     if "--kernels-only" in sys.argv[1:]:  # for work on the kernels: stop after their phase
         print("kernel phase passed; stopping before the model phases", flush=True)
         return
+    stamp("the main path phase")
     counts, main_khats, headline = main_path_phase(pt, wk, zoo)
-    old_phases = [remedy_phase(pt, wk, zoo, main_khats)]
+    stamp("the remedy phase")
+    remedy_counts, auto_runs = remedy_phase(pt, wk, zoo, main_khats)
+    old_phases = [remedy_counts]
     remedy_stage_times(pt, zoo)
+    stamp("the warm-start phase")
     warm_start_phase(pt, zoo, headline)
+    stamp("the constrained-model phase")
     old_phases.append(constrained_phase(pt, wk, zoo))
     for name, c in old_phases[-1].items():
         if name in FAST_KERNELS and c <= 0:
             fail(f"{name} was not launched on the constrained-model path")
+    stamp("the serving phase")
     old_phases.append(serving_phase(pt, wk, zoo, headline))
+    stamp("the mesh phase")
     old_phases.append(mesh_phase(pt, wk, zoo, headline, smi))
     for phase in old_phases:
         for name, c in phase.items():
             counts[name] += c
     if max(counts[n] for n in GENERAL_KERNELS) > 0:
         fail(f"a float32 phase at rank <= {wk.MAX_RANK} left the fast kernel: {counts}")
+    stamp("the dim phase")
     # the dim phase adds the launches of the split modes only: its other
     # launches (the PSIS tail, float64) belong to paths counted above
-    for name, c in dim_phase(pt, wk, zoo, smi, main_khats).items():
-        if name.startswith(SPLIT_KERNELS):
+    for name, c in dim_phase(pt, wk, zoo, smi, main_khats, auto_runs).items():
+        if name.startswith(SPLIT_KERNELS + B2_SPLIT_KERNELS):
             counts[name] += c
+    stamp("the dtype, rank and memory phases")
     t_new = time.perf_counter()
     for phase in (config2_phase, float64_phase, low_precision_phase):
         for name, c in phase(pt, wk, zoo).items():
@@ -2155,15 +2467,17 @@ def main():
     item.update(bound_ms=head["tc_bound_us"] / 1e3, bound_by="operations",
                 cuda_core_bound_ms=head["bound_us"] / 1e3)
     summary.append(item)
-    # B1's row-split modes: the head is the (1, 2) mesh's block, the ELBO
-    # chunk's 500 rows; the error the largest over that dtype's cases
-    for name in ("sample_and_logq_partial", "sample_and_logq_resume"):
+    # B1's and B2's row-split modes: the head is the (1, 2) mesh's block, the
+    # ELBO chunk's (B1) or the PSIS ratios' (B2) 500 rows; the error the
+    # largest over that dtype's cases
+    for name in SPLIT_KERNELS + B2_SPLIT_KERNELS:
         for general, dt_name, source in (
                 ("", "float32", "pathfinder_tpu_torch/csrc/woodbury_kernels.cu"),
                 ("_general", "float64", "pathfinder_tpu_torch/csrc/woodbury_general.cu")):
             rows = [r for r in split_rows if r["name"] == name + general]
             head = next(r for r in rows if r["blocks"] == 2)
-            summary.append(entry(name + general, source, rows, head, "sample_and_logq"))
+            summary.append(entry(name + general, source, rows, head,
+                                 "sample_and_logq" if name in SPLIT_KERNELS else "whiten_sumsq"))
     for item in summary:
         if item["launches"] <= 0:
             fail(f"{item['name']} was not launched on its path")

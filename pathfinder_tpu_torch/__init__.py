@@ -15,8 +15,9 @@ start from a Pathfinder result (``integrations``), serving-scale runs
 sample+logq and whiten+sumsq steps run as hand-written CUDA kernels.
 
 The JAX package's names are exported where it exports them. On the ``dim``
-axis the port splits the L-BFGS core's rows and evaluates the target whole
-on each block's first device, where GSPMD would partition the target too.
+axis the port splits the core's rows, whatever the optimizer, and evaluates
+the target (and Newton's ``eigh``, and a user's optimizer) whole on each
+block's first device, where GSPMD would partition them too.
 """
 
 from pathfinder_tpu_torch.integrations.hmc import WoodburyMetric, hmc, hmc_warm_start

@@ -71,7 +71,14 @@
 //             (nothing of a½, μ or M is staged); kResume skips pass 1,
 //             reads the t and ||u||^2 summed over the blocks outside the
 //             kernel, and runs passes 2 and 3 as B1 does, with logq from the
-//             summed ||u||^2 and the full dimension.
+//             summed ||u||^2 and the full dimension. B2 splits the same way
+//             and keeps its own arithmetic: kWPartial whitens the block's
+//             rows and stops after the cluster's sum of pass 1, writing
+//             t = X^T v of the block (nothing of Ci is staged, no pass 3);
+//             kWResume reads the t summed over the blocks, forms s = Ci t
+//             and runs pass 3 as B2 does, writing the block's ||w||^2 per
+//             column in Acc, which the caller sums over the blocks in rank
+//             order.
 //   memory    where the m × NC sums do not fit beside one row, the round
 //             narrows to one column tile, then M is read from global memory
 //             (after an L2 prefetch), then the sums live in a global
@@ -122,8 +129,8 @@ cudaError_t allow_max_smem(F kernel, std::atomic<unsigned long long>& ready) {
 
 constexpr double kLog2Pi = 1.8378770664093453;
 // factor_kernel's modes: B1, and B2 with a block of columns per factor; B1's
-// partial and resume on a block of rows
-constexpr int kSample = 0, kWhiten = 1, kPartial = 2, kResume = 3;
+// partial and resume on a block of rows; B2's
+constexpr int kSample = 0, kWhiten = 1, kPartial = 2, kResume = 3, kWPartial = 4, kWResume = 5;
 // dtype codes of the entry points (ops/kernels/woodbury_kernels.py mirrors them)
 constexpr int kF32 = 0, kF64 = 1, kF16 = 2, kBF16 = 3;
 
@@ -385,7 +392,8 @@ __device__ long long pfg_stamps[2][10];
 // ... of colblk columns each, in rounds of NC. in: u (B1) or x (B2); M: C
 // (B1) or Ci (B2); logdet and x_out for B1 only; col_out: logq (B1) or maha
 // (B2), (B, N). B1's partial writes t_io (B, m, N) and usq_io (B, N), in Acc;
-// its resume reads them, and dfull is the full dimension.
+// its resume reads them, and dfull is the full dimension. B2's partial writes
+// t_io; its resume reads it and writes the block's ||w||^2 to usq_io.
 template <typename T, int MODE, int NT, typename S>
 __global__ void __launch_bounds__(kThreads, 2)
 factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* __restrict__ X,
@@ -397,6 +405,9 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
   using Acc = typename Num<T>::Acc;
   constexpr bool SAMPLE = MODE == kSample || MODE == kResume;  // writes x and logq
   constexpr bool PARTIAL = MODE == kPartial, RESUME = MODE == kResume;
+  constexpr bool WHITEN = MODE == kWhiten || MODE == kWPartial || MODE == kWResume;
+  constexpr bool GIVES_T = PARTIAL || MODE == kWPartial;  // stops after pass 1
+  constexpr bool TAKES_T = RESUME || MODE == kWResume;    // skips pass 1
   constexpr int AL = 16 / sizeof(T);  // values of T in 16 bytes
   constexpr int HT = AL - 1;          // the most values in a run's head, or in its tail
   // B2 whitens the staged x in place where T is the accumulation type, and
@@ -454,7 +465,7 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
   const int k0 = split ? min(m, rank * ks) : 0, k1 = min(m, k0 + ks);
   const T* const Mrows = M + b * m * m + static_cast<size_t>(k0) * m;
   const T* sM = Mrows;
-  if (!PARTIAL && !mres && threadIdx.x == 0 && k1 > k0) {
+  if (!GIVES_T && !mres && threadIdx.x == 0 && k1 > k0) {
     const Span sp(pad_of(Mrows), (k1 - k0) * m, AL);
     if (sp.nb) prefetch_l2(Mrows + sp.h, sp.nb * sizeof(T));
   }
@@ -465,7 +476,7 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
   __syncthreads();
 
   uint32_t phase = 1;
-  bool m_staged = PARTIAL || !mres;  // the partial reads nothing of M
+  bool m_staged = GIVES_T || !mres;  // the partials read nothing of M
   int row0 = r0, n = 0, upad = 0;
   // the tile in shared memory
   T *su = t_at(Lay.u), *sX = t_at(Lay.X), *sa = t_at(Lay.a), *smu = t_at(Lay.mu);
@@ -531,7 +542,7 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
     m_staged = true;
     mbar_wait(bar, phase);
     __syncthreads();
-    if constexpr (MODE == kWhiten && kInPlace)
+    if constexpr (WHITEN && kInPlace)
       if (whole) whiten(su, N, N);
   };
 
@@ -546,7 +557,7 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
       dst[i * NC + j] = src[static_cast<size_t>(i) * N + j];
     }
     __syncthreads();
-    if constexpr (MODE == kWhiten && kInPlace) whiten(dst, NC, nc);
+    if constexpr (WHITEN && kInPlace) whiten(dst, NC, nc);
   };
 
   // X[i, kt·kRK .. kt·kRK + kRK) of the tile, zero past m
@@ -574,7 +585,7 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
       const int ldu = whole ? N : NC;
       auto v_at = [&](int i, int j) -> Acc {
         const Acc raw = widen(ub[i * ldu + j]);
-        if constexpr (MODE == kWhiten && !kInPlace) return (raw - widen(smu[i])) / widen(sa[i]);
+        if constexpr (WHITEN && !kInPlace) return (raw - widen(smu[i])) / widen(sa[i]);
         else return raw;
       };
       auto stage = [&](int t) {
@@ -587,7 +598,7 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
         for (int e = threadIdx.x; e < parts * MR * NCP; e += kThreads) tp[e] = Acc(0);
       __syncthreads();
 
-      if (m > 0 && RESUME) {  // the t summed over the row blocks, in tg's layout
+      if (m > 0 && TAKES_T) {  // the t summed over the row blocks, in tg's layout
         for (int e = threadIdx.x; e < CT * NT * MR; e += kThreads) {
           const int c = e / MR, k = e - c * MR;
           tg[e] = k < m && c < nc ? t_io[(b * m + k) * N + c0 + c] : Acc(0);
@@ -659,13 +670,13 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
         }
         __syncthreads();
         PFG_STAMP(3);
-        if (PARTIAL && rank == 0)  // the block's t, for the sum over the blocks
+        if (GIVES_T && rank == 0)  // the block's t, for the sum over the blocks
           for (int e = threadIdx.x; e < m * nc; e += kThreads) {
             const int k = e / nc, c = e - k * nc;
             t_io[(b * m + k) * N + c0 + c] = tg[c * MR + k];
           }
       }
-      if (m > 0 && !PARTIAL) {
+      if (m > 0 && !GIVES_T) {
         // pass 2: rows [k0, k1) of s = M t. Where the CTA forms all of s (m <=
         // kSplitM), a thread per entry (k, c) sums over M's columns l in
         // order; else a warp per (row k, column tile ct), its lanes over l.
@@ -708,8 +719,8 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
       }
 
       // pass 3: r = v + X s; thread item (column tile ct, row i), rows padded
-      // to whole warps so that a warp's items share ct.
-      for (int t = 0; t < ntiles; ++t) {
+      // to whole warps so that a warp's items share ct. B2's partial has none.
+      for (int t = 0; t < (MODE == kWPartial ? 0 : ntiles); ++t) {
         if (!xres) stage(t);
         const int npad = (n + 31) & ~31;
         T* const xg = x_out + (b * d + row0) * N + c0;  // B1's x, rows of this tile
@@ -791,9 +802,9 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
         for (int c = threadIdx.x; c < nc; c += kThreads) {
           Acc q = ql[c];
           for (int r = 1; r < CS; ++r) q += cluster.map_shared_rank(ql, r)[c];
-          if constexpr (PARTIAL) {
+          if constexpr (PARTIAL || MODE == kWResume) {
             usq_io[b * N + c0 + c] = q;
-          } else {
+          } else if constexpr (MODE != kWPartial) {
             // the resume's logq from the summed ||u||^2 and the full dimension
             const Acc out = RESUME ? Acc(-0.5) * (Acc(dfull) * Acc(kLog2Pi) + ldb +
                                                   usq_io[b * N + c0 + c])
@@ -803,7 +814,7 @@ factor_kernel(const T* __restrict__ in, const T* __restrict__ a_half, const T* _
         }
       // with no X^T v to exchange a round has one cluster barrier only: a
       // second keeps a CTA from writing its next sums while rank 0 reads these
-      if (CS > 1 && (m == 0 || RESUME)) cluster.sync();
+      if (CS > 1 && (m == 0 || TAKES_T)) cluster.sync();
       PFG_STAMP(7);
     }
   }
@@ -951,6 +962,32 @@ int pfg_sample_resume(int dtype, const void* u, const void* a_half, const void* 
                 const_cast<void*>(usq), d, m, N, dfull};
   return dispatch_factor<kResume>(dtype, {cluster, threads, tile, nc, colblk, whole, mres, smem},
                                   B, a, stream);
+}
+
+// B2's partial on a block of d rows: t = X^T v (B, m, N) in Acc, of the
+// block's v = (x − μ)/a½. Nothing of Ci is read. dfull is the full
+// dimension: it picks the instantiation, the resume's.
+int pfg_whiten_partial(int dtype, const void* x, const void* a_half, const void* X,
+                       const void* mu, void* t, int B, int d, int m, int N, int dfull,
+                       int cluster, int threads, int tile, int nc, int colblk, int whole,
+                       int mres, int smem, void* ws, cudaStream_t stream) {
+  const FArgs a{x, a_half, X, X, mu, nullptr, nullptr, nullptr, ws, t, nullptr, d, m, N, dfull};
+  return dispatch_factor<kWPartial>(dtype, {cluster, threads, tile, nc, colblk, whole, mres, smem},
+                                    B, a, stream);
+}
+
+// B2's resume on a block of d rows from the t summed over the blocks: the
+// block's ||w||^2 (B, N) in Acc, w = v + X (Ci t), for the sum over the
+// blocks.
+int pfg_whiten_resume(int dtype, const void* x, const void* a_half, const void* X,
+                      const void* Ci, const void* mu, const void* t, void* sumsq, int B, int d,
+                      int m, int N, int dfull, int cluster, int threads, int tile, int nc,
+                      int colblk, int whole, int mres, int smem, void* ws,
+                      cudaStream_t stream) {
+  const FArgs a{x, a_half, X, Ci, mu, nullptr, nullptr, nullptr, ws, const_cast<void*>(t), sumsq,
+                d, m, N, dfull};
+  return dispatch_factor<kWResume>(dtype, {cluster, threads, tile, nc, colblk, whole, mres, smem},
+                                   B, a, stream);
 }
 
 #ifdef PFG_PHASES

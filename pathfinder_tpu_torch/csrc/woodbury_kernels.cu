@@ -54,7 +54,13 @@
 // t = Xᵀu of the block, (m, N) a factor, and the block's ‖u‖² (pass 2 sums
 // u² only, nothing of a½, μ or M is staged); kResume skips pass 1, reads the
 // t and ‖u‖² summed over the blocks outside the kernel, and runs pass 2 as
-// B1 does, with logq from the summed ‖u‖² and the full dimension.
+// B1 does, with logq from the summed ‖u‖² and the full dimension. B2 splits
+// the same way, keeping its own arithmetic: kWPartial whitens the block's
+// rows (v = (x − μ)/a½), stops at the cluster's sum of pass 1 and writes
+// t = Xᵀv of the block (nothing of Ci is staged, no pass 2); kWResume
+// whitens them again, reads the t summed over the blocks, forms s = Ci t and
+// runs pass 2 as B2 does, writing the block's ‖w‖² per column, which the
+// caller sums over the blocks in rank order.
 //
 // Plain C interface, loaded with ctypes. The Python wrapper computes the
 // launch plan (cluster size, threads, shared memory bytes, tile rows); the
@@ -93,8 +99,8 @@ cudaError_t allow_max_smem(F kernel, std::atomic<unsigned long long>& ready) {
 
 constexpr float kLog2Pi = 1.8378770664093453f;
 // the kernel's modes: B1, and B2 with a block of columns per factor; B1's
-// partial and resume on a block of rows
-constexpr int kSample = 0, kWhiten = 1, kPartial = 2, kResume = 3;
+// partial and resume on a block of rows; B2's
+constexpr int kSample = 0, kWhiten = 1, kPartial = 2, kResume = 3, kWPartial = 4, kWResume = 5;
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 // the rank the kernel is instantiated for: m rounded up to a multiple of 4
@@ -357,6 +363,8 @@ __device__ inline void pass2_flush(float (&q)[NT], float* qp, int NC, int cc, in
 // in: u (B1) or x (B2); M: C (B1) or Ci (B2); logdet and x_out for B1 only;
 // col_out: logq (B1) or maha (B2). B1's partial writes t_io (B, m, N) and
 // usq_io (B, N); its resume reads them, and dfull is the full dimension.
+// B2's partial writes t_io; its resume reads it and writes the block's ‖w‖²
+// to usq_io.
 template <int MR, int NT, int MODE>
 __global__ void __launch_bounds__(cta_threads(MR), 2)
 woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
@@ -367,6 +375,9 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
                 int d, int m, int N, int tile, int dfull) {
   constexpr bool SAMPLE = MODE == kSample || MODE == kResume;  // writes x and logq
   constexpr bool PARTIAL = MODE == kPartial, RESUME = MODE == kResume;
+  constexpr bool WHITEN = MODE == kWhiten || MODE == kWPartial || MODE == kWResume;
+  constexpr bool GIVES_T = PARTIAL || MODE == kWPartial;  // stops after pass 1
+  constexpr bool TAKES_T = RESUME || MODE == kWResume;    // skips pass 1
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
@@ -413,8 +424,8 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
     n = min(tile, r1 - row0);
     const size_t g = b * d + row0;
     const float* const src[5] = {in + g * N, X + g * m, a_half + g, mu + g, M + b * m * m};
-    // the partial reads nothing of a½, μ or M
-    const int len[5] = {n * N, n * m, PARTIAL ? 0 : n, PARTIAL ? 0 : n, PARTIAL ? 0 : m * m};
+    // B1's partial reads nothing of a½, μ or M, B2's nothing of M
+    const int len[5] = {n * N, n * m, PARTIAL ? 0 : n, PARTIAL ? 0 : n, GIVES_T ? 0 : m * m};
 #pragma unroll
     for (int k = 0; k < 5; ++k) pad[k] = len[k] ? pad_of(src[k]) : 0;
     su = buf[0] + pad[0]; sX = buf[1] + pad[1]; sa = buf[2] + pad[2]; smu = buf[3] + pad[3];
@@ -449,7 +460,7 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
     if (hk >= 0) buf[hk][pad[hk] + hi] = hv;
     mbar_wait(bar, phase);
     __syncthreads();
-    if (MODE == kWhiten) {  // v = (x − μ)/a½ in place
+    if (WHITEN) {  // v = (x − μ)/a½ in place
       for (int i = threadIdx.x; i < n; i += blockDim.x) {
         const float ai = sa[i], mi = smu[i];
         float* vr = su + i * N;
@@ -465,7 +476,7 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
     for (int e = threadIdx.x; e < parts * MR * NC; e += blockDim.x) tp[e] = 0.f;
     for (int e = threadIdx.x; e < warps * NC; e += blockDim.x) qp[e] = 0.f;
     __syncthreads();
-    if (m > 0 && RESUME) {  // the t summed over the row blocks, in tg's layout
+    if (m > 0 && TAKES_T) {  // the t summed over the row blocks, in tg's layout
       for (int e = threadIdx.x; e < MR * NC; e += blockDim.x) {
         const int k = e / NC, j = e % NC;
         tg[e] = k < m && j < nc ? t_io[(b * m + k) * N + c0 + j] : 0.f;
@@ -496,13 +507,13 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
         tg[e] = acc;
       }
       __syncthreads();
-      if (PARTIAL && rank == 0)  // the block's t, for the sum over the blocks
+      if (GIVES_T && rank == 0)  // the block's t, for the sum over the blocks
         for (int e = threadIdx.x; e < m * nc; e += blockDim.x) {
           const int k = e / nc, j = e % nc;
           t_io[(b * m + k) * N + c0 + j] = tg[k * NC + j];
         }
     }
-    if (!PARTIAL) {
+    if (!GIVES_T) {
       // s = M t, column-major, zero in rows k >= m and in columns j >= nc
       for (int e = threadIdx.x; e < (NC + 4) * MR; e += blockDim.x) {
         const int j = e / MR, k = e % MR;
@@ -513,19 +524,20 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
       }
       __syncthreads();
     }
-    for (int t = 0; t < ntiles; ++t) {
-      if (!resident) stage_tile(t);
-      float* gx = SAMPLE && !resident ? x_out + (b * d + row0) * N : nullptr;
-      for (int cc = 0; cc < nc; cc += NT) {
-        const int nt = min(NT, nc - cc);
-        float q[NT];
+    if constexpr (MODE != kWPartial)  // B2's partial has no pass 2
+      for (int t = 0; t < ntiles; ++t) {
+        if (!resident) stage_tile(t);
+        float* gx = SAMPLE && !resident ? x_out + (b * d + row0) * N : nullptr;
+        for (int cc = 0; cc < nc; cc += NT) {
+          const int nt = min(NT, nc - cc);
+          float q[NT];
 #pragma unroll
-        for (int j = 0; j < NT; ++j) q[j] = 0.f;
-        pass2_rows<MR, NT, MODE>(q, su, sX, sa, smu, vecX, n, N, m, c0 + cc, s + cc * MR, nt,
-                                 gx);
-        pass2_flush<NT>(q, qp, NC, cc, nt);
+          for (int j = 0; j < NT; ++j) q[j] = 0.f;
+          pass2_rows<MR, NT, MODE>(q, su, sX, sa, smu, vecX, n, N, m, c0 + cc, s + cc * MR, nt,
+                                   gx);
+          pass2_flush<NT>(q, qp, NC, cc, nt);
+        }
       }
-    }
     fence_async_smem();  // B1's in-place x before the bulk store reads it
     __syncthreads();
     if (SAMPLE && resident && c0 + NC >= N)  // x goes out while the sums are exchanged
@@ -540,7 +552,8 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
       for (int c = threadIdx.x; c < nc; c += blockDim.x) {
         float q = 0.f;
         for (int r = 0; r < CS; ++r) q += peer(ql, r)[c];
-        if (PARTIAL) usq_io[b * N + c0 + c] = q;
+        if (PARTIAL || MODE == kWResume) usq_io[b * N + c0 + c] = q;
+        else if (MODE == kWPartial) continue;  // no column sums
         else if (RESUME)  // logq from the summed ‖u‖² and the full dimension
           col_out[b * N + c0 + c] =
               -0.5f * (static_cast<float>(dfull) * kLog2Pi + ldb + usq_io[b * N + c0 + c]);
@@ -550,7 +563,7 @@ woodbury_kernel(const float* __restrict__ in, const float* __restrict__ a_half,
       }
     // with no Xᵀv to exchange a round has one cluster barrier only: a second
     // keeps a CTA from writing its next sums while rank 0 still reads these
-    if (CS > 1 && (m == 0 || RESUME)) cluster.sync();
+    if (CS > 1 && (m == 0 || TAKES_T)) cluster.sync();
   }
   if (CS > 1) cluster.sync();  // no CTA leaves while another reads its shared memory
   if (threadIdx.x == 0) bulk_wait_read();
@@ -664,6 +677,25 @@ int pf_sample_resume(const float* u, const float* a_half, const float* X, const 
   const Args a{u, a_half, X, C, mu, logdet, x, logq, const_cast<float*>(t),
                const_cast<float*>(usq), d, m, N, dfull};
   return dispatch<kResume>({cluster, threads, smem, tile}, B, a, stream);
+}
+
+// B2's partial on a block of d rows: t = Xᵀv (B, m, N) of the block's
+// v = (x − μ)/a½. Nothing of Ci is read.
+int pf_whiten_partial(const float* x, const float* a_half, const float* X, const float* mu,
+                      float* t, int B, int d, int m, int N, int cluster, int threads, int smem,
+                      int tile, cudaStream_t stream) {
+  const Args a{x, a_half, X, X, mu, nullptr, nullptr, nullptr, t, nullptr, d, m, N, d};
+  return dispatch<kWPartial>({cluster, threads, smem, tile}, B, a, stream);
+}
+
+// B2's resume on a block of d rows from the t summed over the blocks: the
+// block's ‖w‖² (B, N), w = v + X (Ci t), for the sum over the blocks.
+int pf_whiten_resume(const float* x, const float* a_half, const float* X, const float* Ci,
+                     const float* mu, const float* t, float* sumsq, int B, int d, int m, int N,
+                     int cluster, int threads, int smem, int tile, cudaStream_t stream) {
+  const Args a{x, a_half, X, Ci, mu, nullptr, nullptr, nullptr, const_cast<float*>(t), sumsq,
+               d, m, N, d};
+  return dispatch<kWResume>({cluster, threads, smem, tile}, B, a, stream);
 }
 
 }  // extern "C"

@@ -11,6 +11,7 @@ target may bring its own, else :func:`batched_hessian` derives one with
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Optional
 
 import torch
@@ -38,6 +39,9 @@ def autograd_value_and_grad(logp: Callable) -> Callable:
     return value_and_grad
 
 
+_HESSIAN_LOCK = threading.Lock()
+
+
 def batched_hessian(logp: Callable) -> Callable:
     """``x (K, d) -> (K, d, d)``: the Hessian of ``logp`` at every row, by
     ``torch.func.hessian`` (forward over reverse) under ``torch.func.vmap``.
@@ -45,7 +49,9 @@ def batched_hessian(logp: Callable) -> Callable:
     in-place updates and of ``.item()``. The derived function is kept on
     ``logp`` itself, as the JAX package's ``cached_hessian`` is. It works on
     a copy of ``x``, so that a view (a block of a larger batch) costs no more
-    than its own rows."""
+    than its own rows. Calls from several host threads (a mesh's blocks) run
+    one at a time: torch's forward-mode levels are global to the process,
+    and two threads' forward passes at once invalidate each other's."""
     h = getattr(logp, "_pf_cached_hess", None)
     if h is None:
         rows = torch.func.vmap(torch.func.hessian(lambda x: logp(x[None])[0]))
@@ -54,7 +60,8 @@ def batched_hessian(logp: Callable) -> Callable:
             # forward mode gives a view a tangent the size of its whole base:
             # a block of a batch of K rows would cost K·d values for each of
             # the d basis directions
-            return rows(x.clone())
+            with _HESSIAN_LOCK:
+                return rows(x.clone())
 
         try:
             logp._pf_cached_hess = h

@@ -365,8 +365,11 @@ def multipathfinder(
     splits each block's parameter rows over that axis, one host thread a
     row block, summing every reduction over ``d`` in rank order and
     evaluating the target on the block's gathered rows on its first device
-    (``parallel/sharding.py``); ``d`` must divide by its width, and only
-    ``optimizer="lbfgs"`` runs there (others raise ``NotImplementedError``).
+    (``parallel/sharding.py``); ``d`` must divide by its width. Every
+    optimizer runs there, ``"auto"`` too (each candidate on the same mesh);
+    Newton's Hessian and ``eigh`` and a user callable run whole on the
+    block's first device. ``laplace_resample`` of such a result runs on its
+    gathered states, on the mesh's first device.
     ``ndraws_per_run`` defaults to ``max(ndraws_elbo, ceil(ndraws / nruns))``.
     ``importance_denominator``: ``"component"`` weighs each pooled draw
     against its own component, ``"mixture"`` against the whole mixture.

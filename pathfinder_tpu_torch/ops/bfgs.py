@@ -8,6 +8,13 @@ fit stage rebuilds limited-memory inverse Hessians from it, whatever
 optimizer produced it. O(d²) memory and operations per lane and iteration,
 so it is for moderate d; L-BFGS stays the default. The masked loop over the
 K lanes is ``ops/trajectory.py``'s.
+
+In a row group (the mesh's ``dim`` axis, ``utils/rows.py``) H is split by
+rows: member ``j`` holds ``H[:, r_j, :]``, ``(K, d/w, d)``, so the d² of
+memory that the axis exists to split is split. The products take the full
+vector (``H_r · gather(g)``, ``H_r · gather(y)``), the symmetric rank-two
+update the full ``s`` and ``Hy`` (``utils/rows.gather_rows``), and every
+inner product over ``d`` is summed over the members.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch
 
 from pathfinder_tpu_torch.ops.linesearch import initial_step_size
 from pathfinder_tpu_torch.ops.trajectory import OptimizationTrace, minimize_trace
+from pathfinder_tpu_torch.utils import rows
 
 __all__ = ["minimize_bfgs_trace"]
 
@@ -45,21 +53,22 @@ def minimize_bfgs_trace(
     ``num_bfgs_updates_rejected`` counts the curvature-rejected updates of
     H, the event the L-BFGS optimizer counts.
     """
-    K, d = x0.shape
+    K, n = x0.shape  # n: the rows of d this member holds (all of them in no group)
+    d, lo = rows.full_dim(n), rows.row_offset()
     dtype, dev = x0.dtype, x0.device
     eps_curv = float(epsilon_curvature)
-    eye = torch.eye(d, dtype=dtype, device=dev)
+    eye = torch.eye(d, dtype=dtype, device=dev)[lo:lo + n]  # the member's rows of I
     izero = torch.zeros(K, dtype=torch.int64, device=dev)
     carry = dict(
-        H=eye.expand(K, d, d).clone(),  # inverse-Hessian estimate
+        H=eye.expand(K, n, d).clone(),  # the member's rows of the inverse-Hessian estimate
         n_updates=izero,  # accepted updates since H was last the identity
         nrej=izero,
     )
 
     def direction_fn(st, gs):
         g = st["g"]
-        direction = -(st["H"] @ g[..., None])[..., 0]
-        dphi0 = torch.sum(g * direction, dim=-1)
+        direction = -(st["H"] @ rows.gather_rows(g)[..., None])[..., 0]
+        dphi0 = rows.sum_rows(torch.sum(g * direction, dim=-1))
         # rounding can cost H its positive definiteness: restart with
         # steepest descent from a fresh identity, and reset the update
         # count so that the next accepted pair applies the eq. 6.20 scale
@@ -86,8 +95,7 @@ def minimize_bfgs_trace(
         # forces yy = +inf (inf > inf is False).
         sv = x_new - st["x"]
         yv = ls.g - st["g"]
-        sy = torch.sum(sv * yv, dim=-1)
-        yy = torch.sum(yv * yv, dim=-1)
+        sy, yy = rows.sum_rows(torch.sum(sv * yv, dim=-1), torch.sum(yv * yv, dim=-1))
         accept = progress & (sy > eps_curv * yy)
         # N&W eq. 6.20: the first H (after the start or a restart) is scaled
         # to (s·y / y·y) I before the update
@@ -96,13 +104,16 @@ def minimize_bfgs_trace(
             (accept & (n_upd == 0))[:, None, None], gamma[:, None, None] * eye, H
         )
         rho = torch.where(sy > 0, 1.0 / sy, torch.zeros_like(sy))[:, None, None]
-        Hy = (H_base @ yv[..., None])[..., 0]
-        yHy = torch.sum(yv * Hy, dim=-1)[:, None, None]
-        s_Hy = sv[:, :, None] * Hy[:, None, :]
+        Hy = (H_base @ rows.gather_rows(yv)[..., None])[..., 0]
+        yHy = rows.sum_rows(torch.sum(yv * Hy, dim=-1))[:, None, None]
+        # rows r of s (Hy)ᵀ + (Hy) sᵀ (H is symmetric) and of s sᵀ
+        Hy_all, sv_all = rows.gather_rows(Hy, sv)
+        s_Hy = sv[:, :, None] * Hy_all[:, None, :]
+        s_Hy += Hy[:, :, None] * sv_all[:, None, :]
         H_upd = (
             H_base
-            - rho * (s_Hy + s_Hy.mT)
-            + (rho * rho * yHy + rho) * (sv[:, :, None] * sv[:, None, :])
+            - rho * s_Hy
+            + (rho * rho * yHy + rho) * (sv[:, :, None] * sv_all[:, None, :])
         )
         H_new = torch.where(accept[:, None, None], H_upd, H)
         return dict(

@@ -44,8 +44,13 @@ block's ``u`` and ``X`` rows and writes the partial ``t = X_rᵀ u_r (B, m,
 N)`` and ``‖u_r‖² (B, N)``, in the accumulation dtype; after the caller
 has summed those over the blocks, :func:`sample_and_logq_resume` forms
 ``s = C t`` and writes the block's rows of ``x`` and ``logq`` from the
-summed ``‖u‖²`` and the full ``d``. Each launch's plan is the unsplit
-plan at ``d_r`` rows.
+summed ``‖u‖²`` and the full ``d``. B2 with a block of columns per factor
+splits the same way, in its own arithmetic: :func:`whiten_sumsq_partial`
+whitens the block's rows, ``v_r = (x_r − μ_r)/a½_r``, and writes ``t =
+X_rᵀ v_r``; after the sum over the blocks, :func:`whiten_sumsq_resume`
+forms ``w_r = v_r + X_r (Ci t)`` and writes the block's ``‖w_r‖²`` per
+column, in the accumulation dtype, for the caller to sum over the blocks.
+Each launch's plan is the unsplit plan at ``d_r`` rows.
 """
 
 from __future__ import annotations
@@ -73,6 +78,10 @@ __all__ = [
     "sample_and_logq_resume_torch",
     "whiten_sumsq",
     "whiten_sumsq_torch",
+    "whiten_sumsq_partial",
+    "whiten_sumsq_partial_torch",
+    "whiten_sumsq_resume",
+    "whiten_sumsq_resume_torch",
     "launch_counts",
     "launch_counts_by_shape",
     "reset_launch_counts",
@@ -126,11 +135,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bflo
 # launches of each kernel since the last reset, in all and per shape
 # ``(B, m, N, shared)`` (plain-version calls on CPU tensors do not count);
 # ``*_general`` are the general kernel's, ``whiten_sumsq_shared`` the
-# shared-x kernel's, ``*_partial`` and ``*_resume`` B1's two row-split modes
+# shared-x kernel's, ``*_partial`` and ``*_resume`` B1's and B2's two
+# row-split modes
 _launches = {name: 0 for name in (
     "sample_and_logq", "whiten_sumsq", "sample_and_logq_general", "whiten_sumsq_general",
     "whiten_sumsq_shared", "sample_and_logq_partial", "sample_and_logq_resume",
-    "sample_and_logq_partial_general", "sample_and_logq_resume_general")}
+    "sample_and_logq_partial_general", "sample_and_logq_resume_general",
+    "whiten_sumsq_partial", "whiten_sumsq_resume", "whiten_sumsq_partial_general",
+    "whiten_sumsq_resume_general")}
 _launches_by_shape = {name: collections.Counter() for name in _launches}
 _libs = {}  # source name -> the loaded library
 _lib_logs = {}  # source name -> what nvcc (ptxas -v) said when it built it
@@ -220,6 +232,21 @@ def whiten_sumsq_torch(x, a_half, X, Ci, mu):
     v = (x - mu[..., None]) / a_half[..., None]
     w = v + X @ (Ci @ (X.mT @ v))
     return torch.sum(w * w, dim=-2).to(dtype)
+
+
+def whiten_sumsq_partial_torch(x, a_half, X, mu):
+    """B2's partial on a block of rows: ``t = Xᵀ v (..., m, N)``, ``v = (x −
+    μ)/a½``, in the accumulation dtype."""
+    x, a_half, X, mu = _upcast(x, a_half, X, mu)
+    return X.mT @ ((x - mu[..., None]) / a_half[..., None])
+
+
+def whiten_sumsq_resume_torch(x, a_half, X, Ci, mu, t):
+    """B2's resume on a block of rows from the summed ``t``: the block's
+    ``‖v + X (Ci t)‖² (..., N)``, in the accumulation dtype."""
+    x, a_half, X, Ci, mu = _upcast(x, a_half, X, Ci, mu)
+    w = (x - mu[..., None]) / a_half[..., None] + X @ (Ci @ t)
+    return torch.sum(w * w, dim=-2)
 
 
 # -- launch plan --------------------------------------------------------------
@@ -644,6 +671,10 @@ def _bind_fast(fast) -> None:
     fast.pf_sample_resume.restype = i
     fast.pf_whiten_sumsq.argtypes = [p] * 6 + [i] * 8 + [p]
     fast.pf_whiten_sumsq.restype = i
+    fast.pf_whiten_partial.argtypes = [p] * 5 + [i] * 8 + [p]
+    fast.pf_whiten_partial.restype = i
+    fast.pf_whiten_resume.argtypes = [p] * 7 + [i] * 8 + [p]
+    fast.pf_whiten_resume.restype = i
     fast.pf_max_rank.argtypes = []
     fast.pf_max_rank.restype = i
     if fast.pf_max_rank() != MAX_RANK:
@@ -660,6 +691,10 @@ def _bind_general(general) -> None:
     general.pfg_sample_partial.restype = i
     general.pfg_sample_resume.argtypes = [i] + [p] * 10 + [i] * 13 + [p, p]
     general.pfg_sample_resume.restype = i
+    general.pfg_whiten_partial.argtypes = [i] + [p] * 5 + [i] * 13 + [p, p]
+    general.pfg_whiten_partial.restype = i
+    general.pfg_whiten_resume.argtypes = [i] + [p] * 7 + [i] * 13 + [p, p]
+    general.pfg_whiten_resume.restype = i
     general.pfg_round.argtypes = []
     general.pfg_round.restype = i
     if general.pfg_round() != _R_ROUND:
@@ -719,9 +754,10 @@ def kernel_resources() -> dict:
     """Registers and spills of each fast-kernel instantiation as ``ptxas
     -v`` reported them at build time: ``{(name, MR, NT): {"registers": r,
     "spill_stores": bytes, "spill_loads": bytes}}``, ``name`` the mode's
-    (B1, B2, B1's partial and resume)."""
+    (B1, B2, B1's partial and resume, B2's)."""
     load_library()
-    names = ("sample_and_logq", "whiten_sumsq", "sample_and_logq_partial", "sample_and_logq_resume")
+    names = ("sample_and_logq", "whiten_sumsq", "sample_and_logq_partial", "sample_and_logq_resume",
+             "whiten_sumsq_partial", "whiten_sumsq_resume")
     return _ptxas_resources(
         _lib_logs[_SOURCE.name], r"woodbury_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
         lambda mr, nt, mode: (names[int(mode)], int(mr), int(nt)))
@@ -737,13 +773,14 @@ _MANGLED = "(f|d|6__half|13__nv_bfloat16)"
 
 def general_kernel_resources() -> dict:
     """The same for the general source: ``{(name, dtype, NT): {...}}`` with
-    ``name`` ``sample_and_logq_general`` or ``whiten_sumsq_general``
-    (``factor_kernel``, NT its column tile) and ``dtype`` the storage dtype's
+    ``name`` ``sample_and_logq_general``, ``whiten_sumsq_general`` or one of
+    their row-split modes (``factor_kernel``, NT its column tile) and ``dtype`` the storage dtype's
     name, ``float32 (float64 sums)`` for the instantiation float32 takes at
     m >= d."""
     load_general_library()
     names = ("sample_and_logq_general", "whiten_sumsq_general", "sample_and_logq_partial_general",
-             "sample_and_logq_resume_general")
+             "sample_and_logq_resume_general", "whiten_sumsq_partial_general",
+             "whiten_sumsq_resume_general")
 
     def key(t, mode, nt, sums):
         wide = " (float64 sums)" if sums == "d" and t != "d" else ""
@@ -1061,6 +1098,85 @@ def _whiten_sumsq_cuda(x, a_half, X, Ci, mu, general=None, plan=None):
         _launch("whiten_sumsq", load_library().pf_whiten_sumsq, tensors, plan, x.device,
                 B, d, m, N)
     return maha
+
+
+def whiten_sumsq_partial(x, a_half, X, mu, d):
+    """B2's partial on a block of rows ``x (..., d_r, N)``, ``X (..., d_r,
+    m)``: ``t = Xᵀ v (..., m, N)`` in the accumulation dtype, ``v = (x −
+    μ)/a½``. ``d`` is the full dimension: on the card it chooses the general
+    kernel's instantiation, as the resume's ``d`` does."""
+    if x.device.type == "cpu":
+        return whiten_sumsq_partial_torch(x, a_half, X, mu)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _whiten_sumsq_partial_cuda(x, a_half, X, mu, d)
+
+
+def _whiten_sumsq_partial_cuda(x, a_half, X, mu, d_full, general=None, plan=None):
+    """B2's partial on the card, routed as :func:`_sample_and_logq_cuda`. At
+    rank 0 there is no ``t`` to form, and nothing is launched."""
+    batch, B, d, m, N = _flat_shapes(x, X)
+    _check_cuda_args([("x", x, batch + (d, N)), ("a_half", a_half, batch + (d,)),
+                      ("X", X, batch + (d, m)), ("mu", mu, batch + (d,))], x.device)
+    t = torch.empty(batch + (m, N), dtype=_acc_dtype(x.dtype), device=x.device)
+    if B == 0 or N == 0 or m == 0:
+        return t
+    tensors = (x, a_half, X, mu, t)
+    if general is None:
+        general = not uses_fast_kernel(x.dtype, m)
+    if general:
+        _launch_general("whiten_sumsq_partial", load_general_library().pfg_whiten_partial,
+                        tensors, x.device, B, d, m, N, plan=plan, extra=(d_full,))
+    else:
+        plan = _launch_plan(B, d, m, N, _num_sms(x.device.index))
+        _launch("whiten_sumsq_partial", load_library().pf_whiten_partial, tensors, plan,
+                x.device, B, d, m, N)
+    return t
+
+
+def whiten_sumsq_resume(x, a_half, X, Ci, mu, t, d):
+    """B2's resume on a block of rows from the summed ``t (..., m, N)``
+    (accumulation dtype): the block's ``‖w‖² (..., N)``, ``w = v + X (Ci
+    t)``, in the accumulation dtype, to be summed over the blocks. ``d`` is
+    the full dimension."""
+    if x.device.type == "cpu":
+        return whiten_sumsq_resume_torch(x, a_half, X, Ci, mu, t)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _whiten_sumsq_resume_cuda(x, a_half, X, Ci, mu, t, d)
+
+
+def _whiten_sumsq_resume_cuda(x, a_half, X, Ci, mu, t, d_full, general=None, plan=None):
+    """B2's resume on the card, routed as :func:`_sample_and_logq_cuda`."""
+    batch, B, d, m, N = _flat_shapes(x, X)
+    _check_cuda_args(
+        [
+            ("x", x, batch + (d, N)),
+            ("a_half", a_half, batch + (d,)),
+            ("X", X, batch + (d, m)),
+            ("Ci", Ci, batch + (m, m)),
+            ("mu", mu, batch + (d,)),
+        ],
+        x.device,
+    )
+    acc = _acc_dtype(x.dtype)
+    _check_cuda_args([("t", t, batch + (m, N))], x.device)
+    if t.dtype != acc:
+        raise TypeError(f"t is {t.dtype}, expected {acc}")
+    sumsq = torch.empty(batch + (N,), dtype=acc, device=x.device)
+    if B == 0 or N == 0:
+        return sumsq
+    tensors = (x, a_half, X, Ci, mu, t, sumsq)
+    if general is None:
+        general = not uses_fast_kernel(x.dtype, m)
+    if general:
+        _launch_general("whiten_sumsq_resume", load_general_library().pfg_whiten_resume,
+                        tensors, x.device, B, d, m, N, plan=plan, extra=(d_full,))
+    else:
+        plan = _launch_plan(B, d, m, N, _num_sms(x.device.index))
+        _launch("whiten_sumsq_resume", load_library().pf_whiten_resume, tensors, plan,
+                x.device, B, d, m, N)
+    return sumsq
 
 
 def _whiten_sumsq_shared(x, a_half, X, Ci, mu, plan=None):

@@ -14,7 +14,11 @@ Under a row group (``utils/rows.py``, the mesh's ``dim`` axis) a normal
 holds a member's rows: ``dim`` is still the full dimension, a stream gives
 the member its rows of the unsplit noise, and B1 runs split: its partial
 ``(Xᵀu, ‖u‖²)`` on the member's rows, summed over the members, then its
-resume on them. The log density (B2) has no split mode yet and raises there.
+resume on them. The log density of a per-factor ``x`` runs B2 split the same
+way: its partial ``Xᵀv`` on the member's rows, summed, then its resume,
+whose ``‖w‖²`` on the member's rows is summed too. A 2-D ``x`` shared by
+batched normals (the mixture denominator's kernel) has no split yet and
+raises there.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from pathfinder_tpu_torch.ops.kernels.woodbury_kernels import (
     sample_and_logq_partial,
     sample_and_logq_resume,
     whiten_sumsq,
+    whiten_sumsq_partial,
+    whiten_sumsq_resume,
 )
 from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat
 from pathfinder_tpu_torch.utils import rows
@@ -71,18 +77,24 @@ class MvNormal:
         """Log density of the columns of ``x (..., n, N)``: ``(..., N)``. A
         2-D ``x (n, P)`` beside batched normals is shared by all of them
         and is not copied per normal: ``(..., P)``."""
-        if rows.in_group():
-            raise NotImplementedError(
-                "MvNormal.logpdf on the 'dim' mesh axis: B2 has no split mode yet")
         F = self.cov.factor
+        batch = F.X.shape[:-2]
+        if rows.in_group() and x.ndim == 2 and batch:
+            raise NotImplementedError(
+                "MvNormal.logpdf of an x shared by batched normals on the 'dim' mesh axis: "
+                "the shared-x kernel has no split mode yet")
         if not F.diag_A:
             maha = self.cov.invquad(x - self.mean[..., None])
             return -0.5 * (self.dim * _LOG_2PI + F.log_det[..., None] + maha)
         a_half, X, mean = self._kernel_args()
-        batch = F.X.shape[:-2]
         if not (x.ndim == 2 and batch):
             x = x.expand(batch + x.shape[-2:]).contiguous()
-        maha = whiten_sumsq(x, a_half, X, F.Ci.contiguous(), mean)
+        if rows.in_group():
+            t = rows.sum_rows(whiten_sumsq_partial(x, a_half, X, mean, self.dim))
+            maha = rows.sum_rows(whiten_sumsq_resume(x, a_half, X, F.Ci.contiguous(), mean, t,
+                                                     self.dim)).to(self.dtype)
+        else:
+            maha = whiten_sumsq(x, a_half, X, F.Ci.contiguous(), mean)
         return -0.5 * (self.dim * _LOG_2PI + F.log_det[..., None] + maha)
 
     def rand_and_logpdf(

@@ -12,6 +12,12 @@ which is a descent direction whatever the Hessian's signature; a line
 search then guarantees progress. O(d³) per lane and iteration: for the
 moderate-d regime where curvature is affordable. The masked loop over the K
 lanes is ``ops/trajectory.py``'s.
+
+In a row group (the mesh's ``dim`` axis) the loop runs on each member's
+rows, but the Hessian, its ``eigh`` and the direction run whole on the
+lead (``utils/rows.run_on_lead``), with the whole target's ``hess``, and
+each member takes its rows of the direction: a dense ``eigh`` has no row
+split in the port, as the target has none.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Callable, Optional
 import torch
 
 from pathfinder_tpu_torch.ops.trajectory import OptimizationTrace, minimize_trace
+from pathfinder_tpu_torch.utils.rows import run_on_lead
 
 __all__ = ["minimize_newton_trace"]
 
@@ -45,8 +52,9 @@ def minimize_newton_trace(
     """Maximize ``logp`` from each row of ``x0 (K, d)`` with modified
     Newton, recording every trajectory.
 
-    ``hess(x (K, d)) -> (K, d, d)`` is the Hessian of **logp**; required
-    (the registry passes ``LogDensity.hess`` or a ``torch.func`` Hessian).
+    ``hess(x (K, d)) -> (K, d, d)`` is the Hessian of **logp**, of the full
+    rows also in a row group; required (the registry passes
+    ``LogDensity.hess`` or a ``torch.func`` Hessian).
     Contract, conventions and stopping rules are those of the other
     trajectory optimizers; ``num_bfgs_updates_rejected`` is 0.
     """
@@ -58,9 +66,8 @@ def minimize_newton_trace(
     dtype = x0.dtype
     sqrt_eps = math.sqrt(float(torch.finfo(dtype).eps))
 
-    def direction_fn(st, gs):
-        g = st["g"]
-        H_min = (-hess(st["x"])).to(dtype)
+    def whole_direction(x, g):
+        H_min = (-hess(x)).to(dtype)
         H_min = 0.5 * (H_min + H_min.mT)  # eigh wants exact symmetry
         # a non-finite Hessian has no spectrum (and makes eigh raise): that
         # lane takes steepest descent for this step
@@ -77,9 +84,11 @@ def minimize_newton_trace(
         dir_ok = finite & torch.isfinite(direction).all(dim=-1)
         direction = torch.where(dir_ok[:, None], direction, -g)
         bad_dir = ~(torch.sum(g * direction, dim=-1) < 0)
-        direction = torch.where(bad_dir[:, None], -g, direction)
+        return torch.where(bad_dir[:, None], -g, direction)
+
+    def direction_fn(st, gs):
         # Newton's natural step: alpha0 = 1 from the first iteration
-        return direction, torch.ones_like(st["f"]), None
+        return run_on_lead(whole_direction, st["x"], st["g"]), torch.ones_like(st["f"]), None
 
     return minimize_trace(
         value_and_grad, x0, {}, direction_fn, lambda st, mid, direction, ls, x_new: {},

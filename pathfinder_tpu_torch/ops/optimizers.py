@@ -15,15 +15,25 @@ trace, so anything that keeps the contract plugs into ``optimizer=`` of both
 entry points. A custom optimizer may accept and ignore arguments it has no use
 for, as CG does with ``history_length``. ``progress_every`` is passed only
 when ``PathfinderConfig.progress_every`` is above 0.
+
+In a row group (the mesh's ``dim`` axis, ``utils/rows.py``) the named
+optimizers run on each member's rows, and a user callable runs whole on the
+group's lead (``rows.run_on_lead``): it gets the gathered ``x0`` and the
+whole target's ``value_and_grad``, and each member takes its rows of the
+trace's ``xs`` and ``gradients`` and a copy of the rest. A Python callable
+cannot be split, for the reason the target cannot.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import warnings
 from typing import Callable, Union
 
 from pathfinder_tpu_torch.ops.lbfgs import minimize_lbfgs_trace
+from pathfinder_tpu_torch.ops.trajectory import OptimizationTrace
+from pathfinder_tpu_torch.utils import rows
 
 __all__ = ["OPTIMIZERS", "resolve_optimizer", "NEWTON_DENSE_DIM_WARN"]
 
@@ -53,13 +63,14 @@ def _newton(target, dim):
     from pathfinder_tpu_torch.models.protocol import batched_hessian
     from pathfinder_tpu_torch.ops.newton import minimize_newton_trace
 
+    # in a row group the target's hess is the whole target's (utils/rows.row_target)
     user_hess = getattr(target, "hess", None)
     hess_fn = user_hess if user_hess is not None else batched_hessian(target.logp)
     if dim is not None and dim > NEWTON_DENSE_DIM_WARN:
         how = (
             "derives the Hessian with torch.func.hessian (d forward-over-reverse "
             "passes per iteration)"
-            if user_hess is None
+            if user_hess is None or getattr(user_hess, "_pf_derived", False)
             else "calls your hess="
         )
         warnings.warn(
@@ -107,9 +118,30 @@ def resolve_optimizer(optimizer: Union[str, Callable], target, dim=None) -> Call
             )
         return factory(target, dim)
     if callable(optimizer):
-        return optimizer
+        return _whole_on_lead(optimizer) if rows.in_group() else optimizer
     raise TypeError(
         f"optimizer must be a registered name {tuple(OPTIMIZERS)} or a "
         f"callable with the minimize_*_trace contract; got "
         f"{type(optimizer).__name__}"
     )
+
+
+# the trace's fields that hold a member's rows in a row group
+_ROW_FIELDS = ("xs", "gradients")
+
+
+def _whole_on_lead(minimize: Callable) -> Callable:
+    """A user's ``minimize`` run whole on the lead of the calling member's row
+    group (``rows.run_on_lead``); each member returns its rows of the trace."""
+
+    def run(value_and_grad, x0, **options):
+        names = [f.name for f in dataclasses.fields(OptimizationTrace)]
+
+        def whole(x0_full):
+            trace = minimize(value_and_grad, x0_full, **options)
+            return tuple(getattr(trace, n) for n in names)
+
+        parts = rows.run_on_lead(whole, x0, split=tuple(n in _ROW_FIELDS for n in names))
+        return OptimizationTrace(**dict(zip(names, parts)))
+
+    return run

@@ -8,11 +8,17 @@ port has no partitioner, so the placement is a type of its own,
 device, or its copies where it is replicated), and :func:`dim_map` runs a
 function on the blocks as a row group (``utils/rows.py``), launched by the
 executor's own launcher (``parallel/sharding.py:run_row_groups``): one host
-thread a mesh entry, each reduction over ``d`` inside the port's Woodbury,
-normal, L-BFGS and line-search code summed over the members in rank order.
-A ``LogDensity`` argument is evaluated whole, on the first device.
-``multipathfinder(mesh=paths_dim_mesh(...))`` splits each block's rows the
-same way (``parallel/sharding.py``).
+thread a mesh entry, each reduction over ``d`` inside the port's code summed
+over the members in rank order. What runs on the blocks: the Woodbury
+operations, ``MvNormal`` sampling and ``rand_and_logpdf`` (B1 split) and
+``logpdf`` of a per-factor ``x`` (B2 split), and every trajectory optimizer
+(L-BFGS and CG on their rows, BFGS with its inverse Hessian split by rows,
+Newton's Hessian and ``eigh`` and a user callable whole on the first
+device) with every line search. A ``LogDensity`` argument is evaluated
+whole, on the first device. What raises there: a dense covariance, and
+``logpdf`` of one ``x`` shared by batched normals (the mixture
+denominator). ``multipathfinder(mesh=paths_dim_mesh(...))`` splits each
+block's rows the same way (``parallel/sharding.py``).
 """
 
 from __future__ import annotations

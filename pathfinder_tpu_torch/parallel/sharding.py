@@ -20,11 +20,12 @@ thread a ``dim`` entry, each running ``pathfinder_core`` on its contiguous
 rows of ``d`` and summing every reduction over ``d`` with its peers in rank
 order. The target is evaluated whole, on the group's first device, where
 GSPMD would partition it too: the results are the same, only the target's
-memory is not split. Only the L-BFGS optimizer runs there (every line
-search); the others hold ``(d, d)`` matrices or reductions the group does
-not see, and raise. The row blocks of a block are joined along ``d`` and
-the blocks gathered as on the ``paths`` axis, so everything after the core
-runs on the full states. A ``dim`` width of 1 is the run without it.
+memory is not split. Every optimizer runs there, with every line search:
+L-BFGS and CG on their rows, BFGS with its inverse Hessian split by rows,
+Newton with its Hessian, ``eigh`` and direction whole on the group's first
+device, and a user's callable whole there too (``ops/optimizers.py``). The
+row blocks of a block are joined along ``d`` and the blocks gathered as on
+the ``paths`` axis, so everything after the core runs on the full states. A ``dim`` width of 1 is the run without it.
 
 Tens of thousands of paths do not fit one batch: one lane's trace, history
 and ELBO chunk are megabytes at d=1000. :func:`chunk_launches` runs a batch
@@ -178,7 +179,7 @@ def paths_dim_mesh(n_paths_axis: int, devices=None) -> Mesh:
 def check_mesh(mesh: Optional[Mesh]) -> None:
     """Raise for a mesh whose axes are not ``paths`` and ``dim``, each named
     at most once. Both axes are ported; on the ``dim`` axis the executor
-    runs the L-BFGS core only (:func:`make_path_executor`)."""
+    runs the core with its rows split (:func:`make_path_executor`)."""
     if mesh is None:
         return
     names = mesh.axis_names
@@ -322,9 +323,9 @@ def make_path_executor(mesh: Optional[Mesh] = None, finish: Optional[Callable] =
     dim)`` grid (the module docstring): the core of member ``j`` takes rows
     ``[j·d/w, (j+1)·d/w)`` of the block's ``x0s``, on its device, from a
     host thread of its own, and the members' states are joined along ``d``
-    on the block's first device. Only ``optimizer="lbfgs"`` runs there. The
-    kernels are built before the threads start, so that no member waits on
-    another's first build."""
+    on the block's first device, whatever the optimizer. The kernels are
+    built before the threads start, so that no member waits on another's
+    first build."""
     check_mesh(mesh)
 
     def one(path_ids, x0s, target, config, seed, round_idx):
@@ -347,11 +348,6 @@ def make_path_executor(mesh: Optional[Mesh] = None, finish: Optional[Callable] =
             raise ValueError(
                 f"parameter dimension {d} is not divisible by the {width}-wide "
                 f"'{DIM_AXIS}' mesh axis"
-            )
-        if width > 1 and config.optimizer != "lbfgs":
-            raise NotImplementedError(
-                f"optimizer={config.optimizer!r} on the '{DIM_AXIS}' mesh axis: only the "
-                "L-BFGS core runs with its rows split"
             )
         per, rows = K // size, d // width
 
@@ -542,17 +538,29 @@ def lane_bytes(d: int, maxiters: int, history_length: int, ndraws_elbo: int,
     ``tools/serving_memory.py``.
 
     On a mesh whose ``dim`` axis is ``dim_width > 1`` wide a lane's rows are
-    split: a member holds the estimate at ``d / dim_width`` rows, and the
-    group's first member also the target's evaluation at the full width,
+    split: a member holds the estimate at ``r = d / dim_width`` rows, and
+    the group's first member also the target's evaluation at the full width,
     an ELBO chunk's gathered draws and the target's temporaries (``4·d·N``
-    a candidate, as above). The estimate is that first member's, which
-    every member of the mesh plans with."""
+    a candidate, as above), or what an optimizer holds whole there, if more:
+    BFGS's ``DENSE_COPIES`` row blocks ``(r, d)`` of H on every member,
+    Newton's ``HESSIAN_COPIES`` ``(d, d)`` matrices on the first member only,
+    a user callable's whole trace (``2·(L + 1)·d``) on the first member. The
+    estimate is that first member's, which every member of the mesh plans
+    with."""
     f = torch.finfo(dtype).bits // 8
     J, L, C = history_length, maxiters, min(elbo_chunk, maxiters)
     if dim_width > 1:
-        rows = lane_bytes(-(-d // dim_width), maxiters, history_length, ndraws_elbo,
-                          elbo_chunk, ndraws, dtype, optimizer, importance_denominator, nruns)
-        return rows + C * f * 4 * d * ndraws_elbo
+        r = -(-d // dim_width)
+        rows = lane_bytes(r, maxiters, history_length, ndraws_elbo, elbo_chunk, ndraws, dtype,
+                          "lbfgs", importance_denominator, nruns)
+        lead = [C * f * 4 * d * ndraws_elbo]
+        if optimizer == "bfgs":
+            lead.append(DENSE_COPIES["bfgs"] * f * r * d)
+        elif optimizer == "newton":
+            lead.append(DENSE_COPIES["newton"] * f * d * d)
+        elif callable(optimizer):
+            lead.append(f * 2 * (L + 1) * d)
+        return rows + max(lead)
     held = f * (2 * (L + 1) * d + (L + 1) + (2 * L + 2 * (L + 1)) * d)
 
     def sample(n):

@@ -191,16 +191,17 @@ def test_mesh_is_bitwise_the_run_at_the_same_per_device_width(case):
 
 
 def test_dim_axis_raises_and_device_must_be_the_first():
-    """The ``dim`` axis runs the L-BFGS core only (``test_torch_dim_sharding.py``
-    holds what it runs); another optimizer raises there."""
+    """The ``dim`` axis runs every optimizer (``test_torch_dim_sharding.py``
+    and ``test_torch_dim_optimizers.py`` hold what they give): the states of
+    its row groups are joined along ``d``."""
     mesh = sharding.Mesh(np.array([["cpu", "cpu"]], dtype=object), ("paths", "dim"))
     assert mesh.shape == {"paths": 1, "dim": 2}
     t = tzoo.StandardNormal(4)
-    with pytest.raises(NotImplementedError, match="'dim' mesh axis"):
-        multipathfinder(t, 10, nruns=2, maxiters=3, device="cpu", mesh=mesh, optimizer="bfgs")
-    with pytest.raises(NotImplementedError, match="'dim' mesh axis"):
-        make_path_executor(mesh)(torch.arange(2), torch.zeros(2, 4), t,
-                                 tsinglepath.PathfinderConfig(optimizer="newton"), 0, 0)
+    r = multipathfinder(t, 10, nruns=2, maxiters=3, device="cpu", mesh=mesh, optimizer="bfgs")
+    assert r.states.draws.shape == (2, 4, 5) and bool(torch.isfinite(r.draws).all())
+    st = make_path_executor(mesh)(torch.arange(2), torch.zeros(2, 4), t,
+                                  tsinglepath.PathfinderConfig(optimizer="newton"), 0, 0)
+    assert st.trace.xs.shape[-1] == 4 and st.fit_distribution.mean.shape == (2, 4)
     with pytest.raises(ValueError, match="lanes do not divide"):
         make_path_executor(paths_mesh(["cpu"] * 2))(
             torch.arange(3), torch.zeros(3, 4), t, tsinglepath.PathfinderConfig(), 0, 0)

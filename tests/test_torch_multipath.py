@@ -220,7 +220,8 @@ def test_importing_the_port_loads_no_jax():
 def test_unported_options_raise():
     """Every option of the JAX entry point is taken: a mesh over the paths
     and the parameter dimension, and the serving-scale options. On the
-    ``dim`` axis only the L-BFGS core runs; another optimizer raises."""
+    ``dim`` axis every optimizer runs (``test_torch_dim_optimizers.py``
+    holds what they give)."""
     from pathfinder_tpu_torch.parallel.sharding import Mesh, paths_mesh
 
     t = tzoo.StandardNormal(4)
@@ -228,8 +229,8 @@ def test_unported_options_raise():
     assert dim_mesh.shape == {"paths": 1, "dim": 2}
     r = multipathfinder(t, 10, nruns=2, maxiters=3, device="cpu", mesh=dim_mesh)
     assert r.states.draws.shape == (2, 4, 5) and bool(torch.isfinite(r.draws).all())
-    with pytest.raises(NotImplementedError, match="optimizer='cg' on the 'dim' mesh axis"):
-        multipathfinder(t, 10, nruns=2, maxiters=3, device="cpu", mesh=dim_mesh, optimizer="cg")
+    r = multipathfinder(t, 10, nruns=2, maxiters=3, device="cpu", mesh=dim_mesh, optimizer="cg")
+    assert r.states.draws.shape == (2, 4, 5) and bool(torch.isfinite(r.draws).all())
     r = multipathfinder(t, 10, nruns=3, maxiters=3, device="cpu", max_paths_per_launch=2,
                         keep_traces=False, offload_launches=True, progress=False, progress_every=0,
                         mesh=paths_mesh(["cpu"]))

@@ -199,10 +199,13 @@ def test_wrapper_on_cpu_uses_the_plain_version_and_counts_nothing():
     x, logq = comps.rand_and_logpdf(u=u)
     comps.logpdf(x)
     # the fast kernels' counts, the general kernel's (``*_general``), the
-    # shared-x kernel's and B1's row-split modes' in both per-factor kernels
+    # shared-x kernel's and B1's and B2's row-split modes' in both per-factor
+    # kernels
     names = ("sample_and_logq", "whiten_sumsq", "sample_and_logq_general", "whiten_sumsq_general",
              "whiten_sumsq_shared", "sample_and_logq_partial", "sample_and_logq_resume",
-             "sample_and_logq_partial_general", "sample_and_logq_resume_general")
+             "sample_and_logq_partial_general", "sample_and_logq_resume_general",
+             "whiten_sumsq_partial", "whiten_sumsq_resume", "whiten_sumsq_partial_general",
+             "whiten_sumsq_resume_general")
     assert wk.launch_counts() == {name: 0 for name in names}
     assert wk.launch_counts_by_shape() == {name: {} for name in names}
     ref = wk.sample_and_logq_torch(

@@ -4,7 +4,7 @@ estimates, on one card.
 
     python3 tools/serving_memory.py [B ...]          # default: 512 1024 2048
     python3 tools/serving_memory.py --remedies [B]   # default B: 256
-    python3 tools/serving_memory.py --dim [B]        # default B: 512
+    python3 tools/serving_memory.py --dim [B] [OPT]  # default B: 512, OPT: lbfgs
 
 At the headline configuration (``HierarchicalGaussian(1000)``, maxiters=64,
 history_length=6, ndraws_elbo=5, elbo_chunk=8, 5 draws a path, f32) the
@@ -34,7 +34,11 @@ lane, beside the estimate that device's entry is planned with: the group's
 first device against ``lane_bytes(dim_width=w)`` (its rows, the target's
 full-width evaluation and the joined state), every other against
 ``lane_bytes`` at ``d / w`` rows; a card named twice holds two entries and
-is planned for twice the first's estimate (``mesh_device_bytes``).
+is planned for twice the first's estimate (``mesh_device_bytes``). With
+``OPT`` (``bfgs``, ``newton``) the launch runs that optimizer: BFGS holds
+its row blocks of H on every member (``DENSE_COPIES`` of ``(d/w, d)``), so
+a member's estimate adds them; Newton's Hessian and ``eigh`` run on the
+first device only.
 
 Needs a CUDA card and ``nvcc``; prints the card's name and power limit first.
 """
@@ -142,9 +146,9 @@ def remedies(target, B):
           f"estimate/measured={est / (peak / B):.3f}", flush=True)
 
 
-def dim_meshes(target, B):
+def dim_meshes(target, B, opt="lbfgs"):
     cfg = PathfinderConfig(maxiters=MAXITERS, history_length=J, ndraws_elbo=N_ELBO,
-                           ndraws=NDRAWS, elbo_chunk=CHUNK)
+                           ndraws=NDRAWS, elbo_chunk=CHUNK, optimizer=opt)
     count = torch.cuda.device_count()
     layouts = [[f"cuda:{i}" for i in range(w)] for w in (2, 4) if w <= count]
     layouts.append(["cuda:0"] * 2)
@@ -152,8 +156,11 @@ def dim_meshes(target, B):
         w = len(names)
         mesh = sharding.paths_dim_mesh(1, names)
         executor = sharding.make_path_executor(mesh)
-        lead_est = sharding.lane_bytes(D, MAXITERS, J, N_ELBO, CHUNK, NDRAWS, dim_width=w)
+        lead_est = sharding.lane_bytes(D, MAXITERS, J, N_ELBO, CHUNK, NDRAWS, torch.float32, opt,
+                                       dim_width=w)
         member_est = sharding.lane_bytes(D // w, MAXITERS, J, N_ELBO, CHUNK, NDRAWS)
+        if opt == "bfgs":  # a member's row blocks of H
+            member_est += sharding.DENSE_COPIES["bfgs"] * 4 * (D // w) * D
         for lanes in (64, B):  # the first launch warms every device up
             ids, x0s = starts(lanes)
             devices = list(dict.fromkeys(torch.device(n) for n in names))
@@ -181,7 +188,7 @@ def dim_meshes(target, B):
                 else:
                     est = planned = member_est
                     role = "member"
-                print(f"dim mesh {names} B={lanes}: {dev} ({role}) wall_s={secs:.3f} "
+                print(f"dim mesh {names} optimizer={opt} B={lanes}: {dev} ({role}) wall_s={secs:.3f} "
                       f"paths_ok={int(state.success.sum())}/{lanes} peak_per_lane={per:.0f} "
                       f"estimate={est} estimate/measured={est / per:.3f} planned={planned} "
                       f"planned/measured={planned / per:.3f}", flush=True)
@@ -199,7 +206,8 @@ def main():
     if args and args[0] == "--remedies":
         remedies(target, int(args[1]) if len(args) > 1 else 256)
     elif args and args[0] == "--dim":
-        dim_meshes(target, int(args[1]) if len(args) > 1 else 512)
+        dim_meshes(target, int(args[1]) if len(args) > 1 else 512,
+                   args[2] if len(args) > 2 else "lbfgs")
     else:
         launches(target, [int(a) for a in args] or [512, 1024, 2048])
 
