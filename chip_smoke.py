@@ -111,7 +111,22 @@ Phases, each of which fails the run (exit code 1) on any error:
    on its path, ``MvNormal.logpdf`` of a dim-mesh result's pooled draws
    under their components through ``dim_map`` on two entries of the card,
    float32 and float64, against the unsharded ``logpdf``, a repeat bitwise
-   equal, both B2 split modes launched. Every optimizer on the ``(1, 2)``
+   equal, both B2 split modes launched. B2 over a shared x split on the
+   shared-x kernel (its partial: t of every (factor, column) pair of each
+   block; its resume: each block's ‖w_r‖², summed in rank order) at the
+   mixture shape (100, 12, 1000), d = 1000 in 2 and 4 blocks, float32 and
+   float64, against the plain split and the unsplit kernel, a repeat bitwise
+   equal, one block timed L2-cold beside its plain version and its
+   tensor-core bound; on every dtype and rank, a block of 999 rows and the
+   plans with rank windows and the workspace. On its path,
+   ``UniformMixture.logpdf`` of the headline mixture run's components at its
+   pooled draws through ``dim_map`` on 2 and 4 entries of the card, float32
+   and float64, against the unsharded mixture ratios, both shared-x split
+   parts launched and the unsplit kernel not, a repeat bitwise equal; the
+   mixture's ``sample`` in a group against the unsharded draws and ids; a
+   dense SPD covariance (d = 1000, m = 12) through ``dim_map`` on 2 entries,
+   ``logpdf`` and ``rand_and_logpdf`` against the unsharded call, a repeat
+   bitwise equal, its peak memory. Every optimizer on the ``(1, 2)``
    mesh: the remedy path (``optimizer="auto", auto_laplace=True``) on seeds
    0–2 with phase 4's winner on each and k̂ within 0.005 of it, the median
    in the auto band, a repeat bitwise equal; BFGS at the headline against
@@ -836,8 +851,8 @@ def shared_kernel_phase(wk, parent=None, only=None):
                                 want=truth if dtype == torch.float32 else None))
     if wanted(f"{SERVE_MIXTURE[0]} m={M} float32"):
         rows.append(_serving_mixture_case(wk, parent))
-    for (dt_name, mode), r in sorted(wk.shared_kernel_resources().items()):
-        print(f"kernel whiten_sumsq_shared {dt_name} {mode}: registers={r.get('registers')} "
+    for (name, dt_name, mode), r in sorted(wk.shared_kernel_resources().items()):
+        print(f"kernel {name} {dt_name} {mode}: registers={r.get('registers')} "
               f"spill_stores={r.get('spill_stores')}B spill_loads={r.get('spill_loads')}B", flush=True)
     return rows
 
@@ -1822,6 +1837,16 @@ DIM_SPLIT_CASES = (("float32", 2), ("float32", 4), ("float64", 2), ("float64", 4
 DIM_SEEDS = SEEDS[:3]  # the (1, 2) mesh's headline seeds, beside one run of the (2, 2) mesh
 SPLIT_KERNELS = ("sample_and_logq_partial", "sample_and_logq_resume")
 B2_SPLIT_KERNELS = ("whiten_sumsq_partial", "whiten_sumsq_resume")
+# B2 over an x shared by every factor split the same way, on the shared-x
+# kernel (the mixture denominator on the dim axis): at the mixture shape
+# (100, 12, 1000), d = 1000 in 2 and 4 blocks, float32 and float64 (timed);
+# then every dtype at every rank of GENERAL_RANKS on (8, 1000, m, 77), a block
+# of odd rows (d = 1998 in 2 blocks of 999) and the plans with X's ranks in
+# windows and with t and s in the workspace (a 64 KB limit), in 2 blocks
+SHARED_SPLIT_KERNELS = ("whiten_sumsq_shared_partial", "whiten_sumsq_shared_resume")
+SHARED_SPLIT_B, SHARED_SPLIT_P = 8, 77
+SHARED_SPLIT_ODD = (8, 1998, M, 77)
+SHARED_SPLIT_LIMITED = (("windows", 4, D, 258, 77, 65536), ("workspace", 4, D, 1000, 77, 65536))
 
 
 def split_bound_us(mode, B, d_r, m, N, itemsize):
@@ -1849,6 +1874,157 @@ def split_bound_us(mode, B, d_r, m, N, itemsize):
     t_bytes = moved / HBM_BYTES_PER_S
     t_ops = flops / (F64_FLOPS_PER_S if itemsize == 8 else F32_FLOPS_PER_S)
     return 1e6 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def shared_split_bound_us(mode, B, d_r, m, P, itemsize, tensor_cores=True):
+    """The bound of one row-block launch of the shared-x kernel's split, as
+    :func:`tc_bound_us`: the partial's product Xᵀv (2·d_r·m a factor and
+    column; 3 TF32 products for 4- and 2-byte values, DMMA for float64) and
+    its whitening (2·d_r) against x, X, a½ and μ read and t written (in the
+    accumulation type); the resume's product X s (3 TF32 products for float32,
+    2 for 16-bit, DMMA for float64), s = Ci t (2·m²) and w = v + X s with its
+    square summed (4·d_r) against x, X, a½, μ, Ci and t read and the block's
+    ‖w‖² written. The longest of the tensor-core, CUDA-core and bytes times,
+    and which it is; without ``tensor_cores``, as :func:`bound_us`: the
+    product's 2·d_r·m operations at the CUDA-core rate too."""
+    pairs, acc = B * P, 8 if itemsize == 8 else 4
+    if not tensor_cores:
+        t_mma = 0.0
+    elif itemsize == 8:
+        t_mma = 2 * d_r * m * pairs / F64_TC_FLOPS_PER_S
+    else:
+        n = 3 if mode == "partial" or itemsize == 4 else 2
+        t_mma = n * 2 * d_r * m * pairs / TF32_TC_FLOPS_PER_S
+    if mode == "partial":
+        rest = 2 * d_r
+        moved = itemsize * (d_r * P + B * d_r * (m + 2)) + acc * pairs * m
+    else:
+        rest = 2 * m * m + 4 * d_r
+        moved = itemsize * (d_r * P + B * (d_r * (m + 2) + m * m)) + acc * pairs * (m + 1)
+    rest += 0 if tensor_cores else 2 * d_r * m
+    t_rest = pairs * rest / (F64_FLOPS_PER_S if itemsize == 8 else F32_FLOPS_PER_S)
+    t, by = max((t_mma, "tensor-core operations"), (t_rest, "operations"),
+                (moved / HBM_BYTES_PER_S, "bytes"))
+    return 1e6 * t, by
+
+
+def _shared_blocks(args, blocks):
+    """The row blocks of a shared-x case ``(x (d, P), a½, X, Ci, μ)``: each
+    block's ``x`` in the kernel's ``(P, d_r)`` layout (as ``MvNormal.logpdf``
+    hands a member's rows to both launches), a½, X and μ contiguous."""
+    x, a_half, X, _, mu = args
+    r = X.shape[1] // blocks
+    cut = [slice(j * r, (j + 1) * r) for j in range(blocks)]
+    return [(x[c].mT.contiguous().mT, a_half[:, c].contiguous(), X[:, c].contiguous(),
+             mu[:, c].contiguous()) for c in cut]
+
+
+def _split_run_shared(wk, args, blocks, kernel=True, plan=None):
+    """B2 over a shared x on ``args`` (x, a½, X, Ci, μ) split in ``blocks``
+    row blocks: the partial of every block, t summed in rank order, the resume
+    of every block and its ‖w‖² summed in rank order (as a row group sums
+    them), in the accumulation type, on the shared-x kernel (``plan``: its
+    plan at a block's rows) or on the plain split."""
+    Ci, d = args[3], args[2].shape[1]
+    if kernel:
+        partial = lambda *b: wk._whiten_sumsq_partial_cuda(*b, d, plan=plan)  # noqa: E731
+        resume = lambda xb, ab, Xb, mub, t: wk._whiten_sumsq_resume_cuda(  # noqa: E731
+            xb, ab, Xb, Ci, mub, t, d, plan=plan)
+    else:
+        partial = wk.whiten_sumsq_partial_torch
+        resume = lambda xb, ab, Xb, mub, t: wk.whiten_sumsq_resume_torch(  # noqa: E731
+            xb, ab, Xb, Ci, mub, t)
+    blk = _shared_blocks(args, blocks)
+    ts = [partial(*b) for b in blk]
+    t = ts[0]
+    for p in ts[1:]:
+        t = t + p
+    qs = [resume(*b, t) for b in blk]
+    q = qs[0]
+    for p in qs[1:]:
+        q = q + p
+    return q
+
+
+def check_shared_split_case(wk, tag, args, blocks, plan=None, whole_plan=None):
+    """B2 over a shared x split on the shared-x kernel against the plain
+    split and the unsplit kernel (``whole_plan`` its plan), both in the
+    storage dtype at the unsplit kernel's tolerances, and a repeat bitwise
+    equal. The max abs error."""
+    import torch
+
+    dtype = args[0].dtype
+    got = _split_run_shared(wk, args, blocks, plan=plan)
+    torch.cuda.synchronize()
+    plain = _split_run_shared(wk, args, blocks, kernel=False)
+    whole = wk._whiten_sumsq_cuda(*args, plan=whole_plan)
+    err = max(check_general(f"shared-x B2 split [{tag}] maha", got.to(dtype), plain.to(dtype), dtype),
+              check_general(f"shared-x B2 split against unsplit [{tag}] maha", got.to(dtype), whole,
+                            dtype))
+    if not torch.equal(_split_run_shared(wk, args, blocks, plan=plan), got):
+        fail(f"shared-x B2 split [{tag}]: a repeat gave other bits")
+    return err
+
+
+def dim_split_shared(wk, rng):
+    """The shared-x kernel's split: at the mixture shape in row blocks
+    (DIM_SPLIT_CASES), against the plain split and the unsplit kernel, a
+    repeat bitwise equal, one block's launches timed L2-cold beside their
+    plain versions and bounds; then on the kernel's other routes
+    (SHARED_SPLIT_B..SHARED_SPLIT_LIMITED). The rows of the kernels' line."""
+    import torch
+
+    B, d, m, P = K, D, M, 1000
+    rows_out = []
+    for dt_name, blocks in DIM_SPLIT_CASES:
+        dtype = getattr(torch, dt_name)
+        args = _shared_args(rng, B, d, m, P, dtype)
+        r = d // blocks
+        tag = f"mixture {dt_name} d={d} in {blocks} blocks"
+        err = check_shared_split_case(wk, tag, args, blocks)
+        xb, ab, Xb, mub = _shared_blocks(args, blocks)[0]
+        Ci = args[3]
+        t_sum = wk._whiten_sumsq_partial_cuda(xb, ab, Xb, mub, d)
+        item = torch.finfo(dtype).bits // 8
+        plan = wk._shared_plan(B, r, m, P, dtype)
+        for mode, kernel, plain in (
+                ("partial", lambda: wk._whiten_sumsq_partial_cuda(xb, ab, Xb, mub, d),
+                 lambda: wk.whiten_sumsq_partial_torch(xb, ab, Xb, mub)),
+                ("resume", lambda: wk._whiten_sumsq_resume_cuda(xb, ab, Xb, Ci, mub, t_sum, d),
+                 lambda: wk.whiten_sumsq_resume_torch(xb, ab, Xb, Ci, mub, t_sum))):
+            ms, plain_ms = time_cold_ms(kernel), time_cold_ms(plain)
+            bound, by = shared_split_bound_us(mode, B, r, m, P, item)
+            cuda_bound, cuda_by = shared_split_bound_us(mode, B, r, m, P, item, False)
+            name = f"whiten_sumsq_shared_{mode}"
+            rows_out.append(dict(name=name, dtype=dt_name, blocks=blocks, err=err, ms=ms,
+                                 plain_ms=plain_ms, bound_us=bound, bound_by=by,
+                                 cuda_core_bound_us=cuda_bound))
+            print(f"kernel {name} [{tag}: one block B={B} d_r={r} m={m} P={P}] "
+                  f"plan(W,F,NC,R,kw,ws,smem)={tuple(plan)} max_abs_err={err:.3e} "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} tc_bound_us={bound:.2f} ({by}) "
+                  f"share={bound / (1e3 * ms):.3f} cuda_core_bound_us={cuda_bound:.2f} ({cuda_by})",
+                  flush=True)
+        del args, t_sum
+    B, P = SHARED_SPLIT_B, SHARED_SPLIT_P
+    cases = [(dt, B, D, mm, P, None) for dt in GENERAL_DTYPES for mm in GENERAL_RANKS]
+    cases.append(("float32",) + SHARED_SPLIT_ODD + (None,))
+    cases += [("float32", b, dd, mm, pp, limit) for _, b, dd, mm, pp, limit in SHARED_SPLIT_LIMITED]
+    for dt_name, b, dd, mm, pp, limit in cases:
+        dtype = getattr(torch, dt_name)
+        plan = whole_plan = None
+        if limit is not None:
+            plan = wk._shared_plan(b, dd // 2, mm, pp, dtype, smem_limit=limit)
+            whole_plan = wk._shared_plan(b, dd, mm, pp, dtype, smem_limit=limit)
+            if plan.kw >= 8 * -(-mm // 8) or (mm == 1000) != plan.ws:
+                fail(f"the {limit} B split plan {plan} has no rank windows, or not the workspace "
+                     "it should")
+        args = _shared_args(rng, b, dd, mm, pp, dtype, offset=1)
+        tag = f"B={b} d={dd} m={mm} P={pp} {dt_name} in 2 blocks"
+        err = check_shared_split_case(wk, tag, args, 2, plan, whole_plan)
+        print(f"shared-x B2 split [{tag}] plan(W,F,NC,R,kw,ws,smem)="
+              f"{tuple(plan or wk._shared_plan(b, dd // 2, mm, pp, dtype))}: max_abs_err={err:.3e}",
+              flush=True)
+    return rows_out
 
 
 def _split_run(wk, args, blocks, kernel=True, plan=None):
@@ -2010,7 +2186,7 @@ def dim_split_phase(wk):
 
     rng = np.random.default_rng(12)
     B, d, m, N = K * 8, D, M, 5
-    rows_out = dim_split_b2(wk, rng)
+    rows_out = dim_split_b2(wk, rng) + dim_split_shared(wk, rng)
     for dt_name, blocks in DIM_SPLIT_CASES:
         dtype = getattr(torch, dt_name)
         args = _seeded_inputs(rng, B, d, m, N, dtype)
@@ -2174,6 +2350,7 @@ def dim_phase(pt, wk, zoo, smi, main_khats, auto_runs):
         fail(f"dim mesh float64: {int(r64.states.success.sum())}/{K} paths succeeded")
     add(dim_logpdf_path(wk, r64, "float64", smi))
     del r64, u64
+    add(dim_mixture_path(pt, wk, zoo, smi))
     add(dim_optimizer_paths(pt, wk, zoo, smi, auto_runs, timed))
     print(f"dim phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
     return totals
@@ -2229,6 +2406,159 @@ def dim_logpdf_path(wk, res, dt_name, smi):
           f"bitwise equal, wall_s={secs:.3f} launches={ {n: grew[n] for n in split} } card: {smi}",
           flush=True)
     return grew
+
+
+# The mixture denominator and a dense covariance on the dim axis: the headline
+# mixture run's (seed 0) components and pooled draws through dim_map on
+# DIM_MIXTURE_ENTRIES entries of the card, float32 and float64; its sample of
+# DIM_MIXTURE_DRAWS in a group of 2; a dense SPD A at d = 1000, m = 12 on 2
+# entries, its logpdf at and rand_and_logpdf of DIM_MIXTURE_DRAWS columns.
+DIM_MIXTURE_ENTRIES = (2, 4)
+DIM_MIXTURE_DRAWS = 1000
+
+
+def dim_mixture_path(pt, wk, zoo, smi):
+    """The shared-x split on its path: ``UniformMixture.logpdf`` of the
+    headline mixture run's components at its pooled draws ((100, 12, 1000) at
+    d = 1000) through ``dim_map`` on 2 and 4 entries of the card, the leaves
+    placed with d leading by ``shard_dim``, against the port's unsharded
+    ``_log_importance_ratios_mixture`` and the same function unsharded, at the
+    B2 split's tolerances (the components placed whole, their factor too, so
+    that no member factorizes them again); both shared-x split parts launched
+    and the unsplit one not; a repeat bitwise equal. The mixture's ``sample``
+    in a group of 2
+    against the unsharded draws and ids. A dense covariance on 2 entries:
+    ``logpdf`` and ``rand_and_logpdf`` against the unsharded call, a repeat
+    bitwise equal, its peak memory. Returns the launches of the driven runs."""
+    import torch
+
+    from pathfinder_tpu_torch import multipath
+    from pathfinder_tpu_torch.ops.mvnormal import MvNormal, UniformMixture
+    from pathfinder_tpu_torch.ops.woodbury import WoodburyFactor, WoodburyPDMat
+    from pathfinder_tpu_torch.parallel.dim_sharding import dim_map, dim_mesh, shard_dim
+    from pathfinder_tpu_torch.utils import rng
+
+    target = zoo.HierarchicalGaussian(D, seed=0)
+    totals = {name: 0 for name in wk.launch_counts()}
+
+    def driven(fn):
+        """``fn()`` on the card, timed (host clock around a synchronized call),
+        its peak memory and the launches it made added to the totals."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wk.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs, peak, grew = time.perf_counter() - t0, torch.cuda.max_memory_allocated(), wk.launch_counts()
+        for n, c in grew.items():
+            totals[n] += c
+        return out, secs, peak, grew
+
+    def placed_leaves(comps):
+        """The fitted components' leaves with d leading, as ``shard_dim``
+        splits them (the factor's too, so that no member factorizes again)."""
+        cov, F = comps.cov, comps.cov.factor
+        return (comps.mean.mT, cov.A.mT, cov.B.transpose(0, 1), cov.D, F.a_half.mT,
+                F.X.transpose(0, 1), F.C, F.Ci, F.log_det)
+
+    def mixture_of(mean, A, B, D_, a_half, X, C, Ci, log_det):
+        F = WoodburyFactor(a_half.mT, X.transpose(0, 1), C, Ci, log_det)
+        W = WoodburyPDMat(A.mT, B.transpose(0, 1), D_, F)
+        return UniformMixture(MvNormal(mean.mT.contiguous(), W))
+
+    def logq(x, *leaves):
+        return mixture_of(*leaves).logpdf(x)
+
+    stream = rng.Stream(0, 0, 0, rng.RESAMPLE_FRESH)
+
+    def sample(*leaves):
+        return mixture_of(*leaves).sample(stream, DIM_MIXTURE_DRAWS)
+
+    for dt_name in ("float32", "float64"):
+        dtype = getattr(torch, dt_name)
+        f64 = dtype == torch.float64
+        res = pt.multipathfinder(target, 1000, nruns=K, maxiters=64, elbo_chunk=8, seed=0,
+                                 dtype=dtype, importance_denominator="mixture")
+        comps, draws = res.fit_distribution.components, res.draws_per_component  # (K, N, d)
+        x = draws.reshape(-1, D).mT  # the pool (d, K·N), a column's rows side by side
+        leaves = placed_leaves(comps)
+        want = multipath._log_importance_ratios_mixture(comps, draws).reshape(-1)
+        same_fn = logq(x, *leaves)
+        tol = GENERAL_F64_TOL if f64 else SUM_TOL
+        for entries in DIM_MIXTURE_ENTRIES:
+            mesh = dim_mesh(["cuda:0"] * entries)
+            run = dim_map(logq, mesh, out_split=False)
+            placed = shard_dim((x,) + leaves, mesh, dim=D)
+            tag = f"mixture logpdf {dt_name} via dim_map on {entries} entries"
+            got, secs, peak, grew = driven(lambda: run(*placed).gather())
+            if min(grew[n] for n in SHARED_SPLIT_KERNELS) <= 0 or grew["whiten_sumsq_shared"] > 0:
+                fail(f"dim {tag}: the shared-x split parts not launched, or the unsplit one was: "
+                     f"{grew}")
+            err = max(check_close(f"dim {tag} against the unsharded mixture ratios", got, want, tol),
+                      check_close(f"dim {tag} against the same function unsharded", got, same_fn,
+                                  tol))
+            if not torch.equal(run(*placed).gather(), got):
+                fail(f"dim {tag}: a repeat gave other bits")
+            print(f"dim phase [{tag}, B={K} d={D} m={M} P={x.shape[1]}]: max_abs_err={err:.3e} "
+                  f"against the unsharded mixture ratios, repeat bitwise equal, wall_s={secs:.3f} "
+                  f"peak_device_bytes={peak} launches="
+                  f"{ {n: grew[n] for n in SHARED_SPLIT_KERNELS} } card: {smi}", flush=True)
+        mesh = dim_mesh(["cuda:0"] * 2)
+        tag = f"mixture sample {dt_name} in a group of 2"
+        placed = shard_dim(leaves, mesh, dim=D)
+        (got_x, got_k), secs, _, grew = driven(
+            lambda: dim_map(sample, mesh, out_split=(True, False))(*placed))
+        want_x, want_k = sample(*leaves)
+        split = [n + ("_general" if f64 else "") for n in SPLIT_KERNELS]
+        if min(grew[n] for n in split) <= 0:
+            fail(f"dim {tag}: B1's split modes were not launched: {grew}")
+        # the B1 split's tolerance times the components' largest |C|: the core
+        # multiplies t, whose sum over the members runs in another order
+        core = max(1.0, float(comps.cov.factor.C.abs().max()))
+        err = check_close(f"dim {tag} draws", got_x.gather(), want_x,
+                          tuple(core * v for v in (GENERAL_F64_TOL if f64 else X_TOL)))
+        if not torch.equal(got_k.gather(), want_k):
+            fail(f"dim {tag}: the component ids differ from the unsharded ones")
+        print(f"dim phase [{tag}, {DIM_MIXTURE_DRAWS} draws]: max_abs_err={err:.3e} against the "
+              f"unsharded draws (tolerance x{core:.1f}, the largest |C|), ids equal, "
+              f"wall_s={secs:.3f} card: {smi}", flush=True)
+        del res, comps, draws, x, leaves, placed
+
+    g = torch.Generator("cuda").manual_seed(D)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    G = torch.randn((D, D), generator=g, **f64) / D**0.5
+    A = 0.5 * torch.eye(D, **f64) + G @ G.mT
+    base = ((A + A.mT) / 2, torch.randn((D, M), generator=g, **f64) / D**0.5,
+            0.5 * torch.eye(M, **f64), torch.randn(D, generator=g, **f64),
+            torch.randn((D, DIM_MIXTURE_DRAWS), generator=g, **f64))
+    noise = rng.Stream(1, 0, 0, rng.EXTRA)
+
+    def dense(A, B, D_, mean, x):
+        normal = MvNormal(mean, WoodburyPDMat.from_parts(A, B, D_))
+        return (normal.logpdf(x),) + normal.rand_and_logpdf(noise, DIM_MIXTURE_DRAWS)
+
+    mesh = dim_mesh(["cuda:0"] * 2)
+    for dt_name in ("float32", "float64"):
+        dtype = getattr(torch, dt_name)
+        args = tuple(a.to(dtype) for a in base)
+        run = dim_map(dense, mesh, out_split=(False, True, False))
+        placed = shard_dim(args, mesh, dim=D)
+        tag = f"dense covariance {dt_name} via dim_map on 2 entries"
+        got, secs, peak, _ = driven(lambda: [o.gather() for o in run(*placed)])
+        want = dense(*args)
+        big = GENERAL_F64_TOL if dtype == torch.float64 else SUM_TOL
+        err = max(check_close(f"dim {tag} logpdf", got[0], want[0], big),
+                  check_close(f"dim {tag} draws", got[1], want[1],
+                              GENERAL_F64_TOL if dtype == torch.float64 else X_TOL),
+                  check_close(f"dim {tag} logq", got[2], want[2], big))
+        if not all(torch.equal(a, b) for a, b in zip([o.gather() for o in run(*placed)], got)):
+            fail(f"dim {tag}: a repeat gave other bits")
+        print(f"dim phase [{tag}, A ({D}, {D}) m={M}, {DIM_MIXTURE_DRAWS} columns]: "
+              f"max_abs_err={err:.3e} against the unsharded call, repeat bitwise equal, "
+              f"wall_s={secs:.3f} peak_device_bytes={peak} for both members card: {smi}",
+              flush=True)
+    return totals
 
 
 # the dim axis's other optimizers: k̂ of the remedy path's winner on the (1,
@@ -2414,7 +2744,7 @@ def main():
     # the dim phase adds the launches of the split modes only: its other
     # launches (the PSIS tail, float64) belong to paths counted above
     for name, c in dim_phase(pt, wk, zoo, smi, main_khats, auto_runs).items():
-        if name.startswith(SPLIT_KERNELS + B2_SPLIT_KERNELS):
+        if name.startswith(SPLIT_KERNELS + B2_SPLIT_KERNELS + SHARED_SPLIT_KERNELS):
             counts[name] += c
     stamp("the dtype, rank and memory phases")
     t_new = time.perf_counter()
@@ -2478,6 +2808,15 @@ def main():
             head = next(r for r in rows if r["blocks"] == 2)
             summary.append(entry(name + general, source, rows, head,
                                  "sample_and_logq" if name in SPLIT_KERNELS else "whiten_sumsq"))
+    # the shared-x kernel's split parts: the head is the (1, 2) mesh's block of
+    # the mixture shape, 500 rows in float32; bound_ms is its tensor-core bound
+    for name in SHARED_SPLIT_KERNELS:
+        rows = [r for r in split_rows if r["name"] == name and r["dtype"] == "float32"]
+        head = next(r for r in rows if r["blocks"] == 2)
+        item = entry(name, "pathfinder_tpu_torch/csrc/woodbury_shared.cu", rows, head,
+                     "whiten_sumsq")
+        item.update(bound_by="operations", cuda_core_bound_ms=head["cuda_core_bound_us"] / 1e3)
+        summary.append(item)
     for item in summary:
         if item["launches"] <= 0:
             fail(f"{item['name']} was not launched on its path")

@@ -72,6 +72,19 @@
 //             lo product. float64: DMMA (m16n8k8 .f64), exact products.
 //   rank 0    no product: its own instantiation of the streamed loop, ‖v‖²
 //             on the CUDA cores, in chunks of 128 rows.
+//   row split the mesh's dim axis holds a block of d_r rows of x, μ, a½ and X
+//             on each device, and B2's sums over d span the blocks. Two more
+//             parts of the same kernel, each its own instantiation: the
+//             partial runs pass 1 alone over the block's rows and writes t for
+//             every (factor, column) pair, t (B, P, m) in Acc, where the whole
+//             kernel keeps it in shared memory (no Ci staged, no pass 2); the
+//             caller sums t over the blocks. The resume loads the summed t
+//             where pass 1 would leave it, runs passes 2 and 3 over the block's
+//             rows and writes the block's ‖w‖² (B, P) in Acc, unrounded: the
+//             caller sums those and rounds once. At rank 0 the partial has
+//             nothing to form (no launch) and the resume is the block's ‖v‖².
+//             The plan is the whole kernel's at d_r rows, so the order of each
+//             block's sums is fixed as the whole kernel's is.
 //   memory    X's rows go into shared memory with all of m where they fit,
 //             else in windows of kw ranks; t and s live in shared memory, or,
 //             where they do not fit, in a global workspace slice per CTA.
@@ -176,6 +189,9 @@ __host__ __device__ inline int x_col_bytes(int esz, int R) {
 // its fragments formed from the rows as stored; X's ranks in windows,
 // converted to Acc a window at a time.
 constexpr int kRank0 = 0, kOne = 1, kWin = 2;
+// The kernel's parts: the whole B2; its row-split partial (pass 1, t written
+// out) and resume (passes 2 and 3 from the summed t, the block's ‖w‖² in Acc).
+constexpr int kWhole = 0, kPartial = 1, kResume = 2;
 // Whether the group's Ci is staged in shared memory for pass 2 (up to 32 KB
 // of it as stored); above, pass 2 reads it from global memory.
 __host__ __device__ inline int ci_staged(int esz, int F, int m) {
@@ -400,8 +416,11 @@ __device__ long long pfs_steps[2][4];
 // -- the kernel ----------------------------------------------------------------
 
 // Item it of the persistent loop is column tile it % ntiles of factor group
-// it / ntiles. xt: x in the (P, d) layout; M: Ci; maha (B, P). W, F, R, kw as
-// in SLayout; ws: the workspace, or nullptr; MODE: kRank0, kOne or kWin.
+// it / ntiles. xt: x in the (P, d) layout; M: Ci; out: maha (B, P) in T
+// (kWhole), t (B, P, m) in Acc (kPartial) or the block's ‖w‖² (B, P) in Acc
+// (kResume); tin: the summed t (B, P, m) in Acc (kResume). W, F, R, kw as in
+// SLayout; ws: the workspace, or nullptr; MODE: kRank0, kOne or kWin; PART:
+// kWhole, kPartial or kResume.
 //
 // Each pass streams the chunks of R rows; with X's ranks in several windows a
 // chunk takes one step a window. Warp 8 copies: for each step, once the
@@ -413,13 +432,15 @@ __device__ long long pfs_steps[2][4];
 // Two CTAs of 288 threads an SM (three at rank 0). ptxas then gives a thread
 // 96 registers with some spills; a cap of 112 (__maxnreg__) spilled less and
 // ran 1.3-1.5x slower at every rank measured, three CTAs an SM 1.35x slower.
-template <typename T, int MODE>
+template <typename T, int MODE, int PART>
 __global__ void __launch_bounds__(kThreads + 32, MODE == kRank0 ? 3 : 2)
 shared_kernel(const T* __restrict__ xt, const T* __restrict__ a_half, const T* __restrict__ X,
-              const T* __restrict__ M, const T* __restrict__ mu, T* __restrict__ maha, int B,
+              const T* __restrict__ M, const T* __restrict__ mu,
+              const typename Num<T>::Acc* __restrict__ tin, void* __restrict__ out, int B,
               int d, int m, int P, int W, int F, int R, int kw,
               typename Num<T>::Acc* __restrict__ ws) {
   using Acc = typename Num<T>::Acc;
+  static_assert(!(MODE == kRank0 && PART == kPartial), "the rank-0 partial has nothing to form");
   constexpr int ESZ = sizeof(T);
   constexpr bool RANK0 = MODE == kRank0, one = MODE == kOne;
   // X has a TF32 lo part in Acc = float: scaled by 1/a½ in pass 1 whatever T,
@@ -445,7 +466,7 @@ shared_kernel(const T* __restrict__ xt, const T* __restrict__ a_half, const T* _
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
   const int nchunks = (d + R - 1) / R, steps = nchunks * nwin, lgR = __ffs(R) - 1;
   const int ntiles = (P + NC - 1) / NC, items = ntiles * ((B + F - 1) / F);
-  const int passes = RANK0 ? 1 : 2;
+  const int passes = RANK0 || PART != kWhole ? 1 : 2;  // the split parts stream x once
 
   // a stage's buffers
   auto xbuf = [&](int stage) { return smem + L.x + stage * NC * xcb; };
@@ -671,7 +692,7 @@ shared_kernel(const T* __restrict__ xt, const T* __restrict__ a_half, const T* _
     };
 
     // the group's Ci into shared memory (where it fits) while pass 1 runs
-    const bool cis = !RANK0 && ci_staged(ESZ, F, m);
+    const bool cis = !RANK0 && PART != kPartial && ci_staged(ESZ, F, m);
     if (cis)
       for (int f = 0; f < F && b0 + f < B; ++f) {
         uintptr_t lo;
@@ -681,7 +702,17 @@ shared_kernel(const T* __restrict__ xt, const T* __restrict__ a_half, const T* _
           cp_async16(dst + 16 * k, reinterpret_cast<const void*>(lo + 16 * static_cast<uintptr_t>(k)));
       }
 
-    if constexpr (!RANK0) {
+    if constexpr (!RANK0 && PART == kResume) {
+      // the summed t of the item's (factor, column) pairs where pass 1 would
+      // leave it; zeros past m, B and P
+      for (int e = threadIdx.x; e < slots * mp; e += kThreads) {
+        const int p = e / mp, k = e - p * mp, f = p / NC, b = b0 + f, j = col0 + p - f * NC;
+        st[p * ldt + k] =
+            k < m && b < B && j < P ? tin[(static_cast<size_t>(b) * P + j) * m + k] : Acc(0);
+      }
+      compute_sync();
+    }
+    if constexpr (!RANK0 && PART != kResume) {
       // pass 1: tᵀ += Vᵀ X. Item q is (pair, group, k-step share): q % KSPL,
       // then q / KSPL % NG, then q / KSPL / NG.
       Acc acc[kRankTiles][4];
@@ -761,8 +792,20 @@ shared_kernel(const T* __restrict__ xt, const T* __restrict__ a_half, const T* _
         }
         compute_sync();
       }
-      PFS_STAMP(1);
-
+    }
+    if constexpr (!RANK0) PFS_STAMP(1);
+    if constexpr (PART == kPartial) {
+      // t of every (factor, column) pair of the item, (B, P, m) in Acc; the
+      // item ends here
+      Acc* const tout = static_cast<Acc*>(out);
+      for (int e = threadIdx.x; e < slots * m; e += kThreads) {
+        const int p = e / m, k = e - p * m, f = p / NC, b = b0 + f, j = col0 + p - f * NC;
+        if (b < B && j < P) tout[(static_cast<size_t>(b) * P + j) * m + k] = st[p * ldt + k];
+      }
+      compute_sync();  // t is read before the next item writes it
+      continue;
+    }
+    if constexpr (!RANK0) {
       // pass 2: s = Ci t; a thread forms 4 ranks k..k+3 of one slot p = f·NC +
       // col, summing over Ci's columns in order, Ci read from shared memory
       // where it is staged, else from global memory
@@ -913,7 +956,12 @@ shared_kernel(const T* __restrict__ xt, const T* __restrict__ a_half, const T* _
       const int pair = f * CT + col / kColTile;
       Acc tot = sq[pair * S * kColTile + col % kColTile];
       for (int k = 1; k < S; ++k) tot += sq[(pair * S + k) * kColTile + col % kColTile];
-      if (b < B && j < P) maha[static_cast<size_t>(b) * P + j] = Num<T>::narrow(tot);
+      if (b < B && j < P) {
+        if constexpr (PART == kResume)
+          static_cast<Acc*>(out)[static_cast<size_t>(b) * P + j] = tot;  // summed and rounded by the caller
+        else
+          static_cast<T*>(out)[static_cast<size_t>(b) * P + j] = Num<T>::narrow(tot);
+      }
     }
     compute_sync();  // sq, t and s are read before the next item writes them
     PFS_STAMP(4);
@@ -941,32 +989,53 @@ bool plan_ok(const SPlan& p, int B, int d, int m, int P) {
   return p.smem == L.total;
 }
 
-template <typename T, int MODE>
+template <typename T, int MODE, int PART>
 int launch(const SPlan& p, int ctas, const void* xt, const void* a_half, const void* X,
-           const void* M, const void* mu, void* maha, int B, int d, int m, int P, void* ws,
-           cudaStream_t stream) {
+           const void* M, const void* mu, const void* tin, void* out, int B, int d, int m, int P,
+           void* ws, cudaStream_t stream) {
   using Acc = typename Num<T>::Acc;
-  auto kernel = shared_kernel<T, MODE>;
+  auto kernel = shared_kernel<T, MODE, PART>;
   static std::atomic<unsigned long long> ready{0};
   if (const cudaError_t e = allow_max_smem(kernel, ready); e != cudaSuccess) {
     return static_cast<int>(e);
   }
   kernel<<<ctas, kThreads + 32, p.smem, stream>>>(
       static_cast<const T*>(xt), static_cast<const T*>(a_half), static_cast<const T*>(X),
-      static_cast<const T*>(M), static_cast<const T*>(mu), static_cast<T*>(maha), B, d, m, P,
-      p.W, p.F, p.R, p.kw, static_cast<Acc*>(ws));
+      static_cast<const T*>(M), static_cast<const T*>(mu), static_cast<const Acc*>(tin), out, B,
+      d, m, P, p.W, p.F, p.R, p.kw, static_cast<Acc*>(ws));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int PART>
 int checked(const SPlan& p, int ctas, const void* xt, const void* a_half, const void* X,
-            const void* M, const void* mu, void* maha, int B, int d, int m, int P, void* ws,
-            cudaStream_t stream) {
+            const void* M, const void* mu, const void* tin, void* out, int B, int d, int m, int P,
+            void* ws, cudaStream_t stream) {
   if (!plan_ok<T>(p, B, d, m, P) || ctas < 1 || (p.ws != 0) != (ws != nullptr)) return -1;
-  if (m == 0) return launch<T, kRank0>(p, ctas, xt, a_half, X, M, mu, maha, B, d, m, P, ws, stream);
+  if (m == 0) {
+    if constexpr (PART == kPartial) return -1;  // nothing to form: the caller launches nothing
+    else return launch<T, kRank0, PART>(p, ctas, xt, a_half, X, M, mu, tin, out, B, d, m, P, ws, stream);
+  }
   if (p.kw >= rank_pad(m))
-    return launch<T, kOne>(p, ctas, xt, a_half, X, M, mu, maha, B, d, m, P, ws, stream);
-  return launch<T, kWin>(p, ctas, xt, a_half, X, M, mu, maha, B, d, m, P, ws, stream);
+    return launch<T, kOne, PART>(p, ctas, xt, a_half, X, M, mu, tin, out, B, d, m, P, ws, stream);
+  return launch<T, kWin, PART>(p, ctas, xt, a_half, X, M, mu, tin, out, B, d, m, P, ws, stream);
+}
+
+template <int PART>
+int dispatch(int dtype, const SPlan& p, int ctas, const void* xt, const void* a_half,
+             const void* X, const void* M, const void* mu, const void* tin, void* out, int B,
+             int d, int m, int P, void* ws, cudaStream_t stream) {
+  switch (dtype) {
+    case kF32:
+      return checked<float, PART>(p, ctas, xt, a_half, X, M, mu, tin, out, B, d, m, P, ws, stream);
+    case kF64:
+      return checked<double, PART>(p, ctas, xt, a_half, X, M, mu, tin, out, B, d, m, P, ws, stream);
+    case kF16:
+      return checked<__half, PART>(p, ctas, xt, a_half, X, M, mu, tin, out, B, d, m, P, ws, stream);
+    case kBF16:
+      return checked<__nv_bfloat16, PART>(p, ctas, xt, a_half, X, M, mu, tin, out, B, d, m, P, ws,
+                                          stream);
+  }
+  return -1;
 }
 
 }  // namespace
@@ -983,17 +1052,29 @@ int pfs_whiten_sumsq(int dtype, const void* xt, const void* a_half, const void* 
                      const void* mu, void* maha, int B, int d, int m, int P, int W, int F, int R,
                      int kw, int ws_flag, int smem, int ctas, void* ws, cudaStream_t stream) {
   const SPlan p = {W, F, R, kw, ws_flag, smem};
-  switch (dtype) {
-    case kF32:
-      return checked<float>(p, ctas, xt, a_half, X, Ci, mu, maha, B, d, m, P, ws, stream);
-    case kF64:
-      return checked<double>(p, ctas, xt, a_half, X, Ci, mu, maha, B, d, m, P, ws, stream);
-    case kF16:
-      return checked<__half>(p, ctas, xt, a_half, X, Ci, mu, maha, B, d, m, P, ws, stream);
-    case kBF16:
-      return checked<__nv_bfloat16>(p, ctas, xt, a_half, X, Ci, mu, maha, B, d, m, P, ws, stream);
-  }
-  return -1;
+  return dispatch<kWhole>(dtype, p, ctas, xt, a_half, X, Ci, mu, nullptr, maha, B, d, m, P, ws,
+                          stream);
+}
+
+// B2's row-split partial over a shared x on a block of d rows (rank m > 0):
+// t (B, P, m) in the accumulation type. The plan is the whole kernel's at d.
+int pfs_whiten_sumsq_partial(int dtype, const void* xt, const void* a_half, const void* X,
+                             const void* mu, void* t, int B, int d, int m, int P, int W, int F,
+                             int R, int kw, int ws_flag, int smem, int ctas, void* ws,
+                             cudaStream_t stream) {
+  const SPlan p = {W, F, R, kw, ws_flag, smem};
+  return dispatch<kPartial>(dtype, p, ctas, xt, a_half, X, nullptr, mu, nullptr, t, B, d, m, P,
+                            ws, stream);
+}
+
+// Its resume on the block from the summed t (B, P, m): the block's ‖w‖² (B, P)
+// in the accumulation type, unrounded.
+int pfs_whiten_sumsq_resume(int dtype, const void* xt, const void* a_half, const void* X,
+                            const void* Ci, const void* mu, const void* t, void* sums, int B, int d,
+                            int m, int P, int W, int F, int R, int kw, int ws_flag, int smem,
+                            int ctas, void* ws, cudaStream_t stream) {
+  const SPlan p = {W, F, R, kw, ws_flag, smem};
+  return dispatch<kResume>(dtype, p, ctas, xt, a_half, X, Ci, mu, t, sums, B, d, m, P, ws, stream);
 }
 
 

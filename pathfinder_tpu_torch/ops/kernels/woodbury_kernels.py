@@ -50,6 +50,9 @@ whitens the block's rows, ``v_r = (x_r − μ_r)/a½_r``, and writes ``t =
 X_rᵀ v_r``; after the sum over the blocks, :func:`whiten_sumsq_resume`
 forms ``w_r = v_r + X_r (Ci t)`` and writes the block's ``‖w_r‖²`` per
 column, in the accumulation dtype, for the caller to sum over the blocks.
+B2 over an ``x (d_r, P)`` shared by the factors splits the same way on the
+shared-x kernel, in two more parts of it: the partial writes ``t (B, m, P)``
+for every (factor, column) pair, the resume the block's ``‖w_r‖² (B, P)``.
 Each launch's plan is the unsplit plan at ``d_r`` rows.
 """
 
@@ -134,7 +137,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bflo
 
 # launches of each kernel since the last reset, in all and per shape
 # ``(B, m, N, shared)`` (plain-version calls on CPU tensors do not count);
-# ``*_general`` are the general kernel's, ``whiten_sumsq_shared`` the
+# ``*_general`` are the general kernel's, ``whiten_sumsq_shared*`` the
 # shared-x kernel's, ``*_partial`` and ``*_resume`` B1's and B2's two
 # row-split modes
 _launches = {name: 0 for name in (
@@ -142,7 +145,7 @@ _launches = {name: 0 for name in (
     "whiten_sumsq_shared", "sample_and_logq_partial", "sample_and_logq_resume",
     "sample_and_logq_partial_general", "sample_and_logq_resume_general",
     "whiten_sumsq_partial", "whiten_sumsq_resume", "whiten_sumsq_partial_general",
-    "whiten_sumsq_resume_general")}
+    "whiten_sumsq_resume_general", "whiten_sumsq_shared_partial", "whiten_sumsq_shared_resume")}
 _launches_by_shape = {name: collections.Counter() for name in _launches}
 _libs = {}  # source name -> the loaded library
 _lib_logs = {}  # source name -> what nvcc (ptxas -v) said when it built it
@@ -236,7 +239,8 @@ def whiten_sumsq_torch(x, a_half, X, Ci, mu):
 
 def whiten_sumsq_partial_torch(x, a_half, X, mu):
     """B2's partial on a block of rows: ``t = Xᵀ v (..., m, N)``, ``v = (x −
-    μ)/a½``, in the accumulation dtype."""
+    μ)/a½``, in the accumulation dtype; a 2-D ``x (d_r, P)`` is shared by all
+    factors."""
     x, a_half, X, mu = _upcast(x, a_half, X, mu)
     return X.mT @ ((x - mu[..., None]) / a_half[..., None])
 
@@ -703,8 +707,10 @@ def _bind_general(general) -> None:
 
 def _bind_shared(shared) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    shared.pfs_whiten_sumsq.argtypes = [i] + [p] * 6 + [i] * 11 + [p, p]
-    shared.pfs_whiten_sumsq.restype = i
+    for name, pointers in (("pfs_whiten_sumsq", 6), ("pfs_whiten_sumsq_partial", 5),
+                           ("pfs_whiten_sumsq_resume", 7)):
+        getattr(shared, name).argtypes = [i] + [p] * pointers + [i] * 11 + [p, p]
+        getattr(shared, name).restype = i
     for name in ("pfs_col_tile", "pfs_rank_tiles"):
         getattr(shared, name).argtypes = []
         getattr(shared, name).restype = i
@@ -791,15 +797,21 @@ def general_kernel_resources() -> dict:
 
 
 # the shared-x kernel's modes (csrc/woodbury_shared.cu: kRank0, kOne, kWin)
+# and parts (kWhole, kPartial, kResume), the latter by their launch names
 _SHARED_MODES = ("rank 0", "one window", "windows")
+_SHARED_PARTS = ("whiten_sumsq_shared", "whiten_sumsq_shared_partial",
+                 "whiten_sumsq_shared_resume")
 
 
 def shared_kernel_resources() -> dict:
-    """The same for the shared-x source: ``{(dtype, mode): {...}}``, one
-    instantiation a storage dtype and mode (``_SHARED_MODES``)."""
+    """The same for the shared-x source: ``{(name, dtype, mode): {...}}``,
+    one instantiation a part (``name``: the whole B2 or a row-split part),
+    storage dtype and mode (``_SHARED_MODES``)."""
     load_shared_library()
-    return _ptxas_resources(_lib_logs[_SHARED_SOURCE.name], rf"shared_kernelI{_MANGLED}Li(\d)EE",
-                            lambda t, mode: (_MANGLED_DTYPES[t], _SHARED_MODES[int(mode)]))
+    return _ptxas_resources(
+        _lib_logs[_SHARED_SOURCE.name], rf"shared_kernelI{_MANGLED}Li(\d)ELi(\d)EE",
+        lambda t, mode, part: (_SHARED_PARTS[int(part)], _MANGLED_DTYPES[t],
+                               _SHARED_MODES[int(mode)]))
 
 
 def _ptxas_resources(log: str, pattern: str, key_of) -> dict:
@@ -917,9 +929,10 @@ def _shared_ctas(plan: SharedPlan, B: int, P: int, num_sms: int) -> int:
     return min(items, 2 * num_sms) if plan.ws else items
 
 
-def _launch_shared(entry, tensors, device, B, d, m, P, plan=None):
-    """Launch the shared-x kernel on the current stream and count it under
-    ``whiten_sumsq_shared``; ``plan`` defaults to :func:`_shared_plan`."""
+def _launch_shared(entry, tensors, device, B, d, m, P, plan=None, name="whiten_sumsq_shared"):
+    """Launch the shared-x kernel's ``entry`` (the whole B2 or a row-split
+    part) on the current stream and count it under ``name``; ``plan``
+    defaults to :func:`_shared_plan`."""
     dtype = tensors[0].dtype
     plan = plan or _shared_plan(B, d, m, P, dtype)
     ctas = _shared_ctas(plan, B, P, _num_sms(device.index))
@@ -930,8 +943,8 @@ def _launch_shared(entry, tensors, device, B, d, m, P, plan=None):
         code = entry(_DTYPE_CODES[dtype], *pointers, B, d, m, P, plan.W, plan.F, plan.R, plan.kw,
                      int(plan.ws), plan.smem, ctas, None if work is None else work.data_ptr(),
                      stream)
-    _check_code("whiten_sumsq_shared", code, plan)
-    _count("whiten_sumsq_shared", (B, m, P, True))
+    _check_code(name, code, plan)
+    _count(name, (B, m, P, True))
 
 
 def sample_and_logq(u, a_half, X, C, mu, logdet):
@@ -1113,8 +1126,11 @@ def whiten_sumsq_partial(x, a_half, X, mu, d):
 
 
 def _whiten_sumsq_partial_cuda(x, a_half, X, mu, d_full, general=None, plan=None):
-    """B2's partial on the card, routed as :func:`_sample_and_logq_cuda`. At
-    rank 0 there is no ``t`` to form, and nothing is launched."""
+    """B2's partial on the card, routed as :func:`_sample_and_logq_cuda`;
+    over a shared ``x`` on the shared-x kernel. At rank 0 there is no ``t``
+    to form, and nothing is launched."""
+    if x.ndim == 2 and X.ndim > 2:
+        return _whiten_sumsq_shared_partial(x, a_half, X, mu, plan)
     batch, B, d, m, N = _flat_shapes(x, X)
     _check_cuda_args([("x", x, batch + (d, N)), ("a_half", a_half, batch + (d,)),
                       ("X", X, batch + (d, m)), ("mu", mu, batch + (d,))], x.device)
@@ -1147,7 +1163,10 @@ def whiten_sumsq_resume(x, a_half, X, Ci, mu, t, d):
 
 
 def _whiten_sumsq_resume_cuda(x, a_half, X, Ci, mu, t, d_full, general=None, plan=None):
-    """B2's resume on the card, routed as :func:`_sample_and_logq_cuda`."""
+    """B2's resume on the card, routed as :func:`_sample_and_logq_cuda`;
+    over a shared ``x`` on the shared-x kernel."""
+    if x.ndim == 2 and X.ndim > 2:
+        return _whiten_sumsq_shared_resume(x, a_half, X, Ci, mu, t, plan)
     batch, B, d, m, N = _flat_shapes(x, X)
     _check_cuda_args(
         [
@@ -1179,32 +1198,66 @@ def _whiten_sumsq_resume_cuda(x, a_half, X, Ci, mu, t, d_full, general=None, pla
     return sumsq
 
 
-def _whiten_sumsq_shared(x, a_half, X, Ci, mu, plan=None):
-    """B2 with ``x (d, P)`` shared by the factors ``X (..., d, m)``, on the
-    shared-x kernel at every dtype and rank (``plan`` overrides its plan).
-    The kernel reads ``x`` in the ``(P, d)`` layout, a column's rows side by
-    side: an ``x`` that is the transpose of a contiguous ``(P, d)`` block
-    (pooled draws) goes in as it is, any other is transposed once."""
+def _shared_shapes(x, a_half, X, mu, Ci=None):
+    """``(batch, B, d, m, P, xt)`` of B2 over ``x (d, P)`` shared by the
+    factors ``X (..., d, m)``, the arguments checked. The kernel reads ``x``
+    in the ``(P, d)`` layout, a column's rows side by side: an ``x`` that is
+    the transpose of a contiguous ``(P, d)`` block (pooled draws) goes in as
+    it is, any other is transposed once."""
     batch = tuple(X.shape[:-2])
-    B = math.prod(batch)
     d, m = X.shape[-2:]
     P = x.shape[1]
     if d == 0:
         raise ValueError("the kernels need d >= 1")
     xt = x.mT if x.mT.is_contiguous() else x.mT.contiguous()
-    _check_cuda_args(
-        [
-            ("x (transposed)", xt, (P, d)),
-            ("a_half", a_half, batch + (d,)),
-            ("X", X, batch + (d, m)),
-            ("Ci", Ci, batch + (m, m)),
-            ("mu", mu, batch + (d,)),
-        ],
-        x.device,
-    )
+    args = [("x (transposed)", xt, (P, d)), ("a_half", a_half, batch + (d,)),
+            ("X", X, batch + (d, m)), ("mu", mu, batch + (d,))]
+    if Ci is not None:
+        args.append(("Ci", Ci, batch + (m, m)))
+    _check_cuda_args(args, x.device)
+    return batch, math.prod(batch), d, m, P, xt
+
+
+def _whiten_sumsq_shared(x, a_half, X, Ci, mu, plan=None):
+    """B2 with ``x (d, P)`` shared by the factors ``X (..., d, m)``, on the
+    shared-x kernel at every dtype and rank (``plan`` overrides its plan)."""
+    batch, B, d, m, P, xt = _shared_shapes(x, a_half, X, mu, Ci)
     maha = torch.empty(batch + (P,), dtype=x.dtype, device=x.device)
     if B == 0 or P == 0:
         return maha
-    _launch_shared(load_shared_library().pfs_whiten_sumsq, (xt, a_half, X, Ci, mu, maha),
-                   x.device, B, d, m, P, plan)
+    _launch_shared(load_shared_library().pfs_whiten_sumsq, (xt, a_half, X, Ci, mu, maha), x.device,
+                   B, d, m, P, plan)
     return maha
+
+
+def _whiten_sumsq_shared_partial(x, a_half, X, mu, plan=None):
+    """B2's partial over ``x (d_r, P)`` shared by the factors' blocks of rows
+    ``X (..., d_r, m)``: ``t (..., m, P)`` in the accumulation dtype, the
+    transpose of the ``(..., P, m)`` block the kernel writes. At rank 0
+    nothing is launched."""
+    batch, B, d, m, P, xt = _shared_shapes(x, a_half, X, mu)
+    t = torch.empty(batch + (P, m), dtype=_acc_dtype(x.dtype), device=x.device)
+    if B == 0 or P == 0 or m == 0:
+        return t.mT
+    _launch_shared(load_shared_library().pfs_whiten_sumsq_partial, (xt, a_half, X, mu, t), x.device,
+                   B, d, m, P, plan, name="whiten_sumsq_shared_partial")
+    return t.mT
+
+
+def _whiten_sumsq_shared_resume(x, a_half, X, Ci, mu, t, plan=None):
+    """B2's resume over a shared ``x (d_r, P)`` from the summed ``t (..., m,
+    P)`` (accumulation dtype; read in the ``(..., P, m)`` layout, transposed
+    once where it is not the transpose of a contiguous block): the block's
+    ``‖w‖² (..., P)`` in the accumulation dtype."""
+    batch, B, d, m, P, xt = _shared_shapes(x, a_half, X, mu, Ci)
+    acc = _acc_dtype(x.dtype)
+    tt = t.mT if t.mT.is_contiguous() else t.mT.contiguous()
+    _check_cuda_args([("t (transposed)", tt, batch + (P, m))], x.device)
+    if t.dtype != acc:
+        raise TypeError(f"t is {t.dtype}, expected {acc}")
+    sums = torch.empty(batch + (P,), dtype=acc, device=x.device)
+    if B == 0 or P == 0:
+        return sums
+    _launch_shared(load_shared_library().pfs_whiten_sumsq_resume, (xt, a_half, X, Ci, mu, tt, sums),
+                   x.device, B, d, m, P, plan, name="whiten_sumsq_shared_resume")
+    return sums

@@ -4,11 +4,11 @@
 Sampling goes through kernel B1 and the log density through kernel B2
 (``ops/kernels/woodbury_kernels.py``): the kernel on a CUDA tensor, the plain
 torch version on a CPU tensor. A covariance with a dense ``A`` takes the
-plain torch route of ``ops/woodbury.py`` on every device; the kernels are
-written for a diagonal ``A``. Draws are ``(..., n, N)`` column blocks, as in
-the JAX package. Every sampler takes a :class:`~pathfinder_tpu_torch.utils.
-rng.Stream` for its noise, or the noise itself as ``u=`` (tests inject the
-JAX package's draws this way).
+plain torch route of ``ops/woodbury.py`` on every device, in a row group
+too; the kernels are written for a diagonal ``A``. Draws are ``(..., n, N)``
+column blocks, as in the JAX package. Every sampler takes a
+:class:`~pathfinder_tpu_torch.utils.rng.Stream` for its noise, or the noise
+itself as ``u=`` (tests inject the JAX package's draws this way).
 
 Under a row group (``utils/rows.py``, the mesh's ``dim`` axis) a normal
 holds a member's rows: ``dim`` is still the full dimension, a stream gives
@@ -16,9 +16,10 @@ the member its rows of the unsplit noise, and B1 runs split: its partial
 ``(Xᵀu, ‖u‖²)`` on the member's rows, summed over the members, then its
 resume on them. The log density of a per-factor ``x`` runs B2 split the same
 way: its partial ``Xᵀv`` on the member's rows, summed, then its resume,
-whose ``‖w‖²`` on the member's rows is summed too. A 2-D ``x`` shared by
-batched normals (the mixture denominator's kernel) has no split yet and
-raises there.
+whose ``‖w‖²`` on the member's rows is summed too; a 2-D ``x`` shared by
+batched normals (the mixture denominator) on the shared-x kernel's two
+split parts. A mixture's draws take each member's rows of each draw's
+unsplit noise.
 """
 
 from __future__ import annotations
@@ -79,17 +80,16 @@ class MvNormal:
         and is not copied per normal: ``(..., P)``."""
         F = self.cov.factor
         batch = F.X.shape[:-2]
-        if rows.in_group() and x.ndim == 2 and batch:
-            raise NotImplementedError(
-                "MvNormal.logpdf of an x shared by batched normals on the 'dim' mesh axis: "
-                "the shared-x kernel has no split mode yet")
         if not F.diag_A:
             maha = self.cov.invquad(x - self.mean[..., None])
             return -0.5 * (self.dim * _LOG_2PI + F.log_det[..., None] + maha)
         a_half, X, mean = self._kernel_args()
-        if not (x.ndim == 2 and batch):
+        shared = x.ndim == 2 and bool(batch)
+        if not shared:
             x = x.expand(batch + x.shape[-2:]).contiguous()
         if rows.in_group():
+            if shared:  # in the shared-x kernel's (P, d_r) layout once, for both launches
+                x = x.mT.contiguous().mT
             t = rows.sum_rows(whiten_sumsq_partial(x, a_half, X, mean, self.dim))
             maha = rows.sum_rows(whiten_sumsq_resume(x, a_half, X, F.Ci.contiguous(), mean, t,
                                                      self.dim)).to(self.dtype)
@@ -105,18 +105,15 @@ class MvNormal:
         and logq from the already-drawn ``‖u‖²``: no second solve."""
         F = self.cov.factor
         u = self._noise(stream, ndraws, u)
+        if not F.diag_A:
+            x = self.cov.unwhiten(u) + self.mean[..., None]
+            usq = rows.sum_rows(torch.sum(u * u, dim=-2))
+            return x, -0.5 * (self.dim * _LOG_2PI + F.log_det[..., None] + usq)
+        a_half, X, mean = self._kernel_args()
         if rows.in_group():
-            if not F.diag_A:
-                raise NotImplementedError("a dense covariance on the 'dim' mesh axis")
-            a_half, X, mean = self._kernel_args()
             t, usq = rows.sum_rows(*sample_and_logq_partial(u, X, self.dim))
             return sample_and_logq_resume(u, a_half, X, F.C.contiguous(), mean,
                                           F.log_det.contiguous(), t, usq, self.dim)
-        if not F.diag_A:
-            x = self.cov.unwhiten(u) + self.mean[..., None]
-            usq = torch.sum(u * u, dim=-2)
-            return x, -0.5 * (self.dim * _LOG_2PI + F.log_det[..., None] + usq)
-        a_half, X, mean = self._kernel_args()
         return sample_and_logq(
             u, a_half, X, F.C.contiguous(), mean, F.log_det.contiguous()
         )
@@ -151,7 +148,7 @@ class UniformMixture:
 
     @property
     def dim(self) -> int:
-        return self.components.mean.shape[1]
+        return rows.full_dim(self.components.mean.shape[1])
 
     def logpdf(self, x: torch.Tensor) -> torch.Tensor:
         """Mixture log density of the columns of ``x (n, N)``:
@@ -167,11 +164,16 @@ class UniformMixture:
     def sample(self, stream: Stream, ndraws: int):
         """``(draws (n, ndraws), component_ids (ndraws,))`` from the mixture:
         a uniform component per draw, then one draw from it. The ids come
-        from ``stream`` and the noise from its candidate 1."""
+        from ``stream`` and the noise from its candidate 1: draw ``j`` takes
+        elements ``[j·n, (j+1)·n)``. In a row group each member draws the
+        whole ``(ndraws, n)`` noise and keeps its rows of each draw (one
+        stream call; a call for each draw's rows would cost a Philox launch
+        sequence each)."""
         dev = self.components.mean.device
         K = self.ncomponents
         ks = (stream.uniform(ndraws, torch.float64, dev) * K).long().clamp_(max=K - 1)
         noise = dataclasses.replace(stream, candidate=1)
-        u = noise.normal(ndraws * self.dim, self.components.dtype, dev)
-        draws = self.component(ks).sample(u=u.reshape(ndraws, self.dim, 1))
+        n_r, off = self.components.mean.shape[1], rows.row_offset()
+        u = noise.normal(ndraws * self.dim, self.components.dtype, dev).reshape(ndraws, self.dim)
+        draws = self.component(ks).sample(u=u[:, off:off + n_r, None])
         return draws[..., 0].mT, ks

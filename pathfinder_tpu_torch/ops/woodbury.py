@@ -31,8 +31,15 @@ in both.
 Under a row group (``utils/rows.py``: the core's rows split over the mesh's
 ``dim`` axis) the tensors hold a member's rows of ``n``, and every
 reduction over ``n`` (the Gram ``XᵀX``, ``log det A``, ``Xᵀx`` and the
-column sums) is summed over the members. A dense ``A`` has no row split
-and raises there.
+column sums) is summed over the members; ``dim`` is the full ``n``, and
+``to_dense`` and ``entry`` take the full matrix's columns and indices. A
+dense ``A`` comes as the member's rows ``(..., n_r, n)``: its Cholesky
+``Kₐ`` and ``X = Kₐ⁻¹B`` are formed once, whole, on the group's first device
+(``rows.run_on_lead``), and each member keeps its rows of both. ``Kₐ x`` is
+the member's rows of ``Kₐ`` times the gathered ``x``, ``Kₐᵀ x`` a sum over the
+members of ``Kₐ_rᵀ x_r``, and the triangular solves run on the first device
+over the gathered ``Kₐ`` and operand (the unsharded solve's own arithmetic,
+one exchange a solve), where GSPMD partitions them.
 """
 
 from __future__ import annotations
@@ -42,7 +49,14 @@ from typing import Optional
 
 import torch
 
-from pathfinder_tpu_torch.utils.rows import in_group, sum_rows
+from pathfinder_tpu_torch.utils.rows import (
+    full_dim,
+    gather_rows,
+    in_group,
+    row_offset,
+    run_on_lead,
+    sum_rows,
+)
 
 __all__ = [
     "WoodburyFactor",
@@ -82,11 +96,72 @@ def _solve_lower_t(L, B):
     return solve_triangular(L.mT, B, upper=True)
 
 
+def _gathered(x):
+    """The full rows of a row-split column block ``x (..., n_r, N)``: ``(...,
+    n, N)`` on every member (``x`` itself outside a group)."""
+    return gather_rows(x.mT).mT if in_group() else x
+
+
+def _own_rows(x, n_r: int):
+    """The member's rows ``(..., n_r, N)`` of a block ``x (..., n, N)`` of
+    every row."""
+    off = row_offset()
+    return x[..., off:off + n_r, :]
+
+
+def _own_block(M):
+    """The member's diagonal block ``(..., n_r, n_r)`` of its rows ``M (...,
+    n_r, n)`` of an ``n×n`` matrix (all of ``M`` outside a group)."""
+    off = row_offset()
+    return M[..., off:off + M.shape[-2]]
+
+
+def _eye_rows(n_r: int, dtype, device):
+    """The member's rows ``(n_r, n)`` of the ``n×n`` identity."""
+    if not in_group():
+        return torch.eye(n_r, dtype=dtype, device=device)
+    eye = torch.zeros(n_r, full_dim(n_r), dtype=dtype, device=device)
+    _own_block(eye).fill_diagonal_(1.0)
+    return eye
+
+
+def _on_lead(fn, *ts, nout: int = 1):
+    """``fn`` of the whole matrices whose rows the row-split ``ts (..., n_r,
+    k)`` are, run once on the group's first device; the member's rows of each
+    of its ``nout`` outputs ``(..., n, k)``. Outside a group: ``fn(*ts)``.
+    ``rows.run_on_lead`` gathers and splits the last axis, so the rows travel
+    transposed."""
+    if not in_group():
+        return fn(*ts)
+
+    def whole(*tts):
+        out = fn(*(t.mT for t in tts))
+        return out.mT if nout == 1 else tuple(o.mT for o in out)
+
+    out = run_on_lead(whole, *(t.mT for t in ts), split=True if nout == 1 else (True,) * nout)
+    return out.mT.contiguous() if nout == 1 else tuple(o.mT.contiguous() for o in out)
+
+
+def _dense_factor(A, B):
+    """``(Kₐ, X)``: the lower Cholesky factor of a dense ``A`` and ``X =
+    Kₐ⁻¹B``."""
+    a_half = cholesky_or_nan(A)  # lower, A = Kₐ Kₐᵀ
+    return a_half, (_solve_lower(a_half, B) if B.shape[-1] else torch.zeros_like(B))
+
+
+def _dense_inverse(a_half, X):
+    """``(A⁻¹, A⁻¹B)`` of a dense ``A = Kₐ Kₐᵀ`` with ``X = Kₐ⁻¹B``."""
+    eye = torch.eye(a_half.shape[-1], dtype=a_half.dtype, device=a_half.device)
+    ah_inv = _solve_lower(a_half, eye.expand_as(a_half))
+    return ah_inv.mT @ ah_inv, ah_inv.mT @ X
+
+
 @dataclasses.dataclass(frozen=True)
 class WoodburyFactor:
     """Square-root factor ``W = L Lᵀ`` with ``L = A½ (I + X C Xᵀ)``."""
 
-    a_half: torch.Tensor  # (..., n) sqrt(diag A), or (..., n, n) lower Cholesky of A
+    # (..., n) sqrt(diag A), or (..., n, n) lower Cholesky of A (in a group, a member's rows)
+    a_half: torch.Tensor
     X: torch.Tensor  # (..., n, m) A^{-1/2} B, masked columns zeroed
     C: torch.Tensor  # (..., m, m) core of L
     Ci: torch.Tensor  # (..., m, m) core of L⁻¹
@@ -98,16 +173,20 @@ class WoodburyFactor:
 
     # -- A^{±1/2} applications ------------------------------------------------
     def _ah_mul(self, x):
-        return self.a_half[..., None] * x if self.diag_A else self.a_half @ x
+        return self.a_half[..., None] * x if self.diag_A else self.a_half @ _gathered(x)
 
     def _ah_t_mul(self, x):
-        return self.a_half[..., None] * x if self.diag_A else self.a_half.mT @ x
+        if self.diag_A:
+            return self.a_half[..., None] * x
+        if not in_group():
+            return self.a_half.mT @ x
+        return _own_rows(sum_rows(self.a_half.mT @ x), x.shape[-2])  # Σ_j K_jᵀ x_j
 
     def _ah_solve(self, x):
-        return x / self.a_half[..., None] if self.diag_A else _solve_lower(self.a_half, x)
+        return x / self.a_half[..., None] if self.diag_A else _on_lead(_solve_lower, self.a_half, x)
 
     def _ah_t_solve(self, x):
-        return x / self.a_half[..., None] if self.diag_A else _solve_lower_t(self.a_half, x)
+        return x / self.a_half[..., None] if self.diag_A else _on_lead(_solve_lower_t, self.a_half, x)
 
     def _core(self, M, x):
         # x + X (M (Xᵀ x))
@@ -149,10 +228,12 @@ def _apply_mask(B, D, col_mask):
 
 def _is_diag(A, B) -> bool:
     """Whether ``A`` is a diagonal ``(..., n)`` beside ``B (..., n, m)``;
-    raises unless it is that or a dense ``(..., n, n)``."""
+    raises unless it is that or a dense ``(..., n, n)`` (in a row group the
+    member's rows ``(..., n_r, n)``)."""
+    n = B.shape[-2]
     if A.shape == B.shape[:-1]:
         return True
-    if A.shape == B.shape[:-2] + (B.shape[-2],) * 2:
+    if A.shape == B.shape[:-2] + (n, full_dim(n)):
         return False
     raise ValueError(
         f"A must be (..., n) or (..., n, n) matching B {tuple(B.shape)}; "
@@ -194,8 +275,6 @@ def pdfactorize(
             f"D {tuple(D.shape)}"
         )
     diag = _is_diag(A, B)
-    if not diag and in_group():
-        raise NotImplementedError("a dense A on the 'dim' mesh axis: it has no row split")
     dtype = torch.promote_types(torch.promote_types(A.dtype, B.dtype), D.dtype)
     A, B, D = A.to(dtype), B.to(dtype), D.to(dtype)
     m = B.shape[-1]
@@ -205,10 +284,9 @@ def pdfactorize(
         a_half = torch.sqrt(A)
         X = B / a_half[..., None]
         log_det_A = torch.sum(torch.log(A), dim=-1)
-    else:
-        a_half = cholesky_or_nan(A)  # lower, A = Kₐ Kₐᵀ
-        X = _solve_lower(a_half, B) if m else torch.zeros_like(B)
-        log_det_A = 2.0 * torch.sum(torch.log(_diag_of(a_half)), dim=-1)
+    else:  # in a group, whole on the first device; each member keeps its rows
+        a_half, X = _on_lead(_dense_factor, A, B, nout=2)
+        log_det_A = 2.0 * torch.sum(torch.log(_diag_of(_own_block(a_half))), dim=-1)
     if m == 0:
         core0 = torch.zeros(B.shape[:-2] + (0, 0), dtype=dtype, device=B.device)
         return WoodburyFactor(a_half, X, core0, core0, sum_rows(log_det_A))
@@ -259,11 +337,28 @@ def pdunfactorize(F: WoodburyFactor):
         A = F.a_half**2
         B = F.a_half[..., None] * F.X
     else:
-        A = F.a_half @ F.a_half.mT
-        B = F.a_half @ F.X
+        A = _on_lead(lambda L: L @ L.mT, F.a_half)
+        B = F._ah_mul(F.X)
     G = sum_rows(F.X.mT @ F.X)
     D = F.C + F.C.mT + F.C @ G @ F.C.mT
     return A, B, D
+
+
+def _rows_at(*pairs):
+    """Row ``i`` (an index of the full matrix) of each row-split ``T (...,
+    n_r, k)`` of ``pairs`` ``(T, i)``: ``T[..., i, :]``. In a group the member
+    that holds row ``i`` gives it and the others zeros, summed in one exchange,
+    so every member has it."""
+    if not in_group():
+        return tuple(T[..., i, :] for T, i in pairs)
+    off = row_offset()
+    parts = []
+    for T, i in pairs:
+        n_r = T.shape[-2]
+        i = i + full_dim(n_r) if i < 0 else i
+        parts.append(T[..., i - off, :] if off <= i < off + n_r else torch.zeros_like(T[..., 0, :]))
+    out = sum_rows(*parts)
+    return out if isinstance(out, tuple) else (out,)
 
 
 def _block_diag(D1, D2):
@@ -299,39 +394,52 @@ class WoodburyPDMat:
 
     @property
     def dim(self) -> int:
-        return self.B.shape[-2]
+        return full_dim(self.B.shape[-2])
 
     @property
     def dtype(self):
         return self.B.dtype
 
     def _dense_A(self):
-        return torch.diag_embed(self.A) if self.diag_A else self.A
+        """``A`` as ``(..., n, n)``; in a group the member's rows ``(..., n_r,
+        n)``."""
+        if not self.diag_A:
+            return self.A
+        if not in_group():
+            return torch.diag_embed(self.A)
+        out = self.A.new_zeros(self.A.shape + (self.dim,))
+        _diag_of(_own_block(out)).copy_(self.A)
+        return out
+
+    def _A_mul(self, x):
+        return x * self.A[..., None] if self.diag_A else self.A @ _gathered(x)
 
     def to_dense(self) -> torch.Tensor:
-        """``A + B D Bᵀ`` as ``(..., n, n)``."""
-        return self._dense_A() + self.B @ self.D @ self.B.mT
+        """``A + B D Bᵀ`` as ``(..., n, n)``; in a group the member's rows
+        ``(..., n_r, n)``."""
+        return self._dense_A() + self.B @ self.D @ _gathered(self.B).mT
 
     def diag(self) -> torch.Tensor:
         """Diagonal of ``W``: ``(..., n)``."""
-        a = self.A if self.diag_A else _diag_of(self.A)
+        a = self.A if self.diag_A else _diag_of(_own_block(self.A))
         return a + torch.sum((self.B @ self.D) * self.B, dim=-1)
 
     def entry(self, i, j) -> torch.Tensor:
         """Element ``W[i, j]`` of every matrix of the batch, without
-        densifying."""
+        densifying; in a group ``i`` and ``j`` index the full matrix, and every
+        member returns the same value."""
+        A = self.A[..., None] if self.diag_A else self.A
+        Ai, Bi, Bj = _rows_at((A, i), (self.B, i), (self.B, j))
         if self.diag_A:
-            a = self.A[..., i] if i == j else torch.zeros_like(self.A[..., i])
+            a = Ai[..., 0] if i == j else torch.zeros_like(Ai[..., 0])
         else:
-            a = self.A[..., i, j]
-        Bi, Bj = self.B[..., i, :], self.B[..., j, :]
+            a = Ai[..., j]
         return a + torch.sum(Bi * (self.D @ Bj[..., None])[..., 0], dim=-1)
 
     # -- linear algebra -------------------------------------------------------
     def mul(self, x) -> torch.Tensor:
         """``W x`` for ``x (..., n, N)``."""
-        Ax = x * self.A[..., None] if self.diag_A else self.A @ x
-        return Ax + self.B @ (self.D @ sum_rows(self.B.mT @ x))
+        return self._A_mul(x) + self.B @ (self.D @ sum_rows(self.B.mT @ x))
 
     def solve(self, x) -> torch.Tensor:
         """``W⁻¹ x``."""
@@ -351,16 +459,12 @@ class WoodburyPDMat:
             A_inv = 1.0 / self.A
             B_inv = F.X / F.a_half[..., None]
         else:
-            eye = torch.eye(self.dim, dtype=self.dtype, device=self.B.device)
-            ah_inv = _solve_lower(F.a_half, eye.expand_as(F.a_half))
-            A_inv = ah_inv.mT @ ah_inv
-            B_inv = ah_inv.mT @ F.X
+            A_inv, B_inv = _on_lead(_dense_inverse, F.a_half, F.X, nout=2)
         return WoodburyPDMat.from_parts(A_inv, B_inv, D_inv, method=method)
 
     def quad(self, x) -> torch.Tensor:
         """``xᵀ W x`` per column: ``(..., n, N) -> (..., N)``."""
-        Ax = x * self.A[..., None] if self.diag_A else self.A @ x
-        xAx, Bx = sum_rows(torch.sum(x * Ax, dim=-2), self.B.mT @ x)
+        xAx, Bx = sum_rows(torch.sum(x * self._A_mul(x), dim=-2), self.B.mT @ x)
         return xAx + torch.sum(Bx * (self.D @ Bx), dim=-2)
 
     def invquad(self, x) -> torch.Tensor:
@@ -385,7 +489,7 @@ class WoodburyPDMat:
         if self.diag_A:
             A = self.A + c
         else:
-            A = self.A + c * torch.eye(self.dim, dtype=self.dtype, device=self.B.device)
+            A = self.A + c * _eye_rows(self.A.shape[-2], self.dtype, self.B.device)
         return WoodburyPDMat.from_parts(A, self.B, self.D, method=method)
 
     def add(self, other: "WoodburyPDMat", method: str = "chol") -> "WoodburyPDMat":

@@ -10,15 +10,19 @@ function on the blocks as a row group (``utils/rows.py``), launched by the
 executor's own launcher (``parallel/sharding.py:run_row_groups``): one host
 thread a mesh entry, each reduction over ``d`` inside the port's code summed
 over the members in rank order. What runs on the blocks: the Woodbury
-operations, ``MvNormal`` sampling and ``rand_and_logpdf`` (B1 split) and
-``logpdf`` of a per-factor ``x`` (B2 split), and every trajectory optimizer
-(L-BFGS and CG on their rows, BFGS with its inverse Hessian split by rows,
-Newton's Hessian and ``eigh`` and a user callable whole on the first
-device) with every line search. A ``LogDensity`` argument is evaluated
-whole, on the first device. What raises there: a dense covariance, and
-``logpdf`` of one ``x`` shared by batched normals (the mixture
-denominator). ``multipathfinder(mesh=paths_dim_mesh(...))`` splits each
-block's rows the same way (``parallel/sharding.py``).
+operations, with a diagonal or a dense ``A`` (a member holds its rows ``(d_r,
+d)`` of a dense one); ``MvNormal`` sampling and ``rand_and_logpdf`` (B1
+split); ``logpdf`` of a per-factor ``x`` (B2 split per factor) and of one
+``x`` shared by batched normals (the shared-x kernel's split parts), and so
+``UniformMixture.logpdf`` (the mixture denominator) and its ``sample``; and
+every trajectory optimizer (L-BFGS and CG on their rows, BFGS with its
+inverse Hessian split by rows) with every line search. What runs whole, once,
+on the first device, where GSPMD would partition it: a ``LogDensity``
+argument's evaluation, Newton's Hessian and ``eigh``, a user callable, and a
+dense ``A``'s Cholesky and triangular solves (over its gathered rows).
+``multipathfinder(mesh=paths_dim_mesh(...))`` splits each block's rows the
+same way (``parallel/sharding.py``), and gathers the states on the mesh's
+first device for the PSIS tail.
 """
 
 from __future__ import annotations

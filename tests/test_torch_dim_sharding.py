@@ -22,8 +22,8 @@ One case per test of ``tests/test_dim_sharding.py``:
 And the contract of the port's own design: a ``dim`` width of 1 is bitwise
 the ``paths`` mesh run; a repeat is bitwise equal; the plain B1 partial and
 resume over 2, 4 and 8 row blocks agree with the unsplit plain B1 to
-``1e-12``; what is not ported on the axis (an ``x`` shared by batched
-normals, a dense covariance) raises ``NotImplementedError``;
+``1e-12``; what the axis did not run before (an ``x`` shared by batched
+normals, a dense covariance) gives the unsharded values;
 an exception in one member's thread reaches the caller, and a member that
 does not come breaks its peers' barrier at the timeout instead of hanging
 them.
@@ -278,27 +278,32 @@ def test_plain_b1_split_matches_unsplit(blocks):
 
 
 def test_unported_on_the_dim_axis_raises():
-    """What the axis does not run yet: ``logpdf`` of one ``x`` shared by
-    batched normals (the mixture denominator's kernel has no split), and a
-    dense covariance (no row split of a dense A)."""
+    """What the axis did not run before the shared-x kernel had its split
+    parts and a dense A its row split, and raised on: ``logpdf`` of one ``x``
+    shared by batched normals (the mixture denominator's kernel), and a
+    dense covariance. Both now run in the group and return the unsharded
+    values."""
     d, m, two = 8, 2, dim_mesh(["cpu"] * 2)
     f64 = dict(dtype=torch.float64)
-    A_s, B_s, x_s = shard_dim((torch.ones(d, 3, **f64), torch.ones(d, 3, m, **f64) / d,
-                               torch.ones(d, 5, **f64)), two, dim=d)
+    A, B, x = (torch.ones(d, 3, **f64), torch.ones(d, 3, m, **f64) / d,
+               torch.linspace(-1.0, 1.0, d * 5, **f64).reshape(d, 5))
+    A_s, B_s, x_s = shard_dim((A, B, x), two, dim=d)
 
     def shared_logpdf(A, B, x):  # three normals, one x (d_r, 5) shared by them
         W = WoodburyPDMat.from_parts(A.mT, B.transpose(0, 1), torch.eye(m, **f64).expand(3, m, m))
         return MvNormal(torch.zeros(3, A.shape[0], **f64), W).logpdf(x)
 
-    with pytest.raises(NotImplementedError, match="shared by batched normals on the 'dim' mesh"):
-        dim_map(shared_logpdf, two, out_split=False)(A_s, B_s, x_s)
+    got = dim_map(shared_logpdf, two, out_split=False)(A_s, B_s, x_s).gather()
+    np.testing.assert_allclose(got.numpy(), shared_logpdf(A, B, x).numpy(), rtol=1e-12)
 
     def dense(A, B, x):
-        W = WoodburyPDMat.from_parts(torch.eye(A.shape[0], **f64), B[:, 0], torch.eye(m, **f64))
-        return MvNormal(torch.zeros(A.shape[0], **f64), W).logpdf(x)
+        n = A.shape[0]
+        eye = torch.eye(n, rows.full_dim(n), **f64).roll(rows.row_offset(), dims=1)  # I's rows
+        W = WoodburyPDMat.from_parts(eye, B[:, 0], torch.eye(m, **f64))
+        return MvNormal(torch.zeros(n, **f64), W).logpdf(x)
 
-    with pytest.raises(NotImplementedError, match="dense A on the 'dim' mesh axis"):
-        dim_map(dense, two, out_split=False)(A_s, B_s, x_s)
+    got = dim_map(dense, two, out_split=False)(A_s, B_s, x_s).gather()
+    np.testing.assert_allclose(got.numpy(), dense(A, B, x).numpy(), rtol=1e-12)
 
 
 def test_an_exception_in_one_member_reaches_the_caller(monkeypatch):
