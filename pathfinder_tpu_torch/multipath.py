@@ -68,7 +68,7 @@ from pathfinder_tpu_torch.singlepath import (
     uniform_init_sampler,
     validate_dtype,
 )
-from pathfinder_tpu_torch.utils import rng
+from pathfinder_tpu_torch.utils import rng, tracing
 from pathfinder_tpu_torch.utils.misc import indexed_device, resolve_device, tree_map
 from pathfinder_tpu_torch.utils.progress import ThrottledProgress
 
@@ -107,10 +107,12 @@ def _maybe_warn_bad_khat(
     (k̂ > 0.7)."""
     if psis_result is None:
         return
-    verdict = psis_result.diagnosis
+    with tracing.sync("multipath.py"):
+        verdict = psis_result.diagnosis
     if verdict not in ("bad", "very bad"):
         return
-    k = float(psis_result.pareto_shape)
+    with tracing.sync("multipath.py"):
+        k = float(psis_result.pareto_shape)
     warnings.warn(
         f"Pareto k-hat = {k:.2f} ({verdict}): importance weights are "
         "unreliable and resampled draws may misrepresent the target; "
@@ -171,6 +173,7 @@ def _rows(tree, lo: int, hi: int, device):
     return tree_map(lambda t: t[lo:hi].to(device), tree)
 
 
+@tracing.spanned("psis")
 def _compute_psis_result(
     logp: Callable, components: MvNormal, draws_knd: torch.Tensor,
     denominator: str = "component", chunk: Optional[int] = None, device=None,
@@ -297,6 +300,7 @@ class MultiPathfinderResult:
         return out
 
 
+@tracing.spanned("call")
 def multipathfinder(
     fn,
     ndraws: int,
@@ -527,7 +531,8 @@ def multipathfinder(
     num_tries = np.ones(nruns, dtype=np.int64)
     rounds = 1
     while rounds < ntries:
-        failed = ~states.success.cpu().numpy()
+        with tracing.sync("multipath.py"):
+            failed = ~states.success.cpu().numpy()
         if reporter is not None:
             reporter.update(nruns - int(failed.sum()), extra=f"(round {rounds})")
         if not failed.any():
@@ -546,11 +551,13 @@ def multipathfinder(
         states = tree_map(merge, states, retry)
         num_tries[failed] += 1
         rounds += 1
+    n_failed = (~states.success).sum()
+    with tracing.sync("multipath.py"):
+        n_failed = int(n_failed)
     if reporter is not None:
-        reporter.update(nruns - int((~states.success).sum()))
+        reporter.update(nruns - n_failed)
         reporter.close()
 
-    n_failed = int((~states.success).sum())
     if n_failed:
         warnings.warn(
             f"{n_failed} of {nruns} Pathfinder runs failed after {ntries} "
@@ -561,8 +568,8 @@ def multipathfinder(
     draws_knd = states.draws.mT  # (K, N, d), in host memory when offloaded
     psis_result = (
         _compute_psis_result(
-            target.logp, components, draws_knd, denominator=importance_denominator,
-            chunk=device_cap, device=dev,
+            tracing.spanned("target")(target.logp), components, draws_knd,
+            denominator=importance_denominator, chunk=device_cap, device=dev,
         )
         if importance
         else None

@@ -14,6 +14,7 @@ from typing import Callable
 import torch
 
 from pathfinder_tpu_torch.ops.mvnormal import MvNormal
+from pathfinder_tpu_torch.utils import tracing
 from pathfinder_tpu_torch.utils.misc import findmax_skipnan
 
 __all__ = [
@@ -99,7 +100,9 @@ def maximize_elbo_chunked(
     dev = valid_mask.device
     pos = torch.arange(1, num_candidates + 1, device=dev)
     # the cutoff is the last valid index + 1, so scattered masks work too
-    n_valid_cand = int(torch.where(valid_mask, pos, 0).amax())
+    n_valid_cand = torch.where(valid_mask, pos, 0).amax()
+    with tracing.sync("ops/elbo.py"):
+        n_valid_cand = int(n_valid_cand)
     vals = torch.full((K, nchunks * C), torch.nan, dtype=dtype, device=dev)
     ses = torch.full_like(vals, torch.nan)
     for c in range(nchunks):

@@ -72,6 +72,8 @@ from pathlib import Path
 
 import torch
 
+from pathfinder_tpu_torch.utils import tracing
+
 __all__ = [
     "sample_and_logq",
     "sample_and_logq_torch",
@@ -136,48 +138,42 @@ _S_RANK_TILES = 4
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfloat16: 3}
 
 # launches of each kernel since the last reset, in all and per shape
-# ``(B, m, N, shared)`` (plain-version calls on CPU tensors do not count);
-# ``*_general`` are the general kernel's, ``whiten_sumsq_shared*`` the
-# shared-x kernel's, ``*_partial`` and ``*_resume`` B1's and B2's two
-# row-split modes
-_launches = {name: 0 for name in (
+# ``(B, m, N, shared)`` (plain-version calls on CPU tensors do not count):
+# the always-on family ``launch.<kernel>`` of the tracing counters
+# (``utils/tracing.py``), updated from every thread that launches (one per
+# mesh entry); ``*_general`` are the general kernel's,
+# ``whiten_sumsq_shared*`` the shared-x kernel's, ``*_partial`` and
+# ``*_resume`` B1's and B2's two row-split modes
+_KERNELS = (
     "sample_and_logq", "whiten_sumsq", "sample_and_logq_general", "whiten_sumsq_general",
     "whiten_sumsq_shared", "sample_and_logq_partial", "sample_and_logq_resume",
     "sample_and_logq_partial_general", "sample_and_logq_resume_general",
     "whiten_sumsq_partial", "whiten_sumsq_resume", "whiten_sumsq_partial_general",
-    "whiten_sumsq_resume_general", "whiten_sumsq_shared_partial", "whiten_sumsq_shared_resume")}
-_launches_by_shape = {name: collections.Counter() for name in _launches}
+    "whiten_sumsq_resume_general", "whiten_sumsq_shared_partial", "whiten_sumsq_shared_resume")
 _libs = {}  # source name -> the loaded library
 _lib_logs = {}  # source name -> what nvcc (ptxas -v) said when it built it
 _lib_lock = threading.Lock()
-# the counts are updated from every thread that launches (one per mesh entry)
-_count_lock = threading.Lock()
 
 
 def launch_counts() -> dict:
-    with _count_lock:
-        return dict(_launches)
+    totals = tracing.counts(tracing.LAUNCH)
+    return {name: totals.get(tracing.LAUNCH + name, 0) for name in _KERNELS}
 
 
 def launch_counts_by_shape() -> dict:
     """``{kernel: {(B, m, N, shared): launches}}`` since the last reset;
     ``shared`` marks B2 launches over a shared ``x`` of ``N`` columns."""
-    with _count_lock:
-        return {name: dict(c) for name, c in _launches_by_shape.items()}
+    by_shape = tracing.counts_by_key(tracing.LAUNCH)
+    return {name: by_shape.get(tracing.LAUNCH + name, {}) for name in _KERNELS}
 
 
 def reset_launch_counts() -> None:
-    with _count_lock:
-        for name in _launches:
-            _launches[name] = 0
-            _launches_by_shape[name].clear()
+    tracing.reset(tracing.LAUNCH)
 
 
 def _count(name: str, shape: tuple) -> None:
     """One launch of ``name`` at ``shape`` ``(B, m, N, shared)``."""
-    with _count_lock:
-        _launches[name] += 1
-        _launches_by_shape[name][shape] += 1
+    tracing.count(tracing.LAUNCH + name, key=shape)
 
 
 # -- plain versions -----------------------------------------------------------

@@ -22,6 +22,7 @@ from typing import Callable, Optional
 
 import torch
 
+from pathfinder_tpu_torch.utils import tracing
 from pathfinder_tpu_torch.utils.rows import max_rows, sum_rows
 
 __all__ = [
@@ -152,7 +153,10 @@ def hager_zhang_line_search(
 
     while True:
         running = (s["stage"] != _HZ_DONE) & (s["nev"] < max_evals)
-        if not bool(running.any()):
+        more = running.any()
+        with tracing.sync("ops/linesearch.py"):
+            more = bool(more)
+        if not more:
             break
         c = s["c"]
         phi_c, g_c = value_and_grad(x + c[:, None] * p)
@@ -312,7 +316,10 @@ def backtracking_line_search(
     )
     while True:
         running = active & ~s["ok"] & (s["nev"] < max_evals)
-        if not bool(running.any()):
+        more = running.any()
+        with tracing.sync("ops/linesearch.py"):
+            more = bool(more)
+        if not more:
             break
         a = s["a"]
         fa, ga = value_and_grad(x + a[:, None] * p)
@@ -501,7 +508,10 @@ def more_thuente_line_search(
             active & ~s["accepted"] & (s["nev"] < max_evals)
             & (~s["brackt"] | ((s["sty"] - s["stx"]).abs() > 1e-12 * s["stx"].abs()))
         )
-        if not bool(running.any()):
+        more = running.any()
+        with tracing.sync("ops/linesearch.py"):
+            more = bool(more)
+        if not more:
             break
         stp = s["stp"]
         fp, g_p = value_and_grad(x + stp[:, None] * p)
@@ -635,7 +645,10 @@ def wolfe_line_search(
             <= 4 * eps * torch.maximum(s["a_lo"].abs(), s["a_hi"].abs())
         )
         running = (s["stage"] != _DONE) & (s["nev"] < max_evals) & ~collapsed
-        if not bool(running.any()):
+        more = running.any()
+        with tracing.sync("ops/linesearch.py"):
+            more = bool(more)
+        if not more:
             break
         b = s["stage"] == _BRACKET
         # bracket evaluates a_cur; zoom the safeguarded cubic minimizer of [lo, hi]

@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from pathfinder_tpu_torch.ops.psis import PSISResult
+from pathfinder_tpu_torch.utils import tracing
 from pathfinder_tpu_torch.utils.rng import Stream
 
 __all__ = ["resample_indices", "resample_draws"]
@@ -45,15 +46,19 @@ def resample_indices(
         # may add in another order from one call to the next, and a draw whose
         # u lands on a boundary then moves (1 index of 1000 in 1 of 5 K=32768
         # pairs on an H100, PERF.md §7)
-        cdf = torch.cumsum(w.cpu(), dim=0)
-        idx = torch.searchsorted(cdf, (u.cpu() * cdf[-1]).to(cdf.dtype), right=True)
+        with tracing.sync("ops/resample.py"):
+            w, u = w.cpu(), u.cpu()
+        cdf = torch.cumsum(w, dim=0)
+        idx = torch.searchsorted(cdf, (u * cdf[-1]).to(cdf.dtype), right=True)
         return torch.clamp(idx, 0, total - 1).to(device)
     if ndraws > total:
         raise ValueError(f"cannot draw {ndraws} from {total} without replacement")
     if log_weights is not None:
         # Gumbel-top-k fills slots only from positive-weight entries; refuse
         # rather than return zero-probability indices
-        n_support = int(torch.sum(log_weights > -torch.inf))
+        n_support = torch.sum(log_weights > -torch.inf)
+        with tracing.sync("ops/resample.py"):
+            n_support = int(n_support)
         if ndraws > n_support:
             raise ValueError(
                 f"cannot draw {ndraws} without replacement: only {n_support} "
@@ -67,6 +72,7 @@ def resample_indices(
     return torch.argsort(keys, descending=True, stable=True)[:ndraws]
 
 
+@tracing.spanned("resample")
 def resample_draws(
     stream: Optional[Stream],
     draws_per_component: torch.Tensor,  # (K, N, d)

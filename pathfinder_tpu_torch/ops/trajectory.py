@@ -20,6 +20,7 @@ from typing import Callable, Optional
 import torch
 
 from pathfinder_tpu_torch.ops.linesearch import resolve_c1, resolve_line_search
+from pathfinder_tpu_torch.utils import tracing
 from pathfinder_tpu_torch.utils.rows import is_lead, max_rows
 
 __all__ = [
@@ -131,7 +132,10 @@ def minimize_trace(
 
     while True:
         run = (~st["done"]) & (st["it"] < maxiters)
-        if not bool(run.any()):
+        running = run.any()
+        with tracing.sync("ops/trajectory.py"):
+            running = bool(running)
+        if not running:
             break
         it, x, f = st["it"], st["x"], st["f"]
         direction, alpha0, mid = direction_fn(st, gs)

@@ -65,6 +65,7 @@ import torch
 
 from pathfinder_tpu_torch.ops.kernels.woodbury_kernels import load_library
 from pathfinder_tpu_torch.singlepath import SinglePathState, pathfinder_core
+from pathfinder_tpu_torch.utils import tracing
 from pathfinder_tpu_torch.utils.misc import indexed_device, resolve_device, tree_map
 from pathfinder_tpu_torch.utils.rows import RowGroup, row_target
 
@@ -402,18 +403,21 @@ def run_on_devices(devices: list, fn: Callable) -> list:
     devices a thread enters the caller's current stream on every device, so
     that its work and the caller's are ordered on one stream a device; on the
     CPU it takes the caller's intra-op thread count, which a new thread does
-    not inherit. An exception in any call propagates once every call has
-    ended: the first in call order that is not a peer's broken barrier (a
-    row group's members raise ``threading.BrokenBarrierError`` when one of
-    them fails, ``utils/rows.py``). On CUDA devices torch's linear-algebra
-    library is loaded first (:func:`_load_cuda_linalg`)."""
+    not inherit; its tracing spans sit under the caller's open span
+    (``utils/tracing.py``). An exception in any call propagates once every
+    call has ended: the first in call order that is not a peer's broken
+    barrier (a row group's members raise ``threading.BrokenBarrierError``
+    when one of them fails, ``utils/rows.py``). On CUDA devices torch's
+    linear-algebra library is loaded first (:func:`_load_cuda_linalg`)."""
     streams = [torch.cuda.current_stream(d) for d in dict.fromkeys(devices) if d.type == "cuda"]
     threads = torch.get_num_threads()
+    parent = tracing.current()
     if streams and len(devices) > 1:
         _load_cuda_linalg(next(d for d in devices if d.type == "cuda"))
 
     def call(i):
         with contextlib.ExitStack() as stack:
+            stack.enter_context(tracing.adopt(parent))
             if devices[i].type == "cuda":
                 for s in streams:
                     stack.enter_context(torch.cuda.stream(s))

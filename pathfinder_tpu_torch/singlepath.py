@@ -42,7 +42,7 @@ from pathfinder_tpu_torch.ops.lbfgs import (
 )
 from pathfinder_tpu_torch.ops.mvnormal import MvNormal, fit_mvnormal
 from pathfinder_tpu_torch.ops.optimizers import resolve_optimizer
-from pathfinder_tpu_torch.utils import rng, rows
+from pathfinder_tpu_torch.utils import rng, rows, tracing
 from pathfinder_tpu_torch.utils.misc import resolve_device, tree_map
 
 __all__ = [
@@ -155,22 +155,24 @@ def pathfinder_core(
     minimize = resolve_optimizer(cfg.optimizer, target, dim=rows.full_dim(d))
     # progress_every only where asked for: a user optimizer need not take it
     progress = {"progress_every": cfg.progress_every} if cfg.progress_every > 0 else {}
-    trace = minimize(
-        target.value_and_grad,
-        x0s,
-        **progress,
-        maxiters=cfg.maxiters,
-        history_length=cfg.history_length,
-        gtol=cfg.gtol,
-        ftol=cfg.ftol,
-        epsilon_curvature=cfg.epsilon_curvature,
-        max_ls_evals=cfg.max_ls_evals,
-        c1=cfg.c1,
-        c2=cfg.c2,
-        fail_on_nonfinite=cfg.fail_on_nonfinite,
-        line_search=cfg.line_search,
-    )
-    aux = lbfgs_history_aux(trace, cfg.epsilon_curvature)
+    with tracing.span("trajectory"):
+        trace = minimize(
+            tracing.spanned("target")(target.value_and_grad),
+            x0s,
+            **progress,
+            maxiters=cfg.maxiters,
+            history_length=cfg.history_length,
+            gtol=cfg.gtol,
+            ftol=cfg.ftol,
+            epsilon_curvature=cfg.epsilon_curvature,
+            max_ls_evals=cfg.max_ls_evals,
+            c1=cfg.c1,
+            c2=cfg.c2,
+            fail_on_nonfinite=cfg.fail_on_nonfinite,
+            line_search=cfg.line_search,
+        )
+    with tracing.span("fits"):
+        aux = lbfgs_history_aux(trace, cfg.epsilon_curvature)
     L = cfg.maxiters
     N = cfg.ndraws_elbo
     make_chunk_dists = candidate_dists(trace, aux, cfg.history_length)
@@ -178,29 +180,31 @@ def pathfinder_core(
     def noise(cand_idx):
         return elbo_noise(seed, path_ids, round_idx, cand_idx, d, N, dtype, x0s.device)
 
-    best_idx, elbo_values, elbo_se, best_elbo = maximize_elbo_chunked(
-        target.logp,
-        make_chunk_dists,
-        noise,
-        num_candidates=L,
-        chunk_size=min(cfg.elbo_chunk, L),
-        valid_mask=aux.point_mask[:, 1:],
-        dtype=dtype,
-    )
+    with tracing.span("elbo"):
+        best_idx, elbo_values, elbo_se, best_elbo = maximize_elbo_chunked(
+            tracing.spanned("target")(target.logp),
+            tracing.spanned("fits")(make_chunk_dists),
+            noise,
+            num_candidates=L,
+            chunk_size=min(cfg.elbo_chunk, L),
+            valid_mask=aux.point_mask[:, 1:],
+            dtype=dtype,
+        )
     n_valid = trace.num_valid - 1
     success = (n_valid > 0) & ~torch.isnan(best_elbo) & (best_elbo != -torch.inf)
 
-    # rebuild the winner once and replay its ELBO draws from the same stream
-    fit = tree_map(lambda t: t[:, 0], make_chunk_dists(best_idx[:, None]))
-    winner_draws = fit.sample(u=noise(best_idx[:, None])[:, 0])
-    extra_stream = rng.Stream(seed, path_ids, round_idx, rng.EXTRA)
-    if cfg.ndraws <= N:
-        reused = winner_draws[..., : cfg.ndraws]
-    else:
-        extra = fit.sample(extra_stream, cfg.ndraws - N)
-        reused = torch.cat([winner_draws, extra], dim=-1)
-    fresh = fit.sample(extra_stream, cfg.ndraws)
-    draws = torch.where(success[:, None, None], reused, fresh)
+    with tracing.span("winner_draws"):
+        # rebuild the winner once and replay its ELBO draws from the same stream
+        fit = tree_map(lambda t: t[:, 0], make_chunk_dists(best_idx[:, None]))
+        winner_draws = fit.sample(u=noise(best_idx[:, None])[:, 0])
+        extra_stream = rng.Stream(seed, path_ids, round_idx, rng.EXTRA)
+        if cfg.ndraws <= N:
+            reused = winner_draws[..., : cfg.ndraws]
+        else:
+            extra = fit.sample(extra_stream, cfg.ndraws - N)
+            reused = torch.cat([winner_draws, extra], dim=-1)
+        fresh = fit.sample(extra_stream, cfg.ndraws)
+        draws = torch.where(success[:, None, None], reused, fresh)
 
     return SinglePathState(
         success=success,
@@ -458,13 +462,17 @@ def pathfinder(
             x0 = sampler(rng.Stream(seed, path0, rnd, rng.INIT), d, dtype, dev)
         return core(target, x0, config, seed, path0, rnd)
 
+    def succeeded(state) -> bool:
+        with tracing.sync("singlepath.py"):
+            return bool(state.success[0])
+
     itry = 1
     state = attempt(itry)
-    while not bool(state.success[0]) and itry < ntries:
+    while not succeeded(state) and itry < ntries:
         itry += 1
         state = attempt(itry)
 
-    success = bool(state.success[0])
+    success = succeeded(state)
     if not success:
         warnings.warn(
             f"Pathfinder failed after {itry} tries. Increase `ntries`, inspect "
