@@ -33,11 +33,18 @@ Phases, each of which fails the run (exit code 1) on any error:
    float32 shapes, with X's ranks in windows and its sums in the workspace,
    where draws lie 30 sd out along a factor's widest direction, and at
    serving scale, (1024, 12, 5120), checked in column blocks of 512 that
-   each give the whole launch's bits.
+   each give the whole launch's bits. Then the Hager-Zhang state-update
+   kernel (``csrc/linesearch_kernels.cu``) against its plain version at the
+   main path's shapes (100 lanes of d = 1000) in float64 and float32, and on
+   the (1, 2) mesh's two row blocks: a whole search on the headline target,
+   every state entry, the trial point and the flag bit for bit after every
+   evaluation; one step timed on the card and on the host beside the plain
+   step, and its bound.
 3. The main path: ``multipathfinder`` on ``HierarchicalGaussian(1000)`` with
    100 paths for 5 seeds (the headline configuration), with every path
-   succeeding, finite draws and k̂, both kernels launched in every run (the
-   launches printed per kernel and shape (B, N)), the median k̂ and moment
+   succeeding, finite draws and k̂, both kernels and the line-search kernel
+   launched in every run (the launches printed per kernel and shape (B, N)),
+   the median k̂ and moment
    error inside the band of the JAX package, and bitwise-identical draws
    when a seed is repeated.
 4. The remedy path on the same target: ``optimizer="auto",
@@ -144,7 +151,9 @@ Phases, each of which fails the run (exit code 1) on any error:
    and one single-path call each in bfloat16 and float16 with the JAX
    package's warning and outcome; each run launches the general kernel and
    never the fast one, and the earlier float32 phases never launch the
-   general one.
+   general one. The float64 runs and the dim axis's headline runs launch the
+   line-search kernel; the 16-bit runs never do (their searches take the
+   plain step).
 11. The memory rule: a chunked BFGS run and a blocked ``laplace_resample``
    at d = 1000 under the rule's own choice, each estimate at least the
    measured peak and at most twice it.
@@ -881,7 +890,7 @@ def main_path_phase(pt, wk, zoo):
     target = zoo.HierarchicalGaussian(D, seed=0)
     mean_t, sd_t = zoo.hierarchical_gaussian_truth(D, seed=0)
 
-    totals = {name: 0 for name in wk.launch_counts()}
+    totals = dict({name: 0 for name in wk.launch_counts()}, hz_step=0)
 
     def run(seed):
         wk.reset_launch_counts()
@@ -889,7 +898,7 @@ def main_path_phase(pt, wk, zoo):
         res = pt.multipathfinder(target, 1000, nruns=K, maxiters=64, elbo_chunk=8, seed=seed)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        grew = wk.launch_counts()
+        grew = dict(wk.launch_counts(), hz_step=_hz_launches())
         by_shape = {n: {f"B={b},m={m},N={n_}": c for (b, m, n_, _), c in sorted(v.items())}
                     for n, v in wk.launch_counts_by_shape().items()}
         for n in totals:
@@ -900,7 +909,7 @@ def main_path_phase(pt, wk, zoo):
     for seed in SEEDS:
         res, secs, grew, by_shape = run(seed)
         khat, merr = _check_result(f"seed {seed}", res, mean_t, sd_t)
-        if min(grew[n] for n in FAST_KERNELS) <= 0:
+        if min(grew[n] for n in FAST_KERNELS + ("hz_step",)) <= 0:
             fail(f"seed {seed}: a kernel was not launched on the main path: {grew}")
         draws = res.draws.double().cpu().numpy()
         sderr = float(np.max(np.abs(draws.std(axis=1) - sd_t) / sd_t))
@@ -1598,8 +1607,11 @@ def float64_phase(pt, wk, zoo):
             target, 1000, nruns=K, maxiters=64, elbo_chunk=8, seed=seed, dtype=torch.float64))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        hz = _hz_launches()
         for n, c in grew.items():
             totals[n] += c
+        if hz <= 0:
+            fail(f"float64 seed {seed}: the line-search kernel was not launched")
         if res.draws.dtype != torch.float64:
             fail(f"float64 seed {seed}: draws are {res.draws.dtype}")
         khat, merr = _check_result(f"float64 seed {seed}", res, mean_t, sd_t)
@@ -1607,7 +1619,7 @@ def float64_phase(pt, wk, zoo):
         print(f"float64 headline seed={seed}: paths_ok={K}/{K} khat={khat:.4f} "
               f"moment_err_mean_sd_units={merr:.4f} "
               f"logp_grad_evals={int(res.states.num_fn_evals.sum())} wall_s={secs:.3f} "
-              f"launches={grew}", flush=True)
+              f"launches={grew} hz_step_launches={hz}", flush=True)
         khats.append(khat)
         merrs.append(merr)
     med_k, med_m = statistics.median(khats), statistics.median(merrs)
@@ -1654,9 +1666,12 @@ def low_precision_phase(pt, wk, zoo):
                 except Exception as e:  # the outcome is the exception's type
                     outcome, res = type(e), e
             torch.cuda.synchronize()
-            grew = wk.launch_counts()
+            grew, hz = wk.launch_counts(), _hz_launches()
             for n, c in grew.items():
                 totals[n] += c
+            if hz:  # 16-bit searches update their state by the plain step
+                fail(f"{dt_name} {label}: the line-search kernel launched {hz} times; it takes "
+                     f"float32 and float64 only")
             warned = any("optimization state is almost always" in str(w.message) for w in caught)
             print(f"{dt_name} {label}: outcome={getattr(outcome, '__name__', outcome)} "
                   f"({str(res)[:120] if isinstance(res, Exception) else 'ran to its end'}) "
@@ -2279,6 +2294,8 @@ def dim_phase(pt, wk, zoo, smi, main_khats, auto_runs):
         for n, c in grew.items():
             totals[n] += c
 
+    hz = {}  # label -> the line-search kernel's launches (each member launches its own)
+
     def timed(label, count=True, target=target, **options):
         wk.reset_launch_counts()
         torch.cuda.synchronize()
@@ -2288,14 +2305,14 @@ def dim_phase(pt, wk, zoo, smi, main_khats, auto_runs):
         res = pt.multipathfinder(target, 1000, **options)
         torch.cuda.synchronize()
         secs, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
-        grew = wk.launch_counts()
+        grew, hz[label] = wk.launch_counts(), _hz_launches()
         if count:
             add(grew)
         print(f"dim phase [{label}]: wall_s={secs:.3f} peak_device_bytes={peak} "
               f"paths_ok={int(res.states.success.sum())}/{res.states.success.numel()} "
               f"khat={float(res.psis_result.pareto_shape):.4f} "
               f"split_launches={ {n: c for n, c in grew.items() if n.startswith(SPLIT_KERNELS) and c} } "
-              f"card: {smi}", flush=True)
+              f"hz_step_launches={hz[label]} card: {smi}", flush=True)
         return res, grew
 
     khats, merrs, first = [], [], {}
@@ -2307,6 +2324,8 @@ def dim_phase(pt, wk, zoo, smi, main_khats, auto_runs):
             khat, merr = _check_result(f"dim mesh {shape} seed {seed}", res, mean_t, sd_t)
             if min(grew[n] for n in SPLIT_KERNELS) <= 0:
                 fail(f"dim mesh {shape} seed {seed}: a split kernel was not launched: {grew}")
+            if hz[f"mesh {shape} seed {seed}"] <= 0:
+                fail(f"dim mesh {shape} seed {seed}: the line-search kernel was not launched")
             print(f"dim phase [mesh {shape} seed {seed}]: khat={khat:.4f} (no mesh "
                   f"{main_khats[seed]:.4f}) moment_err_mean_sd_units={merr:.4f} "
                   f"logp_grad_evals={int(res.states.num_fn_evals.sum())}", flush=True)
@@ -2340,6 +2359,8 @@ def dim_phase(pt, wk, zoo, smi, main_khats, auto_runs):
 
     r64, _ = timed("float64 mesh (1, 2) seed 0", mesh=pt.paths_dim_mesh(1, ["cuda:0"] * 2),
                    seed=0, dtype=torch.float64)
+    if hz["float64 mesh (1, 2) seed 0"] <= 0:
+        fail("dim mesh float64: the line-search kernel was not launched")
     u64, _ = timed("float64 no mesh seed 0", count=False, seed=0, dtype=torch.float64)
     same = int((r64.states.fit_iteration == u64.states.fit_iteration).sum())
     gap = float((r64.states.fit_distribution.mean - u64.states.fit_distribution.mean).abs().max())
@@ -2673,6 +2694,173 @@ def dim_optimizer_paths(pt, wk, zoo, smi, auto_runs, timed):
     return totals
 
 
+def _hz_launches() -> int:
+    """The Hager-Zhang state-update kernel's launches since the launch
+    counters' last reset (``wk.reset_launch_counts`` resets them all)."""
+    from pathfinder_tpu_torch.ops.kernels import linesearch_kernels as lk
+    from pathfinder_tpu_torch.utils import tracing
+
+    return tracing.counts(lk.COUNTER).get(lk.COUNTER, 0)
+
+
+def _same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits (NaNs and signed zeros included)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+    if a.dtype in ints:
+        a, b = a.contiguous().view(ints[a.dtype]), b.contiguous().view(ints[b.dtype])
+    return torch.equal(a, b)
+
+
+# the line-search kernel's searches: each lane's first trial step is one of
+# these, in turn (the line-search tests' first steps), so that lanes expand,
+# take secants, bisect and back off from non-finite values; one lane in 11
+# is left out; the (1, 2) mesh's row blocks
+HZ_STEPS = (1.0, 1e-3, 0.3, 7.0, 60.0, 1e-6, 1e4)
+HZ_BLOCKS = 2
+
+
+def hz_step_phase(pt, zoo):
+    """The Hager-Zhang state-update kernel (``csrc/linesearch_kernels.cu``)
+    against its plain version ``_hz_step_torch`` at the main path's shapes,
+    K = 100 lanes of d = 1000, in float64 and float32: a whole search on the
+    headline target driven with both steps from the same state, after every
+    evaluation every state entry, the trial point and the flag bit for bit,
+    then the search's results; beside it the kernel launched on each of the
+    (1, 2) mesh's row blocks (500 rows, the whole lanes' scalars and the
+    full dφ, as a row group's member launches it), each block's rows and
+    every scalar against the plain version's. Then one step at (100, 1000)
+    on the card (CUDA events behind a sleep, so the host has queued every
+    step before the first starts) and on the host, beside the plain step,
+    and the kernel's bound: x and p read, the trial point written, the
+    state's rows read and written, once each."""
+    import torch
+
+    from pathfinder_tpu_torch.ops import linesearch as tls
+    from pathfinder_tpu_torch.ops.kernels import linesearch_kernels as lk
+
+    target = zoo.HierarchicalGaussian(D, seed=0)
+
+    def vg(z):  # the search minimizes -logp, as the optimizers give it
+        lp, g = target.value_and_grad(z)
+        return -lp, -g
+
+    def device_us(fn, reps, sleep_cycles):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()  # the sleep still ran: every step was queued behind it
+        torch.cuda.synchronize()
+        return 1e3 * start.elapsed_time(end) / reps, queued
+
+    def host_us(fn, reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        secs = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return 1e6 * secs / reps
+
+    rows_out = []
+    r = D // HZ_BLOCKS
+    cols = [slice(j * r, (j + 1) * r) for j in range(HZ_BLOCKS)]
+    c1 = tls.resolve_c1(None, "hager_zhang")
+    for dtype in (torch.float64, torch.float32):
+        dt_name = str(dtype).split(".")[-1]
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(2**33 + 41)
+        x = (torch.rand(K, D, generator=gen, device="cuda", dtype=dtype) * 2 - 1) * 2.0
+        f0, g0 = vg(x)
+        p = -g0
+        alpha0 = torch.tensor(HZ_STEPS, dtype=dtype, device="cuda").repeat(K)[:K]
+        active = torch.arange(K, device="cuda") % 11 != 10
+
+        def start():
+            return tls._hz_start(x, f0, g0, p, alpha0, active, c1, 0.9, 12, 5.0, 1e-6, 0.66, 0.5)
+
+        plain, k = start()
+        whole = lk.pack(plain, k)
+        blocks = [lk.pack(dict(plain, g_a=plain["g_a"][:, c], g_acc=plain["g_acc"][:, c]), k)
+                  for c in cols]
+        more = bool(tls._hz_running(plain, k.max_evals).any())
+        x_c = x + plain["c"][:, None] * p
+        evals, stages = 0, set()
+        while more:
+            phi_c, g_c = vg(x_c)
+            dphi_c = torch.sum(g_c * p, dim=-1)
+            plain, x_p, more_p = tls._hz_step_torch(plain, phi_c, g_c, dphi_c, x, p, k)
+            whole, x_k, more_k = lk.step(whole, phi_c, g_c, dphi_c, x, p, k)
+            parts = [lk.step(b, phi_c, g_c[:, c], dphi_c, x[:, c], p[:, c], k)
+                     for b, c in zip(blocks, cols)]
+            blocks = [b for b, _, _ in parts]
+            evals += 1
+            more = bool(more_p)
+            tag = f"hz_step {dt_name} evaluation {evals}"
+            if bool(more_k) != more or any(bool(flag) != more for _, _, flag in parts):
+                fail(f"{tag}: the kernel's flag differs from the plain version's")
+            if not _same_bits(x_k, x_p) or not _same_bits(
+                    torch.cat([xb for _, xb, _ in parts], 1), x_p):
+                fail(f"{tag}: the trial point differs from the plain version's")
+            for key, want in plain.items():
+                got = [whole[key]]
+                if want.dim() == 2:  # g_a, g_acc: each block holds its rows
+                    got.append(torch.cat([b[key] for b, _, _ in parts], 1))
+                else:
+                    got += [b[key] for b, _, _ in parts]
+                if not all(_same_bits(t, want) for t in got):
+                    fail(f"{tag}: state entry {key} differs from the plain version's")
+            stages.update(plain["stage"].tolist())
+            x_c = x_p
+        want, got = tls._hz_result(plain, k, g0), tls._hz_result(whole, k, g0)
+        for field in ("step_size", "f", "g", "num_evals", "ok", "exhausted"):
+            if not _same_bits(getattr(got, field), getattr(want, field)):
+                fail(f"hz_step {dt_name}: the search's {field} differs from the plain version's")
+        if evals < 2:
+            fail(f"hz_step {dt_name}: the search ended after {evals} evaluation")
+
+        # one step at a search's first evaluation, every active lane running
+        s0, k0 = start()
+        x_c = x + s0["c"][:, None] * p
+        phi_c, g_c = vg(x_c)
+        dphi_c = torch.sum(g_c * p, dim=-1)
+        fused = lk.pack(s0, k0)
+        item = torch.finfo(dtype).bits // 8
+        steps = {"kernel": lambda: lk.step(fused, phi_c, g_c, dphi_c, x, p, k0),
+                 "plain": lambda: tls._hz_step_torch(s0, phi_c, g_c, dphi_c, x, p, k0)}
+        times = {}
+        for name, fn in steps.items():
+            fn()  # the library's and each eager op's first launch
+            host = host_us(fn, 200 if name == "kernel" else 50)
+            # the card's launch queue holds about a thousand launches: the
+            # plain step's ≈ 175 ops fit behind the sleep 4 steps at a time;
+            # a sleep of 1.5 times the host's time for the steps, at 2 GHz
+            reps = 200 if name == "kernel" else 4
+            dev, queued = device_us(fn, reps, int(3e3 * host * reps) + 10**7)
+            if not queued:
+                fail(f"hz_step {dt_name} {name}: the steps were not all queued behind the sleep")
+            times[name] = (host, dev)
+        moved = item * (3 * K * D + (2 * len(lk.FIELDS) + len(lk.CONSTANTS) + 2) * K) + 8 * 4 * K
+        bound = 1e6 * moved / HBM_BYTES_PER_S
+        (host, dev), (plain_host, plain_dev) = times["kernel"], times["plain"]
+        rows_out.append(dict(name="hz_step", dtype=dt_name, err=0.0, ms=dev / 1e3,
+                             plain_ms=plain_dev / 1e3, host_us=host, plain_host_us=plain_host,
+                             bound_us=bound, bound_by="bytes"))
+        print(f"kernel hz_step [{dt_name} K={K} d={D}, and {HZ_BLOCKS} row blocks of {r}]: "
+              f"{evals} evaluations bit for bit at every state entry, trial point and flag "
+              f"(stages seen {sorted(stages)}); one step: card {dev:.3f} us, host {host:.2f} us; "
+              f"the plain step: card {plain_dev:.2f} us, host {plain_host:.2f} us; "
+              f"bound_us={bound:.3f} (bytes) share={bound / dev:.3f}", flush=True)
+    return rows_out
+
+
 def main():
     try:
         import torch
@@ -2687,6 +2875,7 @@ def main():
     try:
         import pathfinder_tpu_torch as pt
         from pathfinder_tpu_torch.models import zoo
+        from pathfinder_tpu_torch.ops.kernels import linesearch_kernels as lk
         from pathfinder_tpu_torch.ops.kernels import woodbury_kernels as wk
     except ImportError as e:
         fail(f"the port is not beside this script: {e}")
@@ -2703,6 +2892,7 @@ def main():
 
     t_start = t0 = time.perf_counter()
     wk.load_library()
+    lk.load_library()
     print(f"build: kernels built and loaded in {time.perf_counter() - t0:.2f}s", flush=True)
 
     def stamp(name):
@@ -2715,6 +2905,8 @@ def main():
     shared_rows = shared_kernel_phase(wk)
     stamp("the split kernel phase")
     split_rows = dim_split_phase(wk)
+    stamp("the line-search kernel phase")
+    hz_rows = hz_step_phase(pt, zoo)
     if "--kernels-only" in sys.argv[1:]:  # for work on the kernels: stop after their phase
         print("kernel phase passed; stopping before the model phases", flush=True)
         return
@@ -2817,6 +3009,17 @@ def main():
                      "whiten_sumsq")
         item.update(bound_by="operations", cuda_core_bound_ms=head["cuda_core_bound_us"] / 1e3)
         summary.append(item)
+    # the Hager-Zhang state update: the head is the benchmark's float64 step at
+    # (100, 1000); the launches the main path's (float32); bit for bit
+    head = next(r for r in hz_rows if r["dtype"] == "float64")
+    summary.append({
+        "name": "hz_step", "route": "cuda", "source": "pathfinder_tpu_torch/csrc/linesearch_kernels.cu",
+        "replaces": "pathfinder_tpu_torch/ops/linesearch.py:_hz_step_torch (the port's own: the "
+                    "JAX package's search is compiled by XLA)",
+        "launches": counts["hz_step"], "max_abs_err": 0.0, "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_us"] / 1e3, "bound_by": "bytes",
+        "library_ms": None, "host_us": head["host_us"], "plain_host_us": head["plain_host_us"],
+    })
     for item in summary:
         if item["launches"] <= 0:
             fail(f"{item['name']} was not launched on its path")

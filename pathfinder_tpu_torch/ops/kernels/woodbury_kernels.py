@@ -717,17 +717,17 @@ def _bind_shared(shared) -> None:
 _BINDERS = {_SOURCE: _bind_fast, _GENERAL_SOURCE: _bind_general, _SHARED_SOURCE: _bind_shared}
 
 
-def _load_all(sources=(_SOURCE, _GENERAL_SOURCE, _SHARED_SOURCE)) -> None:
+def _load_all(binders=_BINDERS) -> None:
     """Build (once per source and flags, all at once) and load the libraries
-    of ``sources`` not loaded yet."""
+    of the sources of ``binders`` (``{source: its binder}``) not loaded yet."""
     with _lib_lock:
-        todo = [src for src in sources if src.name not in _libs]
+        todo = [src for src in binders if src.name not in _libs]
         if not todo:
             return
         _build(todo)
         for src in todo:
             lib = ctypes.CDLL(str(_library_path(src)))
-            _BINDERS[src](lib)
+            binders[src](lib)
             log = _library_path(src).with_suffix(".log")
             _lib_logs[src.name] = log.read_text() if log.exists() else ""
             _libs[src.name] = lib
@@ -742,13 +742,13 @@ def load_library() -> ctypes.CDLL:
 
 def load_general_library() -> ctypes.CDLL:
     """Build and load the general kernel's library; returns it."""
-    _load_all((_GENERAL_SOURCE,))
+    _load_all({_GENERAL_SOURCE: _bind_general})
     return _libs[_GENERAL_SOURCE.name]
 
 
 def load_shared_library() -> ctypes.CDLL:
     """Build and load the shared-x kernel's library; returns it."""
-    _load_all((_SHARED_SOURCE,))
+    _load_all({_SHARED_SOURCE: _bind_shared})
     return _libs[_SHARED_SOURCE.name]
 
 

@@ -18,10 +18,11 @@ Shapes: ``x``, ``g0``, ``direction`` ``(K, d)``; ``f0``, ``alpha0``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from pathfinder_tpu_torch.ops.kernels import linesearch_kernels
 from pathfinder_tpu_torch.utils import tracing
 from pathfinder_tpu_torch.utils.rows import max_rows, sum_rows
 
@@ -104,6 +105,188 @@ def _where(mask, new: dict, old: dict) -> dict:
     return out
 
 
+class _HZConst(NamedTuple):
+    """A Hager-Zhang search's constants: φ(0), φ'(0) and ε|φ(0)| of each
+    lane, and its settings."""
+
+    f0: torch.Tensor
+    dphi0: torch.Tensor
+    eps_k: torch.Tensor
+    delta: float
+    sigma: float
+    gamma: float
+    theta: float
+    expand: float
+    max_evals: int
+
+
+def _hz_running(s: dict, max_evals: int) -> torch.Tensor:
+    """The lanes that evaluate next: not done, and within the budget."""
+    return (s["stage"] != _HZ_DONE) & (s["nev"] < max_evals)
+
+
+def _hz_step_torch(s: dict, phi_c, g_c, dphi_c, x, p, k: _HZConst) -> tuple:
+    """One Hager-Zhang evaluation's state update in plain torch: from the
+    state ``s`` and the values ``φ(c)``, ``∇f(x + c p)`` and ``φ'(c)`` at
+    its trial steps, ``(the new state, the next trial point x + c p of
+    every lane, whether any lane runs on)``. A lane that did not run keeps
+    its state. The kernel ``ops/kernels/linesearch_kernels.step`` gives the
+    same bits on the card."""
+    running = _hz_running(s, k.max_evals)
+    f0, dphi0, eps_k = k.f0, k.dphi0, k.eps_k
+    delta, sigma = k.delta, k.sigma
+    c = s["c"]
+    nev = s["nev"] + 1
+    bad = ~(torch.isfinite(phi_c) & torch.isfinite(dphi_c))
+
+    wolfe = (phi_c <= f0 + delta * c * dphi0) & (dphi_c >= sigma * dphi0)
+    approx = (
+        (phi_c <= f0 + eps_k)
+        & (dphi_c >= sigma * dphi0)
+        & (dphi_c <= (2.0 * delta - 1.0) * dphi0)
+    )
+    accept = (~bad) & (c > 0) & (wolfe | approx)
+
+    upd_b = (~bad) & (dphi_c >= 0)
+    upd_a = (~bad) & (~upd_b) & (phi_c <= f0 + eps_k)
+    upd_u3 = (~bad) & (~upd_b) & (~upd_a)
+
+    stage = s["stage"]
+    in_bracket = stage == _HZ_BRACKET
+    in_u3 = stage == _HZ_U3
+    in_sec1 = stage == _HZ_SECANT1
+    in_sec2 = (stage == _HZ_SECANT2) | (stage == _HZ_BISECT_G)
+
+    new_a = torch.where(upd_a, c, s["a"])
+    new_phi_a = torch.where(upd_a, phi_c, s["phi_a"])
+    new_dphi_a = torch.where(upd_a, dphi_c, s["dphi_a"])
+    new_g_a = torch.where(upd_a[:, None], g_c, s["g_a"])
+    move_b = upd_b | upd_u3
+    new_b = torch.where(move_b, c, s["b"])
+    new_phi_b = torch.where(move_b, phi_c, s["phi_b"])
+    new_dphi_b = torch.where(move_b, dphi_c, s["dphi_b"])
+
+    width_new = (new_b - new_a).abs()
+    gamma_ok = width_new <= k.gamma * (s["b0"] - s["a0"]).abs()
+
+    stage_next = torch.where(
+        bad,
+        stage,
+        torch.where(
+            in_bracket,
+            torch.where(upd_b, _HZ_SECANT1, torch.where(upd_a, _HZ_BRACKET, _HZ_U3)),
+            torch.where(
+                in_u3,
+                torch.where(upd_b, _HZ_SECANT1, _HZ_U3),
+                torch.where(
+                    upd_u3,
+                    _HZ_U3,
+                    torch.where(
+                        in_sec1,
+                        _HZ_SECANT2,
+                        torch.where(gamma_ok, _HZ_SECANT1, _HZ_BISECT_G),
+                    ),
+                ),
+            ),
+        ),
+    )
+    stage_next = torch.where(accept, _HZ_DONE, stage_next)
+
+    mid = new_a + k.theta * (new_b - new_a)
+    sec = _secant(new_a, new_dphi_a, new_b, new_dphi_b)
+    sec2 = torch.where(
+        upd_b,
+        _secant(s["b0"], s["dphi_b0"], new_b, new_dphi_b),
+        _secant(s["a0"], s["dphi_a0"], new_a, new_dphi_a),
+    )
+    lo, hi = torch.minimum(new_a, new_b), torch.maximum(new_a, new_b)
+    sec_safe = torch.where((sec > lo) & (sec < hi), sec, mid)
+    sec2_safe = torch.where((sec2 > lo) & (sec2 < hi), sec2, mid)
+    c_next = torch.where(
+        bad,
+        s["a"] + 0.3 * (c - s["a"]),  # backtrack toward the low endpoint
+        torch.where(
+            stage_next == _HZ_BRACKET,
+            c * k.expand,
+            torch.where(
+                stage_next == _HZ_U3,
+                mid,
+                torch.where(
+                    stage_next == _HZ_SECANT2,
+                    sec2_safe,
+                    torch.where(stage_next == _HZ_BISECT_G, mid, sec_safe),
+                ),
+            ),
+        ),
+    )
+
+    # snapshot the interval at entry to a secant² cycle, and refresh it
+    # when a full cycle restarts
+    snap = ((stage_next == _HZ_SECANT1) & ~in_sec1) | (
+        in_sec2 & (stage_next == _HZ_SECANT1)
+    )
+    new = dict(
+        stage=stage_next,
+        nev=nev,
+        c=c_next,
+        a=new_a, phi_a=new_phi_a, dphi_a=new_dphi_a, g_a=new_g_a,
+        b=new_b, phi_b=new_phi_b, dphi_b=new_dphi_b,
+        a0=torch.where(snap, new_a, s["a0"]),
+        b0=torch.where(snap, new_b, s["b0"]),
+        phi_a0=torch.where(snap, new_phi_a, s["phi_a0"]),
+        dphi_a0=torch.where(snap, new_dphi_a, s["dphi_a0"]),
+        phi_b0=torch.where(snap, new_phi_b, s["phi_b0"]),
+        dphi_b0=torch.where(snap, new_dphi_b, s["dphi_b0"]),
+        a_acc=torch.where(accept, c, s["a_acc"]),
+        phi_acc=torch.where(accept, phi_c, s["phi_acc"]),
+        g_acc=torch.where(accept[:, None], g_c, s["g_acc"]),
+        accepted=s["accepted"] | accept,
+    )
+    s = _where(running, new, s)
+    return s, x + s["c"][:, None] * p, _hz_running(s, k.max_evals).any()
+
+
+def _hz_start(x, f0, g0, p, alpha0, active, c1, c2, max_evals, expand, epsilon, gamma,
+              theta) -> tuple:
+    """A Hager-Zhang search's initial state (the plain version's dict) and
+    its constants."""
+    K = x.shape[0]
+    dphi0 = sum_rows(torch.sum(g0 * p, dim=-1))
+    zero = torch.zeros_like(f0)
+    eps_k = epsilon * f0.abs()
+    if active is None:
+        active = torch.ones(K, dtype=torch.bool, device=x.device)
+    s = dict(
+        stage=torch.where(active, _HZ_BRACKET, _HZ_DONE).to(torch.int64),
+        nev=torch.zeros(K, dtype=torch.int64, device=x.device),
+        c=alpha0.to(x.dtype).expand(K).clone(),
+        a=zero, phi_a=f0, dphi_a=dphi0, g_a=g0,
+        b=zero, phi_b=f0, dphi_b=dphi0,
+        a0=zero, b0=zero, phi_a0=f0, dphi_a0=dphi0, phi_b0=f0, dphi_b0=dphi0,
+        a_acc=zero, phi_acc=f0, g_acc=g0,
+        accepted=torch.zeros(K, dtype=torch.bool, device=x.device),
+    )
+    return s, _HZConst(f0, dphi0, eps_k, c1, c2, gamma, theta, expand, max_evals)
+
+
+def _hz_result(s: dict, k: _HZConst, g0) -> LineSearchResult:
+    """The accepted point; where the budget ran out, the low endpoint,
+    which by invariant satisfies φ(a) ≤ φ0 + εk with φ'(a) < 0, if it
+    decreased φ strictly; else no step."""
+    f0 = k.f0
+    fallback_ok = (s["a"] > 0) & torch.isfinite(s["phi_a"]) & (s["phi_a"] < f0)
+    acc = s["accepted"]
+    a = torch.where(acc, s["a_acc"], torch.where(fallback_ok, s["a"], torch.zeros_like(f0)))
+    f = torch.where(acc, s["phi_acc"], torch.where(fallback_ok, s["phi_a"], f0))
+    g = torch.where(
+        acc[:, None], s["g_acc"], torch.where(fallback_ok[:, None], s["g_a"], g0)
+    )
+    return LineSearchResult(
+        step_size=a, f=f, g=g, num_evals=s["nev"], ok=acc | fallback_ok,
+        exhausted=fallback_ok & ~acc,
+    )
+
+
 def hager_zhang_line_search(
     value_and_grad: Callable,
     x: torch.Tensor,
@@ -129,160 +312,32 @@ def hager_zhang_line_search(
     management, the U3 bisection, secant² steps, the γ rule and the
     backtracking on non-finite trial values are those of the JAX package.
     Lanes with ``active`` False do no work and report zero evaluations.
-    """
-    dtype = x.dtype
-    K = x.shape[0]
-    p = direction
-    dphi0 = sum_rows(torch.sum(g0 * p, dim=-1))
-    zero = torch.zeros_like(f0)
-    eps_k = epsilon * f0.abs()
-    delta, sigma = c1, c2
-    if active is None:
-        active = torch.ones(K, dtype=torch.bool, device=x.device)
 
-    s = dict(
-        stage=torch.where(active, _HZ_BRACKET, _HZ_DONE).to(torch.int64),
-        nev=torch.zeros(K, dtype=torch.int64, device=x.device),
-        c=alpha0.to(dtype).expand(K).clone(),
-        a=zero, phi_a=f0, dphi_a=dphi0, g_a=g0,
-        b=zero, phi_b=f0, dphi_b=dphi0,
-        a0=zero, b0=zero, phi_a0=f0, dphi_a0=dphi0, phi_b0=f0, dphi_b0=dphi0,
-        a_acc=zero, phi_acc=f0, g_acc=g0,
-        accepted=torch.zeros(K, dtype=torch.bool, device=x.device),
-    )
+    Each evaluation's state update is one launch of a CUDA kernel where
+    ``x`` is a float32 or float64 tensor on a CUDA device
+    (``ops/kernels/linesearch_kernels.py``), and the plain version
+    :func:`_hz_step_torch` elsewhere; the two give the same bits.
+    """
+    p = direction
+    s, k = _hz_start(x, f0, g0, p, alpha0, active, c1, c2, max_evals, expand, epsilon, gamma,
+                     theta)
+    more = _hz_running(s, max_evals).any()
+    x_c = x + s["c"][:, None] * p
+    if linesearch_kernels.takes(x.device, x.dtype):
+        s, step = linesearch_kernels.pack(s, k), linesearch_kernels.step
+    else:
+        step = _hz_step_torch
 
     while True:
-        running = (s["stage"] != _HZ_DONE) & (s["nev"] < max_evals)
-        more = running.any()
         with tracing.sync("ops/linesearch.py"):
             more = bool(more)
         if not more:
             break
-        c = s["c"]
-        phi_c, g_c = value_and_grad(x + c[:, None] * p)
-        phi_c, g_c = phi_c.to(dtype), g_c.to(dtype)
+        phi_c, g_c = value_and_grad(x_c)
+        phi_c, g_c = phi_c.to(x.dtype), g_c.to(x.dtype)
         dphi_c = sum_rows(torch.sum(g_c * p, dim=-1))
-        nev = s["nev"] + 1
-        bad = ~(torch.isfinite(phi_c) & torch.isfinite(dphi_c))
-
-        wolfe = (phi_c <= f0 + delta * c * dphi0) & (dphi_c >= sigma * dphi0)
-        approx = (
-            (phi_c <= f0 + eps_k)
-            & (dphi_c >= sigma * dphi0)
-            & (dphi_c <= (2.0 * delta - 1.0) * dphi0)
-        )
-        accept = (~bad) & (c > 0) & (wolfe | approx)
-
-        upd_b = (~bad) & (dphi_c >= 0)
-        upd_a = (~bad) & (~upd_b) & (phi_c <= f0 + eps_k)
-        upd_u3 = (~bad) & (~upd_b) & (~upd_a)
-
-        stage = s["stage"]
-        in_bracket = stage == _HZ_BRACKET
-        in_u3 = stage == _HZ_U3
-        in_sec1 = stage == _HZ_SECANT1
-        in_sec2 = (stage == _HZ_SECANT2) | (stage == _HZ_BISECT_G)
-
-        new_a = torch.where(upd_a, c, s["a"])
-        new_phi_a = torch.where(upd_a, phi_c, s["phi_a"])
-        new_dphi_a = torch.where(upd_a, dphi_c, s["dphi_a"])
-        new_g_a = torch.where(upd_a[:, None], g_c, s["g_a"])
-        move_b = upd_b | upd_u3
-        new_b = torch.where(move_b, c, s["b"])
-        new_phi_b = torch.where(move_b, phi_c, s["phi_b"])
-        new_dphi_b = torch.where(move_b, dphi_c, s["dphi_b"])
-
-        width_new = (new_b - new_a).abs()
-        gamma_ok = width_new <= gamma * (s["b0"] - s["a0"]).abs()
-
-        stage_next = torch.where(
-            bad,
-            stage,
-            torch.where(
-                in_bracket,
-                torch.where(upd_b, _HZ_SECANT1, torch.where(upd_a, _HZ_BRACKET, _HZ_U3)),
-                torch.where(
-                    in_u3,
-                    torch.where(upd_b, _HZ_SECANT1, _HZ_U3),
-                    torch.where(
-                        upd_u3,
-                        _HZ_U3,
-                        torch.where(
-                            in_sec1,
-                            _HZ_SECANT2,
-                            torch.where(gamma_ok, _HZ_SECANT1, _HZ_BISECT_G),
-                        ),
-                    ),
-                ),
-            ),
-        )
-        stage_next = torch.where(accept, _HZ_DONE, stage_next)
-
-        mid = new_a + theta * (new_b - new_a)
-        sec = _secant(new_a, new_dphi_a, new_b, new_dphi_b)
-        sec2 = torch.where(
-            upd_b,
-            _secant(s["b0"], s["dphi_b0"], new_b, new_dphi_b),
-            _secant(s["a0"], s["dphi_a0"], new_a, new_dphi_a),
-        )
-        lo, hi = torch.minimum(new_a, new_b), torch.maximum(new_a, new_b)
-        sec_safe = torch.where((sec > lo) & (sec < hi), sec, mid)
-        sec2_safe = torch.where((sec2 > lo) & (sec2 < hi), sec2, mid)
-        c_next = torch.where(
-            bad,
-            s["a"] + 0.3 * (c - s["a"]),  # backtrack toward the low endpoint
-            torch.where(
-                stage_next == _HZ_BRACKET,
-                c * expand,
-                torch.where(
-                    stage_next == _HZ_U3,
-                    mid,
-                    torch.where(
-                        stage_next == _HZ_SECANT2,
-                        sec2_safe,
-                        torch.where(stage_next == _HZ_BISECT_G, mid, sec_safe),
-                    ),
-                ),
-            ),
-        )
-
-        # snapshot the interval at entry to a secant² cycle, and refresh it
-        # when a full cycle restarts
-        snap = ((stage_next == _HZ_SECANT1) & ~in_sec1) | (
-            in_sec2 & (stage_next == _HZ_SECANT1)
-        )
-        new = dict(
-            stage=stage_next,
-            nev=nev,
-            c=c_next,
-            a=new_a, phi_a=new_phi_a, dphi_a=new_dphi_a, g_a=new_g_a,
-            b=new_b, phi_b=new_phi_b, dphi_b=new_dphi_b,
-            a0=torch.where(snap, new_a, s["a0"]),
-            b0=torch.where(snap, new_b, s["b0"]),
-            phi_a0=torch.where(snap, new_phi_a, s["phi_a0"]),
-            dphi_a0=torch.where(snap, new_dphi_a, s["dphi_a0"]),
-            phi_b0=torch.where(snap, new_phi_b, s["phi_b0"]),
-            dphi_b0=torch.where(snap, new_dphi_b, s["dphi_b0"]),
-            a_acc=torch.where(accept, c, s["a_acc"]),
-            phi_acc=torch.where(accept, phi_c, s["phi_acc"]),
-            g_acc=torch.where(accept[:, None], g_c, s["g_acc"]),
-            accepted=s["accepted"] | accept,
-        )
-        s = _where(running, new, s)
-
-    # exhausted budget: fall back to the low endpoint, which by invariant
-    # satisfies φ(a) ≤ φ0 + εk with φ'(a) < 0; require strict decrease
-    fallback_ok = (s["a"] > 0) & torch.isfinite(s["phi_a"]) & (s["phi_a"] < f0)
-    acc = s["accepted"]
-    a = torch.where(acc, s["a_acc"], torch.where(fallback_ok, s["a"], zero))
-    f = torch.where(acc, s["phi_acc"], torch.where(fallback_ok, s["phi_a"], f0))
-    g = torch.where(
-        acc[:, None], s["g_acc"], torch.where(fallback_ok[:, None], s["g_a"], g0)
-    )
-    return LineSearchResult(
-        step_size=a, f=f, g=g, num_evals=s["nev"], ok=acc | fallback_ok,
-        exhausted=fallback_ok & ~acc,
-    )
+        s, x_c, more = step(s, phi_c, g_c, dphi_c, x, p, k)
+    return _hz_result(s, k, g0)
 
 
 def backtracking_line_search(

@@ -10,7 +10,13 @@ are equal. Step sizes and values agree to ``rtol=1e-9``: the state machines
 are the same, but a secant or cubic step divides differences of nearly
 equal numbers, which magnifies the last-bit differences between XLA's and
 torch's arithmetic.
+
+The problems live in ``hz_kernel_cases.py``, with the checks of the
+Hager-Zhang state-update kernel against its plain version that
+``test_torch_hz_kernel.py`` runs on the card (bit for bit, without JAX).
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -18,40 +24,17 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from hz_kernel_cases import ALPHA0S, PROBLEMS, count_launches, search_inputs
+from hz_kernel_cases import problems as _problems
 from pathfinder_tpu.ops import linesearch as jls
 from pathfinder_tpu_torch.ops import linesearch as tls
+from pathfinder_tpu_torch.ops.kernels import linesearch_kernels as lk
 
 # one intra-op thread: the suite runs in several worker processes at once, and a
 # thread per core in each makes them contend for the cores
 torch.set_num_threads(1)
 
 SEARCHES = ["hager_zhang", "more_thuente", "wolfe", "backtracking"]
-ALPHA0S = [1.0, 1e-3, 0.3, 7.0, 60.0]
-LAM = np.logspace(-2, 2, 8)
-
-
-def _problems(xp):
-    """name -> (f, x, direction) with ``f`` written for ``xp`` (jnp or torch)."""
-    def quartic(x):
-        return ((x - 2.0) ** 4 + x**2).sum(-1)
-
-    def pocket(x):  # NaN where x >= 1
-        return (-xp.log(1.0 - x) + (x - 3.0) ** 2).sum(-1)
-
-    lam = xp.asarray(LAM) if xp is jnp else torch.tensor(LAM)
-
-    def valley(x):
-        return 0.5 * (lam * x * x).sum(-1) + xp.cos(x).sum(-1) + 0.1 * ((x**2).sum(-1)) ** 2
-
-    rng = np.random.default_rng(0)
-    x8 = rng.standard_normal(8)
-    return {
-        "quartic": (quartic, np.array([-1.0]), None),
-        "pocket": (pocket, np.array([0.0]), np.array([1.0])),
-        "pocket_descent": (pocket, np.array([0.9]), None),
-        "valley": (valley, x8, None),
-        "valley_skewed": (valley, x8, -x8 / LAM**0.5),
-    }
 
 
 def _run_jax(search, name, **kw):
@@ -66,25 +49,12 @@ def _run_jax(search, name, **kw):
 
 
 def _run_torch(search, name, active=None, **kw):
-    f, x, p = _problems(torch)[name]
-
-    def vg(z):
-        with torch.enable_grad():
-            z = z.detach().requires_grad_(True)
-            val = f(z)
-            (g,) = torch.autograd.grad(val.sum(), z)
-        return val.detach(), g
-
-    K = len(ALPHA0S)
-    xs = torch.tensor(x).expand(K, -1).contiguous()
-    f0, g0 = vg(xs)
-    ps = -g0 if p is None else torch.tensor(p).expand(K, -1).contiguous()
+    vg, xs, f0, g0, ps, alpha0 = search_inputs(name)
     fn = getattr(tls, f"{search}_line_search")
-    return fn(vg, xs, f0, g0, ps, torch.tensor(ALPHA0S, dtype=torch.float64), c1=tls.resolve_c1(None, search),
-              active=active, **kw)
+    return fn(vg, xs, f0, g0, ps, alpha0, c1=tls.resolve_c1(None, search), active=active, **kw)
 
 
-@pytest.mark.parametrize("name", ["quartic", "pocket", "pocket_descent", "valley", "valley_skewed"])
+@pytest.mark.parametrize("name", PROBLEMS)
 @pytest.mark.parametrize("search", SEARCHES)
 def test_search_matches_jax(search, name):
     jr, tr = _run_jax(search, name), _run_torch(search, name)
@@ -132,3 +102,39 @@ def test_resolve_line_search_and_c1_match_jax():
     with pytest.raises(ValueError) as terr:
         tls.resolve_line_search("golden")
     assert str(terr.value) == str(jerr.value)
+
+
+def test_hz_state_update_route():
+    """Each Hager-Zhang evaluation's state update takes the kernel for
+    float32 and float64 on a CUDA device, and the plain version for every
+    other device and dtype."""
+    for dtype in (torch.float32, torch.float64):
+        assert lk.takes("cuda", dtype) and lk.takes(torch.device("cuda", 1), dtype)
+        assert not lk.takes("cpu", dtype) and not lk.takes(torch.device("meta"), dtype)
+    for dtype in (torch.float16, torch.bfloat16, torch.int64):
+        assert not lk.takes("cuda", dtype) and not lk.takes("cpu", dtype)
+
+
+def test_hz_kernel_layout_is_the_sources():
+    """The wrapper's rows of the state tensor and the plain version's stage
+    codes are the CUDA source's enums."""
+    text = lk._SOURCE.read_text()
+    fields = re.search(r"enum Field : int \{([^}]*)\}", text).group(1)
+    names = [n.strip() for n in fields.split(",") if n.strip()]
+    assert names[-1] == "kFields"
+    snake = ["_".join(w.lower() for w in re.findall(r"[A-Z][a-z0-9]*", n[1:])) for n in names[:-1]]
+    assert tuple(snake) == lk.FIELDS + lk.CONSTANTS
+    stages = dict(re.findall(r"(k[A-Za-z0-9]+) = (\d+)", re.search(
+        r"enum Stage : int64_t \{([^}]*)\}", text).group(1)))
+    assert {k: int(v) for k, v in stages.items()} == {
+        "kBracket": tls._HZ_BRACKET, "kU3": tls._HZ_U3, "kSecant1": tls._HZ_SECANT1,
+        "kSecant2": tls._HZ_SECANT2, "kBisectG": tls._HZ_BISECT_G, "kDone": tls._HZ_DONE}
+
+
+@pytest.mark.parametrize("device", ["cpu"])
+def test_hz_kernel_launches_once_an_evaluation(device):
+    """``launch.hz_step`` counts no launch for a search on CPU tensors
+    (``test_torch_hz_kernel.py`` counts one an evaluation on the card)."""
+    n, calls = count_launches(device)
+    assert calls > 1
+    assert n == 0
