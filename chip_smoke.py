@@ -1436,8 +1436,11 @@ def serving_phase(pt, wk, zoo, headline):
     est = sharding.lane_bytes(D, 64, 6, 5, 8, 5)
     auto, _, peak = run(SERVE_K)
     lanes = auto.max_paths_per_launch or SERVE_K
+    # the target's terms, as the run learned them (kept on the target)
+    per_lane, held = sharding.target_bytes(target, torch.zeros(1, D, device="cuda"), 8 * 5)
     print(f"serving: memory rule chose cap={auto.max_paths_per_launch} "
           f"offload={auto.states.draws.device.type == 'cpu'} from lane_bytes={est} "
+          f"target_per_lane={per_lane} target_held={held} "
           f"state_bytes={sharding.state_bytes(D, 64, 6, 5, keep_traces=False)} "
           f"(LAUNCH_SHARE={sharding.LAUNCH_SHARE}, OFFLOAD_SHARE={sharding.OFFLOAD_SHARE}); "
           f"max_memory_allocated={peak}, per lane of a launch {peak / lanes:.0f} (with the "
@@ -1724,8 +1727,10 @@ def memory_rule_phase(pt, zoo):
         fail("memory rule: the BFGS run was not chunked, or paths failed")
     lanes = min(cap, MEM_BFGS_K)
     states = MEM_BFGS_K * sharding.state_bytes(D, 64, 6, 5, keep_traces=False)
+    per_lane, held = sharding.target_bytes(target, torch.zeros(1, D, device="cuda"), 8 * 5)
     held_to(f"BFGS, launches of {cap}",
-            lanes * sharding.lane_bytes(D, 64, 6, 5, 8, 5, torch.float32, "bfgs") + states, peak)
+            lanes * sharding.lane_bytes(D, 64, 6, 5, 8, 5, torch.float32, "bfgs")
+            + min(lanes * per_lane, held) + states, peak)
     del res
 
     res = pt.multipathfinder(target, 1000, nruns=MEM_LAPLACE_K, maxiters=64, elbo_chunk=8, seed=0,
@@ -2652,13 +2657,15 @@ def dim_optimizer_paths(pt, wk, zoo, smi, auto_runs, timed):
     torch.cuda.reset_peak_memory_stats()
     got = on_mesh("bfgs mesh (1, 2) seed 0", seed=0, optimizer="bfgs")
     peak = torch.cuda.max_memory_allocated()
-    est = sharding.lane_bytes(D, 64, 6, 5, 8, 10, torch.float32, "bfgs", dim_width=2)
+    est = (sharding.lane_bytes(D, 64, 6, 5, 8, 10, torch.float32, "bfgs", dim_width=2)
+           + sharding.target_bytes(target, torch.zeros(1, D, device="cuda"), 8 * 5)[0])
     same = float((got.states.fit_iteration == ref.states.fit_iteration).float().mean())
     dk = abs(float(got.psis_result.pareto_shape) - float(ref.psis_result.pareto_shape))
     print(f"dim phase [bfgs mesh (1, 2) seed 0]: paths_ok={int(got.states.success.sum())}/"
           f"{int(ref.states.success.sum())} fit iterations equal on {same:.2%} of paths, "
           f"|dkhat|={dk:.4f}; peak_device_bytes={peak} for both members on the one card, "
-          f"{peak / 2 / K:.0f} a lane a member against lane_bytes(dim_width=2)={est} "
+          f"{peak / 2 / K:.0f} a lane a member against lane_bytes(dim_width=2) and the "
+          f"target's bytes a lane={est} "
           f"(the first member's) card: {smi}", flush=True)
     if not torch.equal(got.states.success, ref.states.success):
         fail("dim bfgs: the paths that succeeded differ from the unsharded run's")

@@ -6,21 +6,37 @@ lanes are independent, so the gradient of the sum is each lane's own.
 Hessians, ``hess(x (K, d)) -> (K, d, d)``, are the order-2 capability: a
 target may bring its own, else :func:`batched_hessian` derives one with
 ``torch.func``.
+
+Every batched evaluation the core makes goes through :func:`bounded_target`:
+a batch of ``P`` points is handed to the target in blocks of at most ``B``
+points, in order, and the results are joined. ``B`` is the caller's
+(``target_points``), or on a CUDA device learned from the target itself
+(:func:`target_bound`): its device bytes a point, measured once per target,
+kind of evaluation, dtype and device (:func:`point_bytes`), and the most
+points whose bytes fit in ``TARGET_SHARE`` of the card's total memory.
+Where ``P ≤ B`` the target is called as it is.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import threading
 from typing import Callable, Optional
 
 import torch
+
+from pathfinder_tpu_torch.utils import tracing
 
 __all__ = [
     "LogDensity",
     "as_log_density",
     "autograd_value_and_grad",
     "batched_hessian",
+    "bounded_target",
+    "point_bytes",
+    "target_bound",
+    "TARGET_SHARE",
     "from_pytree_logp",
     "PytreeTarget",
 ]
@@ -120,6 +136,122 @@ def as_log_density(fn, dim=None, grad=None, hess=None) -> LogDensity:
         vg = _vg_from_parts(fn, grad) if grad is not None else None
         return LogDensity(logp=fn, dim=dim, value_and_grad=vg, hess=hess)
     raise TypeError(f"cannot interpret {type(fn)!r} as a log density")
+
+
+# Of a card's total memory: what one bounded evaluation of the target may
+# take (its temporaries, and autograd's graph for a gradient). The memory
+# rule (``parallel/sharding.plan_launches``) plans a launch's lanes beside
+# it in ``LAUNCH_SHARE`` (half) of the card. The total, not the free memory,
+# so that the blocks, and with them a result's last bits, are the same on a
+# card whatever else holds memory there.
+TARGET_SHARE = 0.25
+PROBE_POINTS = 16  # the points of the probe that measures a target's bytes a point
+_PROBE_LOCK = threading.Lock()
+
+
+def _owner(fn: Callable):
+    """Where a target's learned figures are kept: a bound method's object,
+    else the function itself."""
+    return fn.__self__ if inspect.ismethod(fn) else fn
+
+
+def _rise(fn: Callable, x: torch.Tensor) -> int:
+    """The rise of ``torch.cuda.max_memory_allocated`` over the memory
+    allocated before ``fn(x)``, its result included."""
+    base = torch.cuda.memory_allocated(x.device)
+    torch.cuda.reset_peak_memory_stats(x.device)
+    out = fn(x)
+    rise = torch.cuda.max_memory_allocated(x.device) - base
+    del out
+    return rise
+
+
+def point_bytes(target: "LogDensity", kind: str, x: torch.Tensor) -> int:
+    """The device bytes one point costs ``target``'s ``kind`` of evaluation
+    (``"logp"`` or ``"value_and_grad"``) at its peak, on ``x``'s dtype and
+    CUDA device, rounded up. Learned once from ``x``'s rows (repeated to
+    ``2·PROBE_POINTS``): a first call at ``PROBE_POINTS`` points takes the
+    target's fixed costs (data moved to the card, a library's workspace),
+    then the rise of the peak over the memory allocated before a call is
+    read at ``PROBE_POINTS`` and at twice as many points, and their
+    difference is divided by ``PROBE_POINTS``, so a fixed cost of a call
+    cancels. The probe's results are dropped; it resets the device's
+    peak-memory statistic. The figure is kept on the target's ``logp`` (a
+    bound method's object), as ``batched_hessian`` keeps its Hessian, for
+    every later call with that target."""
+    owner = _owner(target.logp)
+    key = (kind, x.dtype, x.device)
+    cache = getattr(owner, "_pf_point_bytes", None)
+    if cache is not None and key in cache:
+        return cache[key]
+    fn = target.logp if kind == "logp" else target.value_and_grad
+    n = PROBE_POINTS
+    probe = x[torch.arange(2 * n, device=x.device) % x.shape[0]]
+    with _PROBE_LOCK:
+        fn(probe[:n])  # the target's fixed costs, kept out of the two rises
+        one, two = _rise(fn, probe[:n]), _rise(fn, probe)
+    per = max(1, -(-(two - one) // n))
+    try:
+        owner.__dict__.setdefault("_pf_point_bytes", {})[key] = per
+    except AttributeError:
+        pass  # no __dict__ (a functools.partial, a builtin): learned at each call
+    return per
+
+
+def target_bound(target: "LogDensity", kind: str, x: torch.Tensor,
+                 points: Optional[int] = None) -> Optional[int]:
+    """The most points one evaluation of ``target``'s ``kind`` is handed at
+    ``x``'s dtype and device: ``points`` where given; else, on a CUDA
+    device, the most whose bytes (:func:`point_bytes`) fit in
+    ``TARGET_SHARE`` of the card's total memory, never fewer than one; else
+    None, no bound."""
+    if points is not None:
+        return points
+    if x.device.type != "cuda":
+        return None
+    total = torch.cuda.get_device_properties(x.device).total_memory
+    return max(1, int(TARGET_SHARE * total) // point_bytes(target, kind, x))
+
+
+def _bounded(target: "LogDensity", kind: str, points: Optional[int]) -> Callable:
+    """``target``'s ``kind`` of evaluation, handed at most ``points`` points
+    at a time (learned on a CUDA device where ``points`` is None)."""
+    fn = target.logp if kind == "logp" else target.value_and_grad
+
+    def evaluate(x: torch.Tensor):
+        P = x.shape[0]
+        key = tracing.current_call()
+        tracing.count(tracing.TARGET_POINTS, P, key)
+        # one point is never split (a Hessian's rows under torch.func)
+        B = None if P <= 1 else target_bound(target, kind, x, points)
+        if B is None or P <= B:
+            return fn(x)
+        tracing.count(tracing.TARGET_SPLITS, 1, key)
+        n = -(-P // B)
+        size = -(-P // n)  # n even blocks of at most B points
+        outs = [fn(x[lo:lo + size]) for lo in range(0, P, size)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(parts) for parts in zip(*outs))
+        return torch.cat(outs)
+
+    return evaluate
+
+
+def bounded_target(target: "LogDensity", points: Optional[int] = None) -> "LogDensity":
+    """``target`` with its ``logp`` and ``value_and_grad`` handed at most
+    ``points`` points a call: a batch of more is evaluated in blocks of at
+    most that many points, in order, and the results are joined, so that
+    every row is the target's own. With ``points=None`` the bound is learned
+    on a CUDA device (:func:`target_bound`): the most points whose bytes fit
+    in ``TARGET_SHARE`` of the card's total memory, never fewer than one; on
+    any other device a batch is not split. Every evaluation counts its
+    points (``target.points``) and every split one (``target.splits``) in
+    the always-on counters of ``utils/tracing.py``. ``hess`` stays the
+    target's own."""
+    if points is not None and points < 1:
+        raise ValueError(f"target_points must be positive or None; got {points}")
+    return dataclasses.replace(target, logp=_bounded(target, "logp", points),
+                               value_and_grad=_bounded(target, "value_and_grad", points))
 
 
 def _vg_from_parts(logp: Callable, grad: Callable) -> Callable:

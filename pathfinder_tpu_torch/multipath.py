@@ -36,9 +36,11 @@ from pathfinder_tpu_torch.integrations.transforms import (
     transformed_outputs,
 )
 from pathfinder_tpu_torch.models.protocol import (
+    PROBE_POINTS,
     LogDensity,
     as_log_density,
     batched_hessian,
+    bounded_target,
 )
 from pathfinder_tpu_torch.ops.mvnormal import MvNormal, UniformMixture
 from pathfinder_tpu_torch.ops.optimizers import NEWTON_DENSE_DIM_WARN, OPTIMIZERS
@@ -60,6 +62,7 @@ from pathfinder_tpu_torch.parallel.sharding import (
     paths_width,
     plan_launches,
     state_bytes,
+    target_bytes,
 )
 from pathfinder_tpu_torch.singlepath import (
     PathfinderConfig,
@@ -381,6 +384,16 @@ def multipathfinder(
     autograd. ``hess`` is the target's Hessian, ``x (K, d) -> (K, d, d)``,
     for the Laplace correction; absent, it is derived with ``torch.func``.
 
+    Every batched evaluation of the target (the trajectory's, each ELBO
+    chunk's, the PSIS blocks') hands it at most ``target_points`` points at a
+    time, in order (``models/protocol.bounded_target``). The default,
+    ``None``, learns the bound on a CUDA device: the target's bytes a point,
+    measured once per target, dtype and device by a probe at the first
+    ``PROBE_POINTS`` initial points, and the most points whose bytes fit in
+    ``TARGET_SHARE`` of the card's total memory. On a card the memory rule
+    counts that bounded evaluation beside the lanes. On the CPU the default
+    splits nothing.
+
     ``fn`` may be a model with a ``.transformed`` (a ``BayesModel``) or a
     ``TransformedLogDensity``; or pass ``transform=`` a bijector, with ``fn``
     (and ``grad``) then in the constrained space. The run happens in the
@@ -489,9 +502,17 @@ def multipathfinder(
         gtol=gtol,
         **config_overrides,
     )
+    unbounded, target = target, bounded_target(target, config.target_points)
 
     cap, offload = max_paths_per_launch, offload_launches
     if dev.type == "cuda" and (cap is None or offload is None):
+        # the target's learned bytes a point, at the first paths' initial points
+        n = min(nruns, PROBE_POINTS)
+        x = (init[:n].to(device=dev, dtype=dtype) if init is not None else
+             sampler(rng.Stream(seed, torch.arange(n, device=dev), 0, rng.INIT), d, dtype, dev))
+        per_lane, held = target_bytes(
+            unbounded, x, max(min(config.elbo_chunk, maxiters) * ndraws_elbo, ndraws_per_run),
+            config.target_points)
         cap, offload = plan_launches(
             pad_paths(nruns, mesh),
             lane_bytes(d, maxiters, history_length, ndraws_elbo, config.elbo_chunk,
@@ -499,7 +520,8 @@ def multipathfinder(
                        dim_width(mesh)),
             state_bytes(d, maxiters, history_length, ndraws_per_run, dtype, keep_traces),
             device_memory_bytes(dev) if mesh is None else mesh_device_bytes(mesh),
-            cap=cap, offload=offload, width=paths_width(mesh),
+            cap=cap, offload=offload, width=paths_width(mesh), target_per_lane=per_lane,
+            target_held=held,
         )
     # the PSIS tail's blocks: a launch's lanes on one device, the share its
     # memory was planned for (and the blocks of the run without a mesh)

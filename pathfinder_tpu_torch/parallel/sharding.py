@@ -42,7 +42,10 @@ it.
 The defaults come from the card's memory: :func:`plan_launches` takes the
 card's total memory, a per-lane estimate of one launch's peak
 (:func:`lane_bytes`) and of the state a lane keeps (:func:`state_bytes`),
-all three fixed for a card and a configuration. The plan is taken from the
+all three fixed for a card and a configuration, and the target's terms
+(:func:`target_bytes`): its bounded evaluation
+(``models/protocol.bounded_target``), whose bytes a point the core learns
+from the target on the card. The plan is taken from the
 total, not the free memory, because the cap can change a result's last bits,
 so the same card and the same options always choose the same cap. Memory
 that other work holds on the card is the caller's to leave room for, by
@@ -63,6 +66,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from pathfinder_tpu_torch.models.protocol import LogDensity, point_bytes, target_bound
 from pathfinder_tpu_torch.ops.kernels import linesearch_kernels
 from pathfinder_tpu_torch.ops.kernels.woodbury_kernels import load_library
 from pathfinder_tpu_torch.singlepath import SinglePathState, pathfinder_core
@@ -87,6 +91,7 @@ __all__ = [
     "lane_bytes",
     "state_bytes",
     "plan_launches",
+    "target_bytes",
     "laplace_lane_bytes",
     "laplace_block",
     "device_memory_bytes",
@@ -532,9 +537,11 @@ def lane_bytes(d: int, maxiters: int, history_length: int, ndraws_elbo: int,
     held while one chunk of ``C`` candidates is either built (history
     windows, factors and their temporaries, about ``11·J·d`` floats a
     candidate) or sampled (the factors kept, ``(4·J + 3)·d`` floats, the
-    noise, the draws and the target's temporaries, ``4·d·N``, and the
-    noise's Philox words, int64, about 40 bytes a normal at the stream's
-    peak). The winner's ``ndraws`` draws are sampled alike, one candidate a
+    noise and the draws, ``2·d·N``, and the noise's Philox words, int64,
+    about 40 bytes a normal at the stream's peak). The target's own
+    temporaries are not a lane's: its evaluations are bounded, and
+    :func:`plan_launches` counts them beside the lanes
+    (:func:`target_bytes`). The winner's ``ndraws`` draws are sampled alike, one candidate a
     lane. ``optimizer="bfgs"`` or ``"newton"`` holds ``DENSE_COPIES`` dense
     ``(d, d)`` matrices a lane during the trajectory, which then sets the
     peak where it is larger. With ``importance_denominator="mixture"`` a
@@ -545,9 +552,9 @@ def lane_bytes(d: int, maxiters: int, history_length: int, ndraws_elbo: int,
 
     On a mesh whose ``dim`` axis is ``dim_width > 1`` wide a lane's rows are
     split: a member holds the estimate at ``r = d / dim_width`` rows, and
-    the group's first member also the target's evaluation at the full width,
-    an ELBO chunk's gathered draws and the target's temporaries (``4·d·N``
-    a candidate, as above), or what an optimizer holds whole there, if more:
+    the group's first member also an ELBO chunk's gathered draws at the
+    full width (``2·d·N`` a candidate, as above; the target evaluates them
+    there), or what an optimizer holds whole there, if more:
     BFGS's ``DENSE_COPIES`` row blocks ``(r, d)`` of H on every member,
     Newton's ``HESSIAN_COPIES`` ``(d, d)`` matrices on the first member only,
     a user callable's whole trace (``2·(L + 1)·d``) on the first member. The
@@ -559,7 +566,7 @@ def lane_bytes(d: int, maxiters: int, history_length: int, ndraws_elbo: int,
         r = -(-d // dim_width)
         rows = lane_bytes(r, maxiters, history_length, ndraws_elbo, elbo_chunk, ndraws, dtype,
                           "lbfgs", importance_denominator, nruns)
-        lead = [C * f * 4 * d * ndraws_elbo]
+        lead = [C * f * 2 * d * ndraws_elbo]
         if optimizer == "bfgs":
             lead.append(DENSE_COPIES["bfgs"] * f * r * d)
         elif optimizer == "newton":
@@ -570,7 +577,7 @@ def lane_bytes(d: int, maxiters: int, history_length: int, ndraws_elbo: int,
     held = f * (2 * (L + 1) * d + (L + 1) + (2 * L + 2 * (L + 1)) * d)
 
     def sample(n):
-        return f * ((4 * J + 3) * d + 4 * d * n) + 40 * d * n
+        return f * ((4 * J + 3) * d + 2 * d * n) + 40 * d * n
 
     stages = [C * f * 11 * J * d, C * sample(ndraws_elbo), sample(ndraws)]
     if isinstance(optimizer, str) and optimizer in DENSE_COPIES:
@@ -586,7 +593,8 @@ def laplace_lane_bytes(d: int, ndraws_per_run: int, dtype=torch.float32,
     (``HESSIAN_COPIES``) and the negated copy; the corrected factor (a dense
     covariance with ``method="full"``, whose eigh and scaled copies come
     after the Hessian's peak and stay below it); and its draws with their
-    noise and Philox words (as :func:`lane_bytes`)."""
+    noise, Philox words and the target's temporaries (``4·d·N`` floats and
+    40 bytes a normal)."""
     f = torch.finfo(dtype).bits // 8
     dense = HESSIAN_COPIES + 1
     factor = (d * d if method == "full" else 0) + 4 * d
@@ -605,23 +613,47 @@ def laplace_block(K: int, d: int, ndraws_per_run: int, dtype, method: str, devic
     return plan_launches(K, per, 0, device_memory_bytes(device), offload=False)[0]
 
 
+def target_bytes(target: LogDensity, x: torch.Tensor, points_a_lane: int,
+                 points: Optional[int] = None) -> tuple:
+    """The target's terms of the memory rule on ``x``'s card and dtype
+    (``models/protocol``): ``(per_lane, held)``, the bytes of the points one
+    lane hands the target at once (one point with its gradient in the
+    trajectory, ``points_a_lane`` in an ELBO chunk or the PSIS blocks), and
+    the most that one bounded evaluation holds (``target_bound`` points,
+    ``points`` where given). Learned from ``x``'s rows at the first call
+    with a target (``point_bytes``)."""
+    per_lane = held = 0
+    for kind, n in (("value_and_grad", 1), ("logp", points_a_lane)):
+        per = point_bytes(target, kind, x)
+        per_lane = max(per_lane, n * per)
+        held = max(held, target_bound(target, kind, x, points) * per)
+    return per_lane, held
+
+
 def plan_launches(K: int, peak_per_lane: int, state_per_lane: int, device_bytes: int,
-                  cap: Optional[int] = None, offload: Optional[bool] = None, width: int = 1):
+                  cap: Optional[int] = None, offload: Optional[bool] = None, width: int = 1,
+                  target_per_lane: int = 0, target_held: int = 0):
     """``(cap, offload)`` for ``K`` paths on a card of ``device_bytes`` of
     memory. A ``cap`` or ``offload`` that is given is kept.
 
     Without a cap the paths run in the fewest launches whose estimated peak
     fits in ``LAUNCH_SHARE`` of the card's memory, split evenly (``None``:
-    one launch). Without an offload choice the states go to the host when
-    the run is chunked and the states of all ``K`` lanes would pass
-    ``OFFLOAD_SHARE`` of it. On a mesh of ``width`` blocks the fit is a
+    one launch). A launch of ``n`` lanes holds ``n·peak_per_lane`` and the
+    target's evaluation of its lanes' points: ``n·target_per_lane``, or at
+    most ``target_held`` where the target's bound splits that
+    (:func:`target_bytes`). Without an offload choice the states go to the
+    host when the run is chunked and the states of all ``K`` lanes would
+    pass ``OFFLOAD_SHARE`` of it. On a mesh of ``width`` blocks the fit is a
     block's, ``ceil(K / width)`` lanes against ``device_bytes`` (a block's
     memory, :func:`mesh_device_bytes`), the cap counts lanes over the mesh,
     and the states of all ``K`` lanes, gathered on the first device, count
     against its share."""
     if cap is None:
         Kd = -(-K // width)
-        fit = max(1, int(LAUNCH_SHARE * device_bytes) // max(1, peak_per_lane))
+        room = int(LAUNCH_SHARE * device_bytes)
+        # the most n with n·peak + min(n·target_per_lane, target_held) <= room
+        fit = max(1, room // max(1, peak_per_lane + target_per_lane),
+                  (room - target_held) // max(1, peak_per_lane))
         n_chunks = -(-Kd // fit)
         cap = None if n_chunks == 1 else -(-Kd // n_chunks) * width
     if offload is None:

@@ -28,7 +28,7 @@ from pathfinder_tpu_torch.integrations.transforms import (
     resolve_transform,
     transformed_outputs,
 )
-from pathfinder_tpu_torch.models.protocol import LogDensity, as_log_density
+from pathfinder_tpu_torch.models.protocol import LogDensity, as_log_density, bounded_target
 from pathfinder_tpu_torch.ops.elbo import (
     ELBOEstimate,
     elbo_and_samples,
@@ -71,6 +71,10 @@ class PathfinderConfig:
     c2: float = 0.9
     fail_on_nonfinite: bool = True
     elbo_chunk: int = 16  # candidates per ELBO chunk (a memory bound)
+    # points a batched target evaluation hands the target at most; None:
+    # learned from the target's memory on a CUDA device, unsplit elsewhere
+    # (``models/protocol.bounded_target``)
+    target_points: Optional[int] = None
     # trajectory optimizer: a name of ``ops.optimizers.OPTIMIZERS`` or any
     # callable with the minimize_*_trace contract; the fit and ELBO stages
     # read only the trace it returns
@@ -85,6 +89,8 @@ class PathfinderConfig:
             raise ValueError(f"maxiters must be >= 1, got {self.maxiters}")
         if self.elbo_chunk < 1:
             raise ValueError(f"elbo_chunk must be >= 1, got {self.elbo_chunk}")
+        if self.target_points is not None and self.target_points < 1:
+            raise ValueError(f"target_points must be >= 1 or None, got {self.target_points}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -449,6 +455,7 @@ def pathfinder(
         gtol=gtol,
         **config_overrides,
     )
+    target = bounded_target(target, config.target_points)
     path0 = torch.zeros(1, dtype=torch.int64, device=dev)
     core = core or pathfinder_core
 

@@ -16,13 +16,16 @@ switch.
   its own id as its call id and every span under it takes the same.
 - ``sync(site)`` is the ``sync`` span of a device→host read at ``site`` (the
   module's path in the package), counted as ``sync.<site>``.
-- ``count(name, n, key)`` adds to a counter while tracing is on. The family
-  ``launch.`` (the kernels' launches by shape, ``ops/kernels``) is counted
-  always: it is read with no profiler running.
+- ``count(name, n, key)`` adds to a counter while tracing is on. Two
+  families are counted always, and read with no profiler running:
+  ``launch.`` (the kernels' launches by shape, ``ops/kernels``) and
+  ``target.`` (``target.points``, the points handed to the target, and
+  ``target.splits``, the batched evaluations its bound divided,
+  ``models/protocol.bounded_target``; keyed by :func:`current_call`).
 
 The records of one profiler session replace the previous session's: the
 first record made after a site found tracing off starts a new session (the
-launch family is kept until :func:`reset`). They stay in memory until read
+always-on families are kept until :func:`reset`). They stay in memory until read
 with :func:`spans` and :func:`counts`.
 """
 
@@ -40,12 +43,16 @@ from torch.autograd import profiler as _profiler
 
 __all__ = [
     "LAUNCH",
+    "TARGET",
+    "TARGET_POINTS",
+    "TARGET_SPLITS",
     "Span",
     "adopt",
     "count",
     "counts",
     "counts_by_key",
     "current",
+    "current_call",
     "on",
     "reset",
     "span",
@@ -60,7 +67,11 @@ __all__ = [
 # the profiler's device intervals would then count a whole ``call`` as busy.
 _RANGE = torch._C._profiler._RecordFunctionFast
 
-LAUNCH = "launch."  # the always-on counter family
+LAUNCH = "launch."  # the always-on counter families
+TARGET = "target."
+TARGET_POINTS = TARGET + "points"
+TARGET_SPLITS = TARGET + "splits"
+_ALWAYS = (LAUNCH, TARGET)
 
 
 class Span(NamedTuple):
@@ -123,7 +134,7 @@ def _session() -> None:
     if _fresh:  # again: another thread may have started the session
         _fresh = False
         _spans.clear()
-        for name in [n for n in _counts if not n.startswith(LAUNCH)]:
+        for name in [n for n in _counts if not n.startswith(_ALWAYS)]:
             del _counts[name]
 
 
@@ -195,8 +206,8 @@ def sync(site: str):
 
 def count(name: str, n: int = 1, key=None) -> None:
     """Add ``n`` to the counter ``name`` (under ``key``) while tracing is
-    on; the ``launch.`` family always."""
-    always = name.startswith(LAUNCH)
+    on; the ``launch.`` and ``target.`` families always."""
+    always = name.startswith(_ALWAYS)
     if not (always or on()):
         return
     with _lock:
@@ -213,6 +224,15 @@ def current():
     a thread this one starts (None where there is none)."""
     stack = getattr(_local, "stack", None)
     return stack[-1] if stack else None
+
+
+def current_call() -> Optional[int]:
+    """The id of the ``call`` span this thread is in, while tracing is on
+    (None otherwise)."""
+    if not on():
+        return None
+    frame = current()
+    return None if frame is None else frame.call
 
 
 class _Adopt:

@@ -273,7 +273,13 @@ def test_config_carried_over_from_jax():
     jc = JConfig(maxiters=7, optimizer="cg", line_search="wolfe", c1=0.2, elbo_chunk=4)
     tc = config_from_fields(jc)
     assert isinstance(tc, PathfinderConfig)
+    # the port's own fields (the bound on the target's evaluations, which the
+    # JAX package's compiled programs have no use for) keep their defaults
+    port_only = {"target_points"}
     for name in PathfinderConfig.__dataclass_fields__:
+        if name in port_only:
+            assert not hasattr(jc, name) and getattr(tc, name) is None, name
+            continue
         assert getattr(tc, name) == getattr(jc, name), name
     assert config_from_fields(dict(maxiters=3)) == PathfinderConfig(maxiters=3)
     assert config_from_fields(JConfig(progress_every=5)).progress_every == 5

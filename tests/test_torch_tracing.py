@@ -98,14 +98,18 @@ class _Ops(TorchDispatchMode):
 
 
 def test_untraced_records_nothing_and_traced_runs_the_same_ops():
-    """Off, nothing but launches is recorded; on, the same ops (reads
-    included) run and the outputs are bitwise equal."""
+    """Off, nothing but the always-on families (launches, the target's
+    points) is recorded; on, the same ops (reads included) run and the
+    outputs are bitwise equal."""
     tracing.reset()
     tracing.count(tracing.LAUNCH + "sample_and_logq", key=(1, 2, 3, False))
     with _Ops() as off_ops:
         off = _call(Counting(), nruns=K)
     assert tracing.spans() == []
-    assert tracing.counts() == {tracing.LAUNCH + "sample_and_logq": 1}
+    points = tracing.counts_by_key(tracing.TARGET).pop(tracing.TARGET_POINTS)
+    assert set(points) == {None} and points[None] > 0  # counted, keyed by no call
+    assert {n: c for n, c in tracing.counts().items() if not n.startswith(tracing.TARGET)} == {
+        tracing.LAUNCH + "sample_and_logq": 1}
     tracing.count("sync.elsewhere")
     assert tracing.counts("sync.") == {}
 

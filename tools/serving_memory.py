@@ -14,14 +14,15 @@ kept, as ``multipathfinder`` runs each chunk) and prints, for each B:
 * the wall time of the launch (host clock, a synchronize on each side);
 * ``torch.cuda.max_memory_allocated()`` after ``reset_peak_memory_stats()``,
   less what was allocated before, in all and per lane, beside
-  ``parallel.sharding.lane_bytes``, the estimate that ``multipathfinder``'s
-  memory rule divides the card's memory by;
+  ``parallel.sharding.lane_bytes`` with the target's bytes a lane
+  (``parallel.sharding.target_bytes``), the estimate that
+  ``multipathfinder``'s memory rule plans a launch's lanes with;
 * the bytes of the state one lane keeps, traces kept and slim, beside
   ``parallel.sharding.state_bytes``.
 
 The second form measures, per lane, one launch of B paths under each
 optimizer the rule names (``lbfgs``, ``cg``, ``bfgs``, ``newton``) against
-``lane_bytes(optimizer=...)``; ``laplace_resample``'s correction of B
+``lane_bytes(optimizer=...)`` and the target's bytes a lane; ``laplace_resample``'s correction of B
 components (``diag`` and ``full``) against ``laplace_lane_bytes``; and the
 mixture denominator over a block of B paths' draws with every one of 4·B
 components against the term ``lane_bytes`` adds for it.
@@ -31,8 +32,9 @@ paths, the lanes' rows split over the ``dim`` axis: over 2 and over 4
 distinct cards where the machine has them, and over one card named twice.
 For each device it prints the peak above what was allocated before, per
 lane, beside the estimate that device's entry is planned with: the group's
-first device against ``lane_bytes(dim_width=w)`` (its rows, the target's
-full-width evaluation and the joined state), every other against
+first device against ``lane_bytes(dim_width=w)`` and the target's bytes a
+lane (its rows, the target's full-width evaluation and the joined state),
+every other against
 ``lane_bytes`` at ``d / w`` rows; a card named twice holds two entries and
 is planned for twice the first's estimate (``mesh_device_bytes``). With
 ``OPT`` (``bfgs``, ``newton``) the launch runs that optimizer: BFGS holds
@@ -90,10 +92,16 @@ def starts(B):
     return ids, rng.Stream(0, ids, 0, rng.INIT).uniform(D, torch.float32, "cuda") * 4.0 - 2.0
 
 
+def target_lane(target):
+    """The target's bytes for the points one lane hands it at once, as the
+    memory rule learns them (``sharding.target_bytes``)."""
+    return sharding.target_bytes(target, starts(16)[1], max(CHUNK * N_ELBO, NDRAWS))[0]
+
+
 def launches(target, sizes):
     cfg = PathfinderConfig(maxiters=MAXITERS, history_length=J, ndraws_elbo=N_ELBO,
                            ndraws=NDRAWS, elbo_chunk=CHUNK)
-    estimate = sharding.lane_bytes(D, MAXITERS, J, N_ELBO, CHUNK, NDRAWS)
+    estimate = sharding.lane_bytes(D, MAXITERS, J, N_ELBO, CHUNK, NDRAWS) + target_lane(target)
     for B in [64] + sizes:  # the first launch builds the kernels and warms up
         ids, x0s = starts(B)
         state, peak, secs = peak_of(lambda: pathfinder_core(target, x0s, cfg, 0, ids, 0))
@@ -117,7 +125,8 @@ def remedies(target, B):
         ids, x0s = starts(B)
         pathfinder_core(target, x0s[:8], cfg, 0, ids[:8], 0)  # warm up
         state, peak, secs = peak_of(lambda: pathfinder_core(target, x0s, cfg, 0, ids, 0))
-        est = sharding.lane_bytes(D, MAXITERS, J, N_ELBO, CHUNK, NDRAWS, torch.float32, opt)
+        est = (sharding.lane_bytes(D, MAXITERS, J, N_ELBO, CHUNK, NDRAWS, torch.float32, opt)
+               + target_lane(target))
         print(f"optimizer={opt} B={B}: wall_s={secs:.3f} paths_ok={int(state.success.sum())}/{B} "
               f"peak_per_lane={peak / B:.0f} lane_bytes_estimate={est} "
               f"estimate/measured={est / (peak / B):.3f}", flush=True)
@@ -157,7 +166,7 @@ def dim_meshes(target, B, opt="lbfgs"):
         mesh = sharding.paths_dim_mesh(1, names)
         executor = sharding.make_path_executor(mesh)
         lead_est = sharding.lane_bytes(D, MAXITERS, J, N_ELBO, CHUNK, NDRAWS, torch.float32, opt,
-                                       dim_width=w)
+                                       dim_width=w) + target_lane(target)
         member_est = sharding.lane_bytes(D // w, MAXITERS, J, N_ELBO, CHUNK, NDRAWS)
         if opt == "bfgs":  # a member's row blocks of H
             member_est += sharding.DENSE_COPIES["bfgs"] * 4 * (D // w) * D
