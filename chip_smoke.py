@@ -39,7 +39,14 @@ Phases, each of which fails the run (exit code 1) on any error:
    the (1, 2) mesh's two row blocks: a whole search on the headline target,
    every state entry, the trial point and the flag bit for bit after every
    evaluation; one step timed on the card and on the host beside the plain
-   step, and its bound.
+   step, and its bound. Then the L-BFGS iteration kernel (the same source)
+   against the plain iteration at (100, 1000) and (100, 56) in float64 and
+   float32 (``tests/lbfgs_kernel_cases.py``: one launch from a crafted batch
+   and one in start mode; integers, booleans, trace, history rows, search
+   state and trial point bit for bit, the sums over d to rounding), then an
+   L-BFGS run at each d in float64 with the kernel and with the plain
+   iteration: the card's µs a launch beside its bound and the host's µs an
+   iteration, kernel and plain.
 3. The main path: ``multipathfinder`` on ``HierarchicalGaussian(1000)`` with
    100 paths for 5 seeds (the headline configuration), with every path
    succeeding, finite draws and k̂, both kernels and the line-search kernel
@@ -890,7 +897,7 @@ def main_path_phase(pt, wk, zoo):
     target = zoo.HierarchicalGaussian(D, seed=0)
     mean_t, sd_t = zoo.hierarchical_gaussian_truth(D, seed=0)
 
-    totals = dict({name: 0 for name in wk.launch_counts()}, hz_step=0)
+    totals = dict({name: 0 for name in wk.launch_counts()}, hz_step=0, lbfgs_iter=0)
 
     def run(seed):
         wk.reset_launch_counts()
@@ -898,7 +905,7 @@ def main_path_phase(pt, wk, zoo):
         res = pt.multipathfinder(target, 1000, nruns=K, maxiters=64, elbo_chunk=8, seed=seed)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        grew = dict(wk.launch_counts(), hz_step=_hz_launches())
+        grew = dict(wk.launch_counts(), hz_step=_hz_launches(), lbfgs_iter=_iter_launches())
         by_shape = {n: {f"B={b},m={m},N={n_}": c for (b, m, n_, _), c in sorted(v.items())}
                     for n, v in wk.launch_counts_by_shape().items()}
         for n in totals:
@@ -909,7 +916,7 @@ def main_path_phase(pt, wk, zoo):
     for seed in SEEDS:
         res, secs, grew, by_shape = run(seed)
         khat, merr = _check_result(f"seed {seed}", res, mean_t, sd_t)
-        if min(grew[n] for n in FAST_KERNELS + ("hz_step",)) <= 0:
+        if min(grew[n] for n in FAST_KERNELS + ("hz_step", "lbfgs_iter")) <= 0:
             fail(f"seed {seed}: a kernel was not launched on the main path: {grew}")
         draws = res.draws.double().cpu().numpy()
         sderr = float(np.max(np.abs(draws.std(axis=1) - sd_t) / sd_t))
@@ -1803,7 +1810,11 @@ def mesh_phase(pt, wk, zoo, headline, smi):
             res, secs, peak = timed(lambda: pt.multipathfinder(
                 target, 1000, nruns=K, maxiters=64, elbo_chunk=8, seed=0,
                 importance_denominator=denom, **options))
-            grew = wk.launch_counts()
+            grew = dict(wk.launch_counts(), lbfgs_iter=_iter_launches())
+            if grew["lbfgs_iter"] <= 0:
+                fail(f"mesh phase [{denom}, {label}]: the L-BFGS iteration kernel was not "
+                     f"launched: {grew}")
+            del grew["lbfgs_iter"]
             if label != "no mesh":
                 for n, c in grew.items():
                     totals[n] += c
@@ -2701,6 +2712,15 @@ def dim_optimizer_paths(pt, wk, zoo, smi, auto_runs, timed):
     return totals
 
 
+def _iter_launches() -> int:
+    """The L-BFGS iteration kernel's launches since the launch counters'
+    last reset."""
+    from pathfinder_tpu_torch.ops.kernels import linesearch_kernels as lk
+    from pathfinder_tpu_torch.utils import tracing
+
+    return tracing.counts(lk.ITER_COUNTER).get(lk.ITER_COUNTER, 0)
+
+
 def _hz_launches() -> int:
     """The Hager-Zhang state-update kernel's launches since the launch
     counters' last reset (``wk.reset_launch_counts`` resets them all)."""
@@ -2868,6 +2888,57 @@ def hz_step_phase(pt, zoo):
     return rows_out
 
 
+ITER_HISTORY = 6  # the main path's history_length
+ITER_DIMS = (D, 56)  # the two cells' d
+
+
+def lbfgs_iter_phase():
+    """The L-BFGS iteration kernel (``lbfgs_iter_kernel`` of
+    ``csrc/linesearch_kernels.cu``) against the plain iteration at K = 100
+    lanes of each d of ITER_DIMS, in float64 and float32: one launch from a
+    crafted batch (lanes frozen, first, rejecting the curvature pair,
+    aborting, converged, stalled, exhausted, ``pos`` wrapping) and one in
+    start mode, checked by ``tests/lbfgs_kernel_cases.py`` (integers,
+    booleans, trace, history rows, search state and trial point bit for
+    bit; the direction, diagonal, step and dφ(0) to rounding). Then L-BFGS
+    on the hierarchical posterior at each d in float64, with the kernel and
+    with the plain iteration: the card's µs a launch (the profiler's device
+    time of a run's launches) beside the bound, each byte the launch must move once
+    (x, p, g, the search's gradient, α and the lane's 2J history rows read;
+    the trace's two rows, x, g, α, the history's two new rows, p, g_a, g_acc
+    and the trial point written: (16 + 2J) d values a lane), and the host's
+    µs an iteration in the iteration's own work, kernel and plain."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import lbfgs_kernel_cases as lc
+
+    for dtype in (torch.float64, torch.float32):
+        for d in ITER_DIMS:
+            it = lc.check_iteration(K, d, ITER_HISTORY, dtype)
+            start = lc.check_start(K, d, ITER_HISTORY, dtype)
+            print(f"kernel lbfgs_iter [{it['dtype']} K={K} d={d} J={ITER_HISTORY}]: one launch "
+                  f"against the plain iteration: {it['moved']} lanes moved, {it['done']} done, "
+                  f"{it['running']} run on; start mode: {start['running']} run; integers, "
+                  f"booleans, trace, history rows, search state and trial point bit for bit, "
+                  f"the sums over d to rounding", flush=True)
+    rows = []
+    for d in ITER_DIMS:
+        t = lc.iteration_times(K, d, torch.float64)
+        bound = 1e6 * 8 * K * d * (16 + 2 * ITER_HISTORY) / HBM_BYTES_PER_S
+        rows.append(dict(name="lbfgs_iter", dtype="float64", d=d, err=0.0, ms=t["card_us"] / 1e3,
+                         host_us=t["host_us"], plain_host_us=t["plain_host_us"],
+                         bound_us=bound, bound_by="bytes"))
+        print(f"kernel lbfgs_iter [float64 K={K} d={d} J={ITER_HISTORY}]: L-BFGS on the "
+              f"hierarchical posterior, {t['launches']} launches (plain: {t['plain_iterations']} "
+              f"iterations): card {t['card_us']:.3f} us a launch, "
+              f"bound_us={bound:.3f} (bytes) share={bound / t['card_us']:.3f}; host an "
+              f"iteration {t['host_us']:.2f} us, the plain iteration's {t['plain_host_us']:.2f} "
+              f"us; the run {t['run_s']:.3f} s, plain {t['plain_run_s']:.3f} s; "
+              f"num_valid max {t['num_valid_max']}", flush=True)
+    return rows
+
+
 def main():
     try:
         import torch
@@ -2914,6 +2985,8 @@ def main():
     split_rows = dim_split_phase(wk)
     stamp("the line-search kernel phase")
     hz_rows = hz_step_phase(pt, zoo)
+    stamp("the L-BFGS iteration kernel phase")
+    iter_rows = lbfgs_iter_phase()
     if "--kernels-only" in sys.argv[1:]:  # for work on the kernels: stop after their phase
         print("kernel phase passed; stopping before the model phases", flush=True)
         return
@@ -3025,6 +3098,20 @@ def main():
                     "JAX package's search is compiled by XLA)",
         "launches": counts["hz_step"], "max_abs_err": 0.0, "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_us"] / 1e3, "bound_by": "bytes",
+        "library_ms": None, "host_us": head["host_us"], "plain_host_us": head["plain_host_us"],
+    })
+    # the L-BFGS iteration: the head is the benchmark's float64 launch at (100,
+    # 1000); the launches the main path's (float32); bit for bit where no sum
+    # over d enters, to rounding where one does
+    head = next(r for r in iter_rows if r["d"] == D)
+    summary.append({
+        "name": "lbfgs_iter", "route": "cuda",
+        "source": "pathfinder_tpu_torch/csrc/linesearch_kernels.cu",
+        "replaces": "pathfinder_tpu_torch/ops/trajectory.py:advance, ops/lbfgs.py:"
+                    "_lbfgs_direction and _lbfgs_update, ops/linesearch.py:_hz_start and "
+                    "_hz_result (the port's own: the JAX package's loop is compiled by XLA)",
+        "launches": counts["lbfgs_iter"], "max_abs_err": None, "ms": head["ms"],
+        "plain_ms": None, "bound_ms": head["bound_us"] / 1e3, "bound_by": "bytes",
         "library_ms": None, "host_us": head["host_us"], "plain_host_us": head["plain_host_us"],
     })
     for item in summary:

@@ -15,19 +15,25 @@ minimizes ``f = −logp``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import torch
 
+from pathfinder_tpu_torch.ops import linesearch as ls_ops
+from pathfinder_tpu_torch.ops.kernels import linesearch_kernels
 from pathfinder_tpu_torch.ops.linesearch import initial_step_size
 from pathfinder_tpu_torch.ops.trajectory import (
     OptimizationTrace,
     minimize_trace,
+    report,
     scale_aware_gtol,
     should_abort_nonfinite,
+    start_trace,
 )
 from pathfinder_tpu_torch.ops.woodbury import WoodburyPDMat, solve_triangular
-from pathfinder_tpu_torch.utils.rows import sum_rows
+from pathfinder_tpu_torch.utils import tracing
+from pathfinder_tpu_torch.utils.rows import in_group, sum_rows
 
 __all__ = [
     "OptimizationTrace",
@@ -35,6 +41,7 @@ __all__ = [
     "gilbert_init",
     "scale_aware_gtol",
     "should_abort_nonfinite",
+    "lbfgs_carry",
     "minimize_lbfgs_trace",
     "lbfgs_inverse_hessian",
     "lbfgs_history_aux",
@@ -94,6 +101,61 @@ def _two_loop_direction(g, alpha, S, Y, pos, hlen):
     return -Hg
 
 
+def _lbfgs_direction(st, gs):
+    """L-BFGS's ``direction_fn`` of ``ops/trajectory.minimize_trace``: the
+    two-loop direction, the descent safeguard, and the first iteration's
+    step guess."""
+    g, alpha = st["g"], st["alpha"]
+    direction = _two_loop_direction(g, alpha, st["S"], st["Y"], st["pos"], st["hlen"])
+    # safeguard: scaled steepest descent if not a descent direction
+    bad_dir = ~(sum_rows(torch.sum(g * direction, dim=-1)) < 0)
+    direction = torch.where(bad_dir[:, None], -alpha * g, direction)
+    alpha0 = torch.where(
+        st["it"] == 0, initial_step_size(st["x"], st["f"], g), torch.ones_like(st["f"])
+    )
+    return direction, alpha0, None
+
+
+def _lbfgs_update(st, mid, direction, ls, x_new, *, history_length, epsilon_curvature):
+    """L-BFGS's ``update_fn``: the curvature-guarded history update."""
+    J = history_length
+    progress, alpha = ls.ok, st["alpha"]
+    svec = x_new - st["x"]
+    yvec = ls.g - st["g"]
+    curv, yy = sum_rows(torch.sum(yvec * svec, dim=-1), torch.sum(yvec * yvec, dim=-1))
+    accept = progress & (curv > epsilon_curvature * yy)
+    if J > 0:
+        lanes = torch.arange(x_new.shape[0], device=x_new.device)
+        write = (st["pos"] + 1) % J
+        S, Y = st["S"].clone(), st["Y"].clone()
+        S[lanes, write] = torch.where(accept[:, None], svec, S[lanes, write])
+        Y[lanes, write] = torch.where(accept[:, None], yvec, Y[lanes, write])
+        pos = torch.where(accept, write, st["pos"])
+    else:
+        S, Y, pos = st["S"], st["Y"], st["pos"]
+    return dict(
+        alpha=torch.where(accept[:, None], gilbert_init(alpha, svec, yvec), alpha),
+        S=S, Y=Y, pos=pos,
+        hlen=torch.where(accept, torch.clamp(st["hlen"] + 1, max=J), st["hlen"]),
+        nrej=st["nrej"] + (progress & ~accept).long(),
+    )
+
+
+def lbfgs_carry(x0: torch.Tensor, history_length: int) -> dict:
+    """L-BFGS's initial carry: ``alpha`` (diag H₀), the circular history
+    ``S``, ``Y`` ``(K, J, d)`` and its ``pos``, ``hlen`` and ``nrej``."""
+    K, d = x0.shape
+    dtype, dev = x0.dtype, x0.device
+    J = history_length
+    izero = torch.zeros(K, dtype=torch.int64, device=dev)
+    return dict(
+        alpha=torch.ones((K, d), dtype=dtype, device=dev),
+        S=torch.zeros((K, J, d), dtype=dtype, device=dev),
+        Y=torch.zeros((K, J, d), dtype=dtype, device=dev),
+        pos=izero, hlen=izero, nrej=izero,
+    )
+
+
 def minimize_lbfgs_trace(
     value_and_grad: Callable,
     x0: torch.Tensor,
@@ -119,57 +181,73 @@ def minimize_lbfgs_trace(
     the curvature-guarded history update. The masked loop over the K lanes
     is ``ops/trajectory.py``'s, shared with the other optimizers, which also
     prints the progress lines of ``progress_every > 0``.
+
+    With the Hager-Zhang search on float32 or float64 tensors on a CUDA
+    device, outside a row group, each iteration's own work is one launch of
+    a CUDA kernel (``ops/kernels/linesearch_kernels.Iterations``, where
+    ``iterates`` says so) beside the search's one launch an evaluation; the
+    plain loop above runs everywhere else. The two agree to rounding in the
+    sums over ``d``.
     """
-    K, d = x0.shape
-    dtype, dev = x0.dtype, x0.device
     J = history_length
-    lanes = torch.arange(K, device=dev)
-    izero = torch.zeros(K, dtype=torch.int64, device=dev)
-    carry = dict(
-        alpha=torch.ones((K, d), dtype=dtype, device=dev),  # diag H₀
-        S=torch.zeros((K, J, d), dtype=dtype, device=dev),  # circular history
-        Y=torch.zeros((K, J, d), dtype=dtype, device=dev),
-        pos=izero, hlen=izero, nrej=izero,
+    settings = dict(maxiters=maxiters, gtol=gtol, ftol=ftol, fail_on_nonfinite=fail_on_nonfinite)
+    if (line_search == "hager_zhang" and not in_group()
+            and linesearch_kernels.iterates(x0.device, x0.dtype, J) and x0.shape[0] > 0):
+        return _minimize_by_launches(
+            value_and_grad, x0, history_length=J, epsilon_curvature=epsilon_curvature,
+            max_ls_evals=max_ls_evals, c1=ls_ops.resolve_c1(c1, line_search), c2=c2,
+            progress_every=progress_every, **settings)
+    update_fn = functools.partial(_lbfgs_update, history_length=J,
+                                  epsilon_curvature=epsilon_curvature)
+    return minimize_trace(
+        value_and_grad, x0, lbfgs_carry(x0, J), _lbfgs_direction, update_fn,
+        max_ls_evals=max_ls_evals, c1=c1, c2=c2, line_search=line_search,
+        progress_every=progress_every, name="L-BFGS", **settings,
     )
 
-    def direction_fn(st, gs):
-        g, alpha = st["g"], st["alpha"]
-        direction = _two_loop_direction(g, alpha, st["S"], st["Y"], st["pos"], st["hlen"])
-        # safeguard: scaled steepest descent if not a descent direction
-        bad_dir = ~(sum_rows(torch.sum(g * direction, dim=-1)) < 0)
-        direction = torch.where(bad_dir[:, None], -alpha * g, direction)
-        alpha0 = torch.where(
-            st["it"] == 0, initial_step_size(st["x"], st["f"], g), torch.ones_like(st["f"])
-        )
-        return direction, alpha0, None
 
-    def update_fn(st, mid, direction, ls, x_new):
-        progress, alpha = ls.ok, st["alpha"]
-        # curvature-guarded history update
-        svec = x_new - st["x"]
-        yvec = ls.g - st["g"]
-        curv, yy = sum_rows(torch.sum(yvec * svec, dim=-1), torch.sum(yvec * yvec, dim=-1))
-        accept = progress & (curv > epsilon_curvature * yy)
-        if J > 0:
-            write = (st["pos"] + 1) % J
-            S, Y = st["S"].clone(), st["Y"].clone()
-            S[lanes, write] = torch.where(accept[:, None], svec, S[lanes, write])
-            Y[lanes, write] = torch.where(accept[:, None], yvec, Y[lanes, write])
-            pos = torch.where(accept, write, st["pos"])
-        else:
-            S, Y, pos = st["S"], st["Y"], st["pos"]
-        return dict(
-            alpha=torch.where(accept[:, None], gilbert_init(alpha, svec, yvec), alpha),
-            S=S, Y=Y, pos=pos,
-            hlen=torch.where(accept, torch.clamp(st["hlen"] + 1, max=J), st["hlen"]),
-            nrej=st["nrej"] + (progress & ~accept).long(),
-        )
-
-    return minimize_trace(
-        value_and_grad, x0, carry, direction_fn, update_fn,
-        maxiters=maxiters, gtol=gtol, ftol=ftol, max_ls_evals=max_ls_evals,
-        c1=c1, c2=c2, fail_on_nonfinite=fail_on_nonfinite, line_search=line_search,
-        progress_every=progress_every, name="L-BFGS",
+def _minimize_by_launches(value_and_grad, x0, *, maxiters, gtol, ftol, fail_on_nonfinite,
+                          history_length, epsilon_curvature, max_ls_evals, c1, c2,
+                          progress_every) -> OptimizationTrace:
+    """:func:`minimize_lbfgs_trace` with the Hager-Zhang search, an
+    iteration's own work one launch of the iteration kernel and each
+    evaluation's state update one of the search's kernel: the host reads one
+    flag an iteration (any lane runs on, which is also the search's first
+    check) and one an evaluation."""
+    neg_vg, f0, g0, gtol_eff, init_abort, ftol_rel, trace = start_trace(
+        value_and_grad, x0, maxiters=maxiters, gtol=gtol, ftol=ftol,
+        fail_on_nonfinite=fail_on_nonfinite)
+    batch = linesearch_kernels.Iterations(
+        x0, f0, g0, init_abort, gtol_eff, trace, history_length=history_length,
+        maxiters=maxiters, ftol_rel=ftol_rel, epsilon_curvature=epsilon_curvature,
+        fail_on_nonfinite=fail_on_nonfinite, epsilon=ls_ops.HZ_EPSILON, psi0=ls_ops.PSI0)
+    s = batch.search
+    f0_, dphi0, eps_k = s.floats[len(linesearch_kernels.FIELDS):].unbind(0)
+    k = ls_ops._HZConst(f0_, dphi0, eps_k, c1, c2, ls_ops.HZ_GAMMA, ls_ops.HZ_THETA,
+                        ls_ops.HZ_EXPAND, max_ls_evals)
+    x_c, more = batch.launch(start=True)
+    while True:
+        with tracing.sync("ops/lbfgs.py"):
+            if not bool(more):
+                break
+        if max_ls_evals > 0:
+            ls_ops.hz_evaluations(neg_vg, s, k, batch.x, batch.p, x_c, linesearch_kernels.step)
+        if progress_every > 0:
+            it_before = batch.it.clone()
+        x_c, more = batch.launch()
+        if progress_every > 0:
+            it_new = batch.it
+            report(it_new, trace[1][torch.arange(it_new.shape[0], device=it_new.device), it_new],
+                   it_new != it_before, every=progress_every, maxiters=maxiters, name="L-BFGS")
+    xs, fs, gs = trace
+    return OptimizationTrace(
+        xs=xs,
+        log_densities=fs,
+        gradients=gs,
+        num_valid=batch.it + 1,
+        num_bfgs_updates_rejected=batch.nrej,
+        num_fn_evals=batch.nev,
+        num_ls_exhausted=batch.nexh,
     )
 
 

@@ -29,6 +29,7 @@ from pathfinder_tpu_torch.utils.rows import max_rows, sum_rows
 __all__ = [
     "LineSearchResult",
     "hager_zhang_line_search",
+    "hz_evaluations",
     "backtracking_line_search",
     "more_thuente_line_search",
     "wolfe_line_search",
@@ -77,7 +78,15 @@ def resolve_c1(c1, line_search: str) -> float:
     return 0.1 if line_search == "hager_zhang" else 1e-4
 
 
-def initial_step_size(x0, f0, g0, psi0=0.01):
+# Hager-Zhang's settings that the trajectory optimizers leave at their defaults
+HZ_EXPAND = 5.0
+HZ_EPSILON = 1e-6
+HZ_GAMMA = 0.66
+HZ_THETA = 0.5
+PSI0 = 0.01  # initial_step_size's default
+
+
+def initial_step_size(x0, f0, g0, psi0=PSI0):
     """First-iteration step guess (HZ's ``InitialHagerZhang`` I0 rule)."""
     xinf, ginf = max_rows(x0.abs().amax(dim=-1), g0.abs().amax(dim=-1))
     gnormsq = sum_rows(torch.sum(g0 * g0, dim=-1))
@@ -297,10 +306,10 @@ def hager_zhang_line_search(
     c1: float = 0.1,
     c2: float = 0.9,
     max_evals: int = 12,
-    expand: float = 5.0,
-    epsilon: float = 1e-6,
-    gamma: float = 0.66,
-    theta: float = 0.5,
+    expand: float = HZ_EXPAND,
+    epsilon: float = HZ_EPSILON,
+    gamma: float = HZ_GAMMA,
+    theta: float = HZ_THETA,
     active: Optional[torch.Tensor] = None,
 ) -> LineSearchResult:
     """Hager-Zhang line search (Hager & Zhang 2005, CG_DESCENT).
@@ -327,17 +336,26 @@ def hager_zhang_line_search(
         s, step = linesearch_kernels.pack(s, k), linesearch_kernels.step
     else:
         step = _hz_step_torch
+    with tracing.sync("ops/linesearch.py"):
+        more = bool(more)
+    if more:
+        s = hz_evaluations(value_and_grad, s, k, x, p, x_c, step)
+    return _hz_result(s, k, g0)
 
+
+def hz_evaluations(value_and_grad: Callable, s: dict, k: _HZConst, x, p, x_c, step: Callable):
+    """A Hager-Zhang search's evaluations from the state ``s`` and its first
+    trial point ``x_c``, the caller having found that a lane runs: each
+    evaluates the batch at the trial points, updates the state by ``step``
+    and reads whether any lane runs on. Returns the final state."""
     while True:
-        with tracing.sync("ops/linesearch.py"):
-            more = bool(more)
-        if not more:
-            break
         phi_c, g_c = value_and_grad(x_c)
         phi_c, g_c = phi_c.to(x.dtype), g_c.to(x.dtype)
         dphi_c = sum_rows(torch.sum(g_c * p, dim=-1))
         s, x_c, more = step(s, phi_c, g_c, dphi_c, x, p, k)
-    return _hz_result(s, k, g0)
+        with tracing.sync("ops/linesearch.py"):
+            if not bool(more):
+                return s
 
 
 def backtracking_line_search(

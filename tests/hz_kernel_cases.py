@@ -109,6 +109,20 @@ def plain_steps():
         lk.takes = real
 
 
+@contextlib.contextmanager
+def plain_iterations():
+    """Every L-BFGS run in the block takes the plain iteration, on any device
+    and dtype (the searches' state updates keep their route)."""
+    from pathfinder_tpu_torch.ops.kernels import linesearch_kernels as lk
+
+    real = lk.iterates
+    lk.iterates = lambda device, dtype, history_length: False
+    try:
+        yield
+    finally:
+        lk.iterates = real
+
+
 def check_steps(name: str, dtype, max_evals: int = 12, active=None, device="cuda") -> dict:
     """One search of problem ``name`` on ``device``, driven with both steps
     from the same state: after every evaluation the kernel's state, trial
@@ -182,7 +196,8 @@ def hiergauss_logp(z: torch.Tensor, obs: torch.Tensor) -> torch.Tensor:
 def check_lbfgs(K: int = 16, d: int = 1000, seed: int = 2**33 + 17) -> dict:
     """L-BFGS (Hager-Zhang) on the hierarchical posterior in float64 on the
     card, with the kernel and with the plain step: trace, ``num_fn_evals``
-    and ``num_valid`` bit for bit, and one launch per evaluation."""
+    and ``num_valid`` bit for bit, and one launch per evaluation. Both runs
+    take the plain iteration, so the search's update is all that differs."""
     from pathfinder_tpu_torch.models.protocol import autograd_value_and_grad
     from pathfinder_tpu_torch.ops.lbfgs import minimize_lbfgs_trace
 
@@ -198,10 +213,11 @@ def check_lbfgs(K: int = 16, d: int = 1000, seed: int = 2**33 + 17) -> dict:
         return vg(z)
 
     before = launches()
-    fused = minimize_lbfgs_trace(counted, x0, maxiters=64, history_length=6)
-    fused_launches, fused_calls = launches() - before, calls[0]
-    with plain_steps():
-        plain = minimize_lbfgs_trace(vg, x0, maxiters=64, history_length=6)
+    with plain_iterations():
+        fused = minimize_lbfgs_trace(counted, x0, maxiters=64, history_length=6)
+        fused_launches, fused_calls = launches() - before, calls[0]
+        with plain_steps():
+            plain = minimize_lbfgs_trace(vg, x0, maxiters=64, history_length=6)
     assert launches() - before == fused_launches, "the plain run launched the kernel"
     for field in ("xs", "log_densities", "gradients", "num_fn_evals", "num_valid"):
         assert same_bits(getattr(fused, field), getattr(plain, field)), ("lbfgs", field)

@@ -17,7 +17,9 @@ from a search's first evaluation at a steepest-descent direction:
   queue holds);
 - the L-BFGS run of the headline (``maxiters=64``, ``history_length=6``)
   with the kernel and with the plain step, in turns (plain, kernel, kernel,
-  plain): seconds a run, and that the traces are the same bits.
+  plain), both with the plain iteration (the L-BFGS iteration kernel off,
+  so that the step is all that differs): seconds a run, and that the traces
+  are the same bits.
 
 Prints the card's name and power limit first and one JSON line last.
 """
@@ -35,7 +37,8 @@ sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
 import torch  # noqa: E402
 
-from hz_kernel_cases import hiergauss_logp, plain_steps, same_bits  # noqa: E402
+from hz_kernel_cases import (  # noqa: E402
+    hiergauss_logp, plain_iterations, plain_steps, same_bits)
 from pathfinder_tpu_torch.models.protocol import autograd_value_and_grad  # noqa: E402
 from pathfinder_tpu_torch.ops import linesearch as tls  # noqa: E402
 from pathfinder_tpu_torch.ops.kernels import linesearch_kernels as lk  # noqa: E402
@@ -123,7 +126,7 @@ def main(argv=None) -> int:
     minimize_lbfgs_trace(vg, x0, maxiters=64, history_length=6)  # warm-up
     runs, traces = [], {}
     for kind in ["plain", "kernel", "kernel", "plain"] * args.runs:
-        with plain_steps() if kind == "plain" else contextlib.nullcontext():
+        with plain_iterations(), plain_steps() if kind == "plain" else contextlib.nullcontext():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             tr = minimize_lbfgs_trace(vg, x0, maxiters=64, history_length=6)
