@@ -2953,7 +2953,6 @@ def main():
     try:
         import pathfinder_tpu_torch as pt
         from pathfinder_tpu_torch.models import zoo
-        from pathfinder_tpu_torch.ops.kernels import linesearch_kernels as lk
         from pathfinder_tpu_torch.ops.kernels import woodbury_kernels as wk
     except ImportError as e:
         fail(f"the port is not beside this script: {e}")
@@ -2969,8 +2968,7 @@ def main():
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     t_start = t0 = time.perf_counter()
-    wk.load_library()
-    lk.load_library()
+    wk.load_library()  # every source of the package, built together; the Woodbury libraries loaded
     print(f"build: kernels built and loaded in {time.perf_counter() - t0:.2f}s", flush=True)
 
     def stamp(name):

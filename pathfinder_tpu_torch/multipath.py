@@ -114,8 +114,7 @@ def _maybe_warn_bad_khat(
         verdict = psis_result.diagnosis
     if verdict not in ("bad", "very bad"):
         return
-    with tracing.sync("multipath.py"):
-        k = float(psis_result.pareto_shape)
+    k = tracing.read(psis_result.pareto_shape, "multipath.py")
     warnings.warn(
         f"Pareto k-hat = {k:.2f} ({verdict}): importance weights are "
         "unreliable and resampled draws may misrepresent the target; "
@@ -573,9 +572,7 @@ def multipathfinder(
         states = tree_map(merge, states, retry)
         num_tries[failed] += 1
         rounds += 1
-    n_failed = (~states.success).sum()
-    with tracing.sync("multipath.py"):
-        n_failed = int(n_failed)
+    n_failed = tracing.read((~states.success).sum(), "multipath.py")
     if reporter is not None:
         reporter.update(nruns - n_failed)
         reporter.close()

@@ -100,9 +100,7 @@ def maximize_elbo_chunked(
     dev = valid_mask.device
     pos = torch.arange(1, num_candidates + 1, device=dev)
     # the cutoff is the last valid index + 1, so scattered masks work too
-    n_valid_cand = torch.where(valid_mask, pos, 0).amax()
-    with tracing.sync("ops/elbo.py"):
-        n_valid_cand = int(n_valid_cand)
+    n_valid_cand = tracing.read(torch.where(valid_mask, pos, 0).amax(), "ops/elbo.py")
     vals = torch.full((K, nchunks * C), torch.nan, dtype=dtype, device=dev)
     ses = torch.full_like(vals, torch.nan)
     for c in range(nchunks):

@@ -19,9 +19,8 @@ those tensors, so the search's epilogue reads either. A launch updates them
 in place, writes the next trial point into a new tensor and sets the flag
 that the search's next check reads (two int32 slots, taken in turn).
 
-The library is built by ``nvcc`` at first use with the Woodbury kernels'
-flags, named by a hash of the source and the flags, and bound with
-``ctypes`` (``woodbury_kernels._load_all``). Each launch counts once in the
+The library is built with the package's other sources, loaded and
+launched by ``ops/kernels/_build.py``. Each launch counts once in the
 always-on launch counter, ``launch.hz_step`` (``utils/tracing.py``), with no
 shape: it is not one of ``woodbury_kernels``' kernels, whose counts are kept
 by ``(B, m, N, shared)``.
@@ -43,24 +42,27 @@ rounding level. It is taken where :func:`iterates` says so, and counts
 from __future__ import annotations
 
 import ctypes
+import functools
+from pathlib import Path
 
 import torch
 
-from pathfinder_tpu_torch.ops.kernels import woodbury_kernels as wk
+from pathfinder_tpu_torch.ops.kernels import _build
 from pathfinder_tpu_torch.utils import tracing
 
 __all__ = ["COUNTER", "FIELDS", "CONSTANTS", "HZState", "INTS", "ITER_COUNTER", "Iterations",
            "MAX_HISTORY", "iterates", "load_library", "pack", "step", "takes"]
 
-_SOURCE = wk._PKG_DIR / "csrc" / "linesearch_kernels.cu"
+_SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "linesearch_kernels.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}  # csrc: pf_hz_step's dtype
-COUNTER = tracing.LAUNCH + "hz_step"  # launches since the family's last reset
+_HZ, _ITER = "hz_step", "lbfgs_iter"  # the kernels' names in the launch counter
+COUNTER = tracing.LAUNCH + _HZ  # launches since the family's last reset
 
 # the rows of the state tensor (csrc: enum Field), then the search's constants
 FIELDS = ("c", "a", "phi_a", "dphi_a", "b", "phi_b", "dphi_b", "a0", "b0", "phi_a0",
           "dphi_a0", "phi_b0", "dphi_b0", "a_acc", "phi_acc")
 CONSTANTS = ("f0", "dphi0", "eps_k")
-ITER_COUNTER = tracing.LAUNCH + "lbfgs_iter"
+ITER_COUNTER = tracing.LAUNCH + _ITER
 # the rows of an L-BFGS batch's int64 state (csrc: enum LbfgsInt)
 INTS = ("it", "nev", "nexh", "pos", "hlen", "nrej")
 MAX_HISTORY = 32  # the longest L-BFGS history an iteration's launch takes (csrc: kMaxHistory)
@@ -108,16 +110,11 @@ def _bind(lib) -> None:
         raise RuntimeError("line-search kernel library and wrapper disagree on an L-BFGS batch")
 
 
-_lib = None  # the library once loaded, read by every launch without a lock
-
-
+@functools.cache
 def load_library() -> ctypes.CDLL:
-    """Build and load the line-search kernel's library; returns it."""
-    global _lib
-    if _lib is None:
-        wk._load_all({_SOURCE: _bind})
-        _lib = wk._libs[_SOURCE.name]
-    return _lib
+    """Build (with the package's other sources) and load the line-search
+    kernel's library; returns it."""
+    return _build.load(_SOURCE, _bind)
 
 
 class HZState(dict):
@@ -163,19 +160,14 @@ def step(s: HZState, phi_c, g_c, dphi_c, x, p, k) -> tuple:
     x, p = x.contiguous(), p.contiguous()
     x_next = torch.empty_like(x)
     parity = s.evals & 1
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.pf_hz_step(
-            _DTYPE_CODES[dtype], floats.data_ptr(), s.ints.data_ptr(), s["accepted"].data_ptr(),
-            s["g_a"].data_ptr(), s["g_acc"].data_ptr(), phi_c.data_ptr(), dphi_c.data_ptr(),
-            g_c.data_ptr(), x.data_ptr(), p.data_ptr(), x_next.data_ptr(), s.flags.data_ptr(),
-            parity, K, d, int(k.max_evals), float(k.delta), float(k.sigma),
-            2.0 * float(k.delta) - 1.0, float(k.gamma), float(k.theta), float(k.expand), stream)
-    if code != 0:
-        raise RuntimeError(f"hz_step kernel launch failed with cudaError {code}")
+    _build.launch(
+        _HZ, load_library().pf_hz_step, _DTYPE_CODES[dtype], floats.data_ptr(),
+        s.ints.data_ptr(), s["accepted"].data_ptr(), s["g_a"].data_ptr(), s["g_acc"].data_ptr(),
+        phi_c.data_ptr(), dphi_c.data_ptr(), g_c.data_ptr(), x.data_ptr(), p.data_ptr(),
+        x_next.data_ptr(), s.flags.data_ptr(), parity, K, d, int(k.max_evals), float(k.delta),
+        float(k.sigma), 2.0 * float(k.delta) - 1.0, float(k.gamma), float(k.theta),
+        float(k.expand), device=dev)
     s.evals += 1
-    tracing.count(COUNTER)
     return s, x_next, s.flags[parity]
 
 
@@ -187,7 +179,9 @@ class Iterations:
     int64 rows :data:`INTS` (``ints``; ``it``, ``nev``, ... their views), the
     masks ``done`` and ``run`` (the lanes of the search under way), and the
     search's state ``search`` (an :class:`HZState`, updated by :func:`step`
-    between launches). The trace buffers ``xs``, ``fs``, ``gs`` (row 0
+    between launches) with its constants ``f0``, ``dphi0`` and ``eps_k``
+    (:data:`CONSTANTS`, views of its rows that each search's start writes).
+    The trace buffers ``xs``, ``fs``, ``gs`` (row 0
     written) and the effective ``gtol`` are the caller's; each launch writes
     the trace rows of the lanes that moved in place. ``x0``, ``f0`` and
     ``g0`` are copied; ``done`` marks the lanes that start done."""
@@ -218,6 +212,8 @@ class Iterations:
         self.search = _state(floats, torch.empty((2, K), dtype=torch.int64, device=dev),
                              torch.empty(K, dtype=torch.bool, device=dev),
                              torch.empty_like(self.x), torch.empty_like(self.x))
+        for name, row in zip(CONSTANTS, floats[len(FIELDS):].unbind(0)):
+            setattr(self, name, row)
         for name, t, shape in (("gtol", self.gtol, (K,)), ("xs", self.xs, (K, maxiters + 1, d)),
                                ("fs", self.fs, (K, maxiters + 1)),
                                ("gs", self.gs, (K, maxiters + 1, d))):
@@ -246,12 +242,7 @@ class Iterations:
         parity = s.evals & 1
         args = self._args
         args.x_c, args.parity, args.start = x_c.data_ptr(), parity, int(start)
-        lib = load_library()
-        with torch.cuda.device(self.x.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            code = lib.pf_lbfgs_iter(self._dtype, ctypes.addressof(args), stream)
-        if code != 0:
-            raise RuntimeError(f"lbfgs_iter kernel launch failed with cudaError {code}")
+        _build.launch(_ITER, load_library().pf_lbfgs_iter, self._dtype,
+                      ctypes.addressof(args), device=self.x.device)
         s.evals += 1
-        tracing.count(ITER_COUNTER)
         return x_c, s.flags[parity]

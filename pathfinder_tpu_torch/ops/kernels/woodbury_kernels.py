@@ -22,13 +22,13 @@ shared-x kernel. Nothing is caught and retried on another route.
 
 Each wrapper takes tensors on the CPU through the plain version, and
 tensors on a CUDA device through a kernel; on a CUDA tensor it launches
-the kernel or raises, and never falls back. The kernels are built with
-``nvcc`` at first use, all sources at once, from the sources in the
-package, into the ``build/`` directory beside the package, and bound with
-``ctypes``. How a launch is cut is decided here, by :func:`_launch_plan`
-for the fast kernel, :func:`_general_rows_plan` for the general one
-(``factor_kernel``) and :func:`_shared_plan` for the shared-x one, and
-checked by each kernel against its own layout.
+the kernel or raises, and never falls back. The libraries are built from
+the package's ``csrc/``, loaded and launched by ``ops/kernels/_build.py``;
+the binders here give each entry point its argument types. How a launch
+is cut is decided here, by :func:`_launch_plan` for the fast kernel,
+:func:`_general_rows_plan` for the general one (``factor_kernel``) and
+:func:`_shared_plan` for the shared-x one, and checked by each kernel
+against its own layout.
 
 Shapes (batch ``B`` of independent factors, dimension ``d``, rank ``m``,
 ``N`` draws): ``u``/``x`` ``(B, d, N)``, ``a_half``/``mu`` ``(B, d)``,
@@ -61,17 +61,13 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-import hashlib
 import math
-import os
 import re
-import subprocess
-import tempfile
-import threading
 from pathlib import Path
 
 import torch
 
+from pathfinder_tpu_torch.ops.kernels import _build
 from pathfinder_tpu_torch.utils import tracing
 
 __all__ = [
@@ -104,11 +100,6 @@ _PKG_DIR = Path(__file__).resolve().parents[2]
 _SOURCE = _PKG_DIR / "csrc" / "woodbury_kernels.cu"
 _GENERAL_SOURCE = _PKG_DIR / "csrc" / "woodbury_general.cu"
 _SHARED_SOURCE = _PKG_DIR / "csrc" / "woodbury_shared.cu"
-_BUILD_DIR = _PKG_DIR.parent / "build" / "pathfinder_tpu_torch"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
 MAX_RANK = 32  # the fast kernel's rank cap; the general kernel takes any rank
 
 # Hopper limits the launch plan works within (H100 SXM)
@@ -150,9 +141,6 @@ _KERNELS = (
     "sample_and_logq_partial_general", "sample_and_logq_resume_general",
     "whiten_sumsq_partial", "whiten_sumsq_resume", "whiten_sumsq_partial_general",
     "whiten_sumsq_resume_general", "whiten_sumsq_shared_partial", "whiten_sumsq_shared_resume")
-_libs = {}  # source name -> the loaded library
-_lib_logs = {}  # source name -> what nvcc (ptxas -v) said when it built it
-_lib_lock = threading.Lock()
 
 
 def launch_counts() -> dict:
@@ -169,11 +157,6 @@ def launch_counts_by_shape() -> dict:
 
 def reset_launch_counts() -> None:
     tracing.reset(tracing.LAUNCH)
-
-
-def _count(name: str, shape: tuple) -> None:
-    """One launch of ``name`` at ``shape`` ``(B, m, N, shared)``."""
-    tracing.count(tracing.LAUNCH + name, key=shape)
 
 
 # -- plain versions -----------------------------------------------------------
@@ -615,50 +598,7 @@ def uses_fast_kernel(dtype, m: int) -> bool:
     return dtype == torch.float32 and m <= MAX_RANK
 
 
-# -- build and bind -----------------------------------------------------------
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def _library_path(source: Path) -> Path:
-    """Where the library of ``source`` is built: named by a hash of the
-    source and the flags."""
-    tag = hashlib.sha256(source.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_DIR / f"{source.stem}_{tag}.so"
-
-
-def _build(sources) -> None:
-    """Build the libraries of ``sources`` not built yet, one ``nvcc`` each,
-    all started together."""
-    todo = [src for src in sources if not _library_path(src).exists()]
-    if not todo:
-        return
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for src in todo:
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(src)]
-        procs.append((src, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed = []
-    for src, tmp, proc in procs:
-        out, _ = proc.communicate(timeout=900)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
-            continue
-        so_path = _library_path(src)
-        so_path.with_suffix(".log").write_text(out)
-        os.replace(tmp, so_path)
-    if failed:
-        raise RuntimeError("\n".join(failed))
+# -- bind and load ------------------------------------------------------------
 
 
 def _bind_fast(fast) -> None:
@@ -714,42 +654,28 @@ def _bind_shared(shared) -> None:
         raise RuntimeError("shared-x kernel library and wrapper disagree on the tiles")
 
 
-_BINDERS = {_SOURCE: _bind_fast, _GENERAL_SOURCE: _bind_general, _SHARED_SOURCE: _bind_shared}
-
-
-def _load_all(binders=_BINDERS) -> None:
-    """Build (once per source and flags, all at once) and load the libraries
-    of the sources of ``binders`` (``{source: its binder}``) not loaded yet."""
-    with _lib_lock:
-        todo = [src for src in binders if src.name not in _libs]
-        if not todo:
-            return
-        _build(todo)
-        for src in todo:
-            lib = ctypes.CDLL(str(_library_path(src)))
-            binders[src](lib)
-            log = _library_path(src).with_suffix(".log")
-            _lib_logs[src.name] = log.read_text() if log.exists() else ""
-            _libs[src.name] = lib
-
-
+@functools.cache
 def load_library() -> ctypes.CDLL:
-    """Build and load the three kernel libraries (one ``nvcc`` each, started
-    together); returns the fast kernel's."""
-    _load_all()
-    return _libs[_SOURCE.name]
+    """Build every kernel library of the package (one ``nvcc`` a source,
+    started together) and load the three Woodbury kernels'; returns the
+    fast kernel's."""
+    load_general_library()
+    load_shared_library()
+    return _build.load(_SOURCE, _bind_fast)
 
 
+@functools.cache
 def load_general_library() -> ctypes.CDLL:
-    """Build and load the general kernel's library; returns it."""
-    _load_all({_GENERAL_SOURCE: _bind_general})
-    return _libs[_GENERAL_SOURCE.name]
+    """Build (with the package's other sources) and load the general
+    kernel's library; returns it."""
+    return _build.load(_GENERAL_SOURCE, _bind_general)
 
 
+@functools.cache
 def load_shared_library() -> ctypes.CDLL:
-    """Build and load the shared-x kernel's library; returns it."""
-    _load_all({_SHARED_SOURCE: _bind_shared})
-    return _libs[_SHARED_SOURCE.name]
+    """Build (with the package's other sources) and load the shared-x
+    kernel's library; returns it."""
+    return _build.load(_SHARED_SOURCE, _bind_shared)
 
 
 def kernel_resources() -> dict:
@@ -761,7 +687,7 @@ def kernel_resources() -> dict:
     names = ("sample_and_logq", "whiten_sumsq", "sample_and_logq_partial", "sample_and_logq_resume",
              "whiten_sumsq_partial", "whiten_sumsq_resume")
     return _ptxas_resources(
-        _lib_logs[_SOURCE.name], r"woodbury_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+        _build.log(_SOURCE), r"woodbury_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
         lambda mr, nt, mode: (names[int(mode)], int(mr), int(nt)))
 
 
@@ -788,7 +714,7 @@ def general_kernel_resources() -> dict:
         wide = " (float64 sums)" if sums == "d" and t != "d" else ""
         return names[int(mode)], _MANGLED_DTYPES[t] + wide, int(nt)
 
-    return _ptxas_resources(_lib_logs[_GENERAL_SOURCE.name],
+    return _ptxas_resources(_build.log(_GENERAL_SOURCE),
                             rf"factor_kernelI{_MANGLED}Li(\d)ELi(\d)E(f|d)", key)
 
 
@@ -805,7 +731,7 @@ def shared_kernel_resources() -> dict:
     storage dtype and mode (``_SHARED_MODES``)."""
     load_shared_library()
     return _ptxas_resources(
-        _lib_logs[_SHARED_SOURCE.name], rf"shared_kernelI{_MANGLED}Li(\d)ELi(\d)EE",
+        _build.log(_SHARED_SOURCE), rf"shared_kernelI{_MANGLED}Li(\d)ELi(\d)EE",
         lambda t, mode, part: (_SHARED_PARTS[int(part)], _MANGLED_DTYPES[t],
                                _SHARED_MODES[int(mode)]))
 
@@ -872,22 +798,11 @@ def _pointers(tensors):
     return [t.data_ptr() or tensors[1].data_ptr() for t in tensors]
 
 
-def _check_code(name, code, plan):
-    if code == -1:
-        raise RuntimeError(f"{name} kernel rejected the launch plan {plan}")
-    if code != 0:
-        raise RuntimeError(f"{name} kernel launch failed with cudaError {code}")
-
-
 def _launch(name, entry, tensors, plan, device, B, d, m, N, extra=()):
-    """Launch the fast kernel's ``entry`` on the current stream with
-    ``plan`` and count it; ``extra`` ints follow ``N``."""
-    pointers = _pointers(tensors)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = entry(*pointers, B, d, m, N, *extra, *plan, stream)
-    _check_code(name, code, plan)
-    _count(name, (B, m, N, False))
+    """Launch the fast kernel's ``entry`` with ``plan`` (:func:`_build.launch`);
+    ``extra`` ints follow ``N``."""
+    _build.launch(name, entry, *_pointers(tensors), B, d, m, N, *extra, *plan, device=device,
+                  key=(B, m, N, False))
 
 
 def _workspace(plan_ws, ctas, words, dtype, device):
@@ -900,22 +815,18 @@ def _workspace(plan_ws, ctas, words, dtype, device):
 
 
 def _launch_general(name, entry, tensors, device, B, d, m, N, plan=None, extra=()):
-    """Launch the general source's ``entry`` on the current stream and count
-    it under ``name + "_general"``; ``plan`` defaults to
-    :func:`_general_rows_plan`, ``extra`` ints follow ``N``. The workspace,
-    where the plan asks for one, is allocated here."""
+    """Launch the general source's ``entry`` (:func:`_build.launch`) as
+    ``name + "_general"``; ``plan`` defaults to :func:`_general_rows_plan`,
+    ``extra`` ints follow ``N``. The workspace, where the plan asks for one,
+    is allocated here."""
     dtype = tensors[0].dtype
     plan = plan or _general_rows_plan(B, d, m, N, dtype, _num_sms(device.index))
     ctas = B * plan.cluster * min(-(-N // plan.colblk), 65535)
     work = _workspace(plan.ws, ctas, _rows_workspace(m, plan.nc, _rows_col_tile(N), plan.cluster),
                       dtype, device)
-    pointers = _pointers(tensors)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = entry(_DTYPE_CODES[dtype], *pointers, B, d, m, N, *extra, *tuple(plan)[:8],
-                     None if work is None else work.data_ptr(), stream)
-    _check_code(name + "_general", code, plan)
-    _count(name + "_general", (B, m, N, False))
+    _build.launch(name + "_general", entry, _DTYPE_CODES[dtype], *_pointers(tensors), B, d, m, N,
+                  *extra, *tuple(plan)[:8], None if work is None else work.data_ptr(),
+                  device=device, key=(B, m, N, False))
 
 
 def _shared_ctas(plan: SharedPlan, B: int, P: int, num_sms: int) -> int:
@@ -927,20 +838,15 @@ def _shared_ctas(plan: SharedPlan, B: int, P: int, num_sms: int) -> int:
 
 def _launch_shared(entry, tensors, device, B, d, m, P, plan=None, name="whiten_sumsq_shared"):
     """Launch the shared-x kernel's ``entry`` (the whole B2 or a row-split
-    part) on the current stream and count it under ``name``; ``plan``
-    defaults to :func:`_shared_plan`."""
+    part; :func:`_build.launch`) as ``name``; ``plan`` defaults to
+    :func:`_shared_plan`."""
     dtype = tensors[0].dtype
     plan = plan or _shared_plan(B, d, m, P, dtype)
     ctas = _shared_ctas(plan, B, P, _num_sms(device.index))
     work = _workspace(plan.ws, ctas, _shared_workspace(plan.W, m), dtype, device)
-    pointers = _pointers(tensors)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = entry(_DTYPE_CODES[dtype], *pointers, B, d, m, P, plan.W, plan.F, plan.R, plan.kw,
-                     int(plan.ws), plan.smem, ctas, None if work is None else work.data_ptr(),
-                     stream)
-    _check_code(name, code, plan)
-    _count(name, (B, m, P, True))
+    _build.launch(name, entry, _DTYPE_CODES[dtype], *_pointers(tensors), B, d, m, P, plan.W,
+                  plan.F, plan.R, plan.kw, int(plan.ws), plan.smem, ctas,
+                  None if work is None else work.data_ptr(), device=device, key=(B, m, P, True))
 
 
 def sample_and_logq(u, a_half, X, C, mu, logdet):

@@ -222,14 +222,10 @@ def _minimize_by_launches(value_and_grad, x0, *, maxiters, gtol, ftol, fail_on_n
         maxiters=maxiters, ftol_rel=ftol_rel, epsilon_curvature=epsilon_curvature,
         fail_on_nonfinite=fail_on_nonfinite, epsilon=ls_ops.HZ_EPSILON, psi0=ls_ops.PSI0)
     s = batch.search
-    f0_, dphi0, eps_k = s.floats[len(linesearch_kernels.FIELDS):].unbind(0)
-    k = ls_ops._HZConst(f0_, dphi0, eps_k, c1, c2, ls_ops.HZ_GAMMA, ls_ops.HZ_THETA,
-                        ls_ops.HZ_EXPAND, max_ls_evals)
+    k = ls_ops._HZConst(batch.f0, batch.dphi0, batch.eps_k, c1, c2, ls_ops.HZ_GAMMA,
+                        ls_ops.HZ_THETA, ls_ops.HZ_EXPAND, max_ls_evals)
     x_c, more = batch.launch(start=True)
-    while True:
-        with tracing.sync("ops/lbfgs.py"):
-            if not bool(more):
-                break
+    while tracing.read(more, "ops/lbfgs.py"):
         if max_ls_evals > 0:
             ls_ops.hz_evaluations(neg_vg, s, k, batch.x, batch.p, x_c, linesearch_kernels.step)
         if progress_every > 0:

@@ -336,9 +336,7 @@ def hager_zhang_line_search(
         s, step = linesearch_kernels.pack(s, k), linesearch_kernels.step
     else:
         step = _hz_step_torch
-    with tracing.sync("ops/linesearch.py"):
-        more = bool(more)
-    if more:
+    if tracing.read(more, "ops/linesearch.py"):
         s = hz_evaluations(value_and_grad, s, k, x, p, x_c, step)
     return _hz_result(s, k, g0)
 
@@ -353,9 +351,8 @@ def hz_evaluations(value_and_grad: Callable, s: dict, k: _HZConst, x, p, x_c, st
         phi_c, g_c = phi_c.to(x.dtype), g_c.to(x.dtype)
         dphi_c = sum_rows(torch.sum(g_c * p, dim=-1))
         s, x_c, more = step(s, phi_c, g_c, dphi_c, x, p, k)
-        with tracing.sync("ops/linesearch.py"):
-            if not bool(more):
-                return s
+        if not tracing.read(more, "ops/linesearch.py"):
+            return s
 
 
 def backtracking_line_search(
@@ -389,10 +386,7 @@ def backtracking_line_search(
     )
     while True:
         running = active & ~s["ok"] & (s["nev"] < max_evals)
-        more = running.any()
-        with tracing.sync("ops/linesearch.py"):
-            more = bool(more)
-        if not more:
+        if not tracing.read(running.any(), "ops/linesearch.py"):
             break
         a = s["a"]
         fa, ga = value_and_grad(x + a[:, None] * p)
@@ -581,10 +575,7 @@ def more_thuente_line_search(
             active & ~s["accepted"] & (s["nev"] < max_evals)
             & (~s["brackt"] | ((s["sty"] - s["stx"]).abs() > 1e-12 * s["stx"].abs()))
         )
-        more = running.any()
-        with tracing.sync("ops/linesearch.py"):
-            more = bool(more)
-        if not more:
+        if not tracing.read(running.any(), "ops/linesearch.py"):
             break
         stp = s["stp"]
         fp, g_p = value_and_grad(x + stp[:, None] * p)
@@ -718,10 +709,7 @@ def wolfe_line_search(
             <= 4 * eps * torch.maximum(s["a_lo"].abs(), s["a_hi"].abs())
         )
         running = (s["stage"] != _DONE) & (s["nev"] < max_evals) & ~collapsed
-        more = running.any()
-        with tracing.sync("ops/linesearch.py"):
-            more = bool(more)
-        if not more:
+        if not tracing.read(running.any(), "ops/linesearch.py"):
             break
         b = s["stage"] == _BRACKET
         # bracket evaluates a_cur; zoom the safeguarded cubic minimizer of [lo, hi]

@@ -56,9 +56,7 @@ def resample_indices(
     if log_weights is not None:
         # Gumbel-top-k fills slots only from positive-weight entries; refuse
         # rather than return zero-probability indices
-        n_support = torch.sum(log_weights > -torch.inf)
-        with tracing.sync("ops/resample.py"):
-            n_support = int(n_support)
+        n_support = tracing.read(torch.sum(log_weights > -torch.inf), "ops/resample.py")
         if ndraws > n_support:
             raise ValueError(
                 f"cannot draw {ndraws} without replacement: only {n_support} "

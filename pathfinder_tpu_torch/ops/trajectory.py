@@ -205,10 +205,7 @@ def minimize_trace(
 
     while True:
         run = running(st, maxiters)
-        running_any = run.any()
-        with tracing.sync("ops/trajectory.py"):
-            running_any = bool(running_any)
-        if not running_any:
+        if not tracing.read(run.any(), "ops/trajectory.py"):
             break
         direction, alpha0, mid = direction_fn(st, trace[2])
         ls = ls_fn(

@@ -67,7 +67,6 @@ import numpy as np
 import torch
 
 from pathfinder_tpu_torch.models.protocol import LogDensity, point_bytes, target_bound
-from pathfinder_tpu_torch.ops.kernels import linesearch_kernels
 from pathfinder_tpu_torch.ops.kernels.woodbury_kernels import load_library
 from pathfinder_tpu_torch.singlepath import SinglePathState, pathfinder_core
 from pathfinder_tpu_torch.utils import tracing
@@ -457,7 +456,6 @@ def run_row_groups(grid, d: int, fn: Callable) -> list:
     devices = list(grid.flat)  # block i's member j is entry i·width + j
     if groups is not None and devices[0].type == "cuda":
         load_library()
-        linesearch_kernels.load_library()
 
     def call(k, dev):
         i, j = divmod(k, width)

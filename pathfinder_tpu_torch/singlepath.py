@@ -470,8 +470,7 @@ def pathfinder(
         return core(target, x0, config, seed, path0, rnd)
 
     def succeeded(state) -> bool:
-        with tracing.sync("singlepath.py"):
-            return bool(state.success[0])
+        return tracing.read(state.success[0], "singlepath.py")
 
     itry = 1
     state = attempt(itry)

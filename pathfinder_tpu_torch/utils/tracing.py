@@ -15,7 +15,8 @@ switch.
   ``call`` of a ``multipathfinder`` inside another). A ``call`` span takes
   its own id as its call id and every span under it takes the same.
 - ``sync(site)`` is the ``sync`` span of a device→host read at ``site`` (the
-  module's path in the package), counted as ``sync.<site>``.
+  module's path in the package), counted as ``sync.<site>``; ``read(value,
+  site)`` is such a read of one value.
 - ``count(name, n, key)`` adds to a counter while tracing is on. Two
   families are counted always, and read with no profiler running:
   ``launch.`` (the kernels' launches by shape, ``ops/kernels``) and
@@ -54,6 +55,7 @@ __all__ = [
     "current",
     "current_call",
     "on",
+    "read",
     "reset",
     "span",
     "spanned",
@@ -202,6 +204,13 @@ def sync(site: str):
         return _NULL
     count("sync." + site)
     return _Open("sync")
+
+
+def read(value: torch.Tensor, site: str):
+    """``value.item()``, one device→host read of a single value at ``site``,
+    read inside its :func:`sync` span."""
+    with sync(site):
+        return value.item()
 
 
 def count(name: str, n: int = 1, key=None) -> None:

@@ -256,12 +256,13 @@ def _run_threads(target, n):
 
 def test_launch_counts_and_zoo_copies_are_thread_safe():
     from pathfinder_tpu_torch.ops.kernels import woodbury_kernels as wk
+    from pathfinder_tpu_torch.utils import tracing
 
     wk.reset_launch_counts()
 
     def count():
         for _ in range(2000):
-            wk._count("whiten_sumsq", (1, 2, 3, False))
+            tracing.count(tracing.LAUNCH + "whiten_sumsq", key=(1, 2, 3, False))
 
     _run_threads(count, 16)  # more threads than the cores
     assert wk.launch_counts()["whiten_sumsq"] == 32000

@@ -190,6 +190,24 @@ def test_ranges_in_the_profilers_events():
     tracing.reset()
 
 
+@pytest.mark.parametrize("value, expected", [(torch.tensor(True), True), (torch.tensor(7), 7),
+                                             (torch.tensor(0.25, dtype=torch.float64), 0.25)])
+def test_read_returns_the_value_in_one_counted_sync_span(value, expected):
+    """``read`` gives ``value.item()``; while a profiler records, it counts
+    ``sync.<site>`` once and records one ``sync`` span, and otherwise
+    nothing."""
+    tracing.reset()
+    got = tracing.read(value, "here.py")
+    assert got == expected and type(got) is type(expected)
+    assert tracing.counts("sync.") == {} and tracing.spans() == []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = tracing.read(value, "here.py")
+    assert got == expected and type(got) is type(expected)
+    assert tracing.counts("sync.") == {"sync.here.py": 1}
+    assert [s.name for s in tracing.spans()] == ["sync"]
+    tracing.reset()
+
+
 def test_sessions_and_threads():
     """A new profiler session replaces the last one's records (the launch
     family stays); spans and counts from more threads than cores, under a

@@ -8,7 +8,7 @@
     python3 tools/woodbury_general_bench.py --parent DIR   # also time DIR's general kernel
     python3 tools/woodbury_general_bench.py --phases       # cycles of each phase, timed cases
 
-Builds the general kernel only, then runs the per-factor cases of
+Builds the kernels, then runs the per-factor cases of
 ``chip_smoke.py``'s general phase: ``GENERAL_B1`` and ``GENERAL_B2`` at
 ranks 0, 12, 40, 100 and 258 in float64, float32, bfloat16 and float16,
 ``CONFIG2_B1`` and the float64 winner shape. Each case is held against its
@@ -19,8 +19,9 @@ share of it. ``--clusters`` times the d = 1000 cases at every cluster size
 that fits, for the plan's choice. ``--parent DIR`` loads the kernel wrapper
 of another checkout of the repo (``DIR/pathfinder_tpu_torch``) and times its
 general kernel at the same cases in turns with this one (parent, this, this,
-parent), from the same inputs. ``--phases`` builds the kernel with
-``-DPFG_PHASES`` instead and prints, for each timed case, the clock64
+parent), from the same inputs. ``--phases`` runs every case on a copy of
+the wrapper and the general source with ``PFG_PHASES`` defined (under
+``build/phases/``) instead and prints, for each timed case, the clock64
 cycles at which the first cluster's rank-0 CTA and the middle cluster's
 ended each phase (staged, pass 1, t, pass 2, s, pass 3, sums, end) after an
 L2-cold launch. Every case runs even after one fails; the
@@ -68,14 +69,36 @@ def cases():
         yield "sample_and_logq", label, B, d, m, N, torch.float64, True
 
 
-def load_parent(path):
-    """The kernel wrapper of the checkout at ``path``, building into this
-    checkout's build directory (the fast kernel's library is shared)."""
-    spec = importlib.util.spec_from_file_location(
-        "parent_woodbury_kernels", Path(path) / "pathfinder_tpu_torch/ops/kernels/woodbury_kernels.py")
+WRAPPER = "pathfinder_tpu_torch/ops/kernels/woodbury_kernels.py"
+BUILD = "pathfinder_tpu_torch/ops/kernels/_build.py"
+
+
+def _exec(path, name):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod._BUILD_DIR = wk._BUILD_DIR
+    return mod
+
+
+def load_wrapper(root, name):
+    """The kernel wrapper of the package under ``root`` as a module of its
+    own, which builds and binds the sources of that package. Where that
+    package has a build module of its own (``_build.py``), the wrapper gets
+    it, with that package's flags, build directory and launch; where it has
+    none (a copy of this checkout's wrapper), it gets this checkout's."""
+    kernels = sys.modules["pathfinder_tpu_torch.ops.kernels"]
+    own, ours = Path(root) / BUILD, kernels._build
+    if own.exists():
+        kernels._build = _exec(own, name + "_build")  # what the wrapper's import reads
+    try:
+        return _exec(Path(root) / WRAPPER, name)
+    finally:
+        kernels._build = ours
+
+
+def load_parent(path):
+    """The kernel wrapper of the checkout at ``path``, its general kernel loaded."""
+    mod = load_wrapper(path, "parent_woodbury_kernels")
     mod.load_general_library()
     return mod
 
@@ -83,20 +106,21 @@ def load_parent(path):
 PHASES = ("staged", "pass1", "t", "pass2", "s", "pass3", "sums", "end")
 
 
-def load_phases_library():
-    """The general source built with its phase stamps, in place of the plain build."""
-    out = wk._BUILD_DIR / "woodbury_general_phases.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [wk._nvcc(), *wk._NVCC_FLAGS, "-DPFG_PHASES", "-o", str(out), str(wk._GENERAL_SOURCE)]
-    done = subprocess.run(cmd, capture_output=True, text=True, check=True)
-    log = done.stdout + done.stderr  # ptxas -v reports on stderr
-    lib = ctypes.CDLL(str(out))
-    wk._bind_general(lib)
+def load_phases_wrapper():
+    """This checkout's wrapper over a copy of the general source with its
+    phase stamps on (``PFG_PHASES``), under ``build/phases/general``; returns
+    the wrapper and its general library."""
+    root = ROOT / "build" / "phases" / "general"
+    for rel, text in ((WRAPPER, (ROOT / WRAPPER).read_text()),
+                      ("pathfinder_tpu_torch/csrc/woodbury_general.cu",
+                       "#define PFG_PHASES\n" + wk._GENERAL_SOURCE.read_text())):
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        (root / rel).write_text(text)
+    mod = load_wrapper(root, "phases_woodbury_kernels")
+    lib = mod.load_general_library()
     lib.pfg_read_stamps.argtypes = [ctypes.c_void_p]
     lib.pfg_read_stamps.restype = ctypes.c_int
-    wk._libs[wk._GENERAL_SOURCE.name] = lib
-    wk._lib_logs[wk._GENERAL_SOURCE.name] = log
-    return lib
+    return mod, lib
 
 
 def phase_line(lib, fn):
@@ -151,8 +175,7 @@ def one_case(rng, name, label, B, d, m, N, dtype, timed, opts, parent):
         if old_ms is not None:
             line += f" speedup={old_ms / ms:.2f}"
         if opts.phases:
-            line += " | " + phase_line(wk._libs[wk._GENERAL_SOURCE.name],
-                                       lambda: run_case(wk, name, args))
+            line += " | " + phase_line(opts.stamps, lambda: run_case(wk, name, args))
         if opts.clusters and d == cs.D:
             for c in (1, 2, 4, 8):
                 try:
@@ -164,6 +187,7 @@ def one_case(rng, name, label, B, d, m, N, dtype, timed, opts, parent):
 
 
 def main():
+    global wk
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--no-time", action="store_true", help="check only")
     parser.add_argument("--clusters", action="store_true", help="time every cluster size")
@@ -179,7 +203,10 @@ def main():
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     say(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    load_phases_library() if opts.phases else wk.load_general_library()
+    if opts.phases:  # every case runs on the instrumented build
+        wk, opts.stamps = load_phases_wrapper()
+    else:
+        wk.load_general_library()
     parent = load_parent(opts.parent) if opts.parent else None
     say(f"build: {time.perf_counter() - t0:.1f}s")
     for (name, dt_name, nt), r in sorted(wk.general_kernel_resources().items(), key=str):

@@ -34,6 +34,7 @@ sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
+from pathfinder_tpu_torch.ops.kernels import _build  # noqa: E402
 from pathfinder_tpu_torch.ops.kernels import woodbury_kernels as wk  # noqa: E402
 
 PHASES = ("staged", "pass1", "core", "pass2", "sums", "end")
@@ -56,9 +57,9 @@ def instrumented_source() -> str:
         "  extern __shared__ float4 smem4[];\n",
         "  if (resident) stage_tile(0);\n",
         "          pass1_flush<MR, NT>(acc, tp, NC, cc, nt);\n        }\n      }\n      __syncthreads();\n",
-        "      s[e] = acc;\n    }\n    __syncthreads();\n",
+        "        s[e] = acc;\n      }\n      __syncthreads();\n",
         "      store_run(x_out + (b * d + r0) * N, su, pad[0], n * N);\n",
-        "            SAMPLE ? -0.5f * (static_cast<float>(d) * kLog2Pi + ldb + q) : q;\n      }\n",
+        "              SAMPLE ? -0.5f * (static_cast<float>(d) * kLog2Pi + ldb + q) : q;\n      }\n",
     ]
     for k, anchor in enumerate(after):
         if src.count(anchor) != 1:
@@ -77,21 +78,19 @@ def instrumented_source() -> str:
     )
 
 
-def build() -> ctypes.CDLL:
-    out = ROOT / "build" / "phases"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "woodbury_phases.cu").write_text(instrumented_source())
-    cmd = [wk._nvcc(), *wk._NVCC_FLAGS, "-o", str(out / "woodbury_phases.so"),
-           str(out / "woodbury_phases.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode:
-        sys.exit(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(str(out / "woodbury_phases.so"))
+def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pf_sample_logq.argtypes = [p] * 8 + [i] * 8 + [p]
     lib.pf_whiten_sumsq.argtypes = [p] * 6 + [i] * 8 + [p]
     lib.pf_read_stamps.argtypes = [p]
-    return lib
+
+
+def build() -> ctypes.CDLL:
+    """The instrumented copy, built and loaded as the package's libraries are."""
+    src = ROOT / "build" / "phases" / "woodbury_phases.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(instrumented_source())
+    return _build.load(src, _bind)
 
 
 def main():

@@ -7,7 +7,7 @@
     python3 tools/woodbury_shared_bench.py --phases       # cycles of each phase, timed cases
     python3 tools/woodbury_shared_bench.py --stages       # the mixture and Laplace stages
 
-Builds the shared-x kernel only, then runs ``chip_smoke.py``'s shared-x
+Builds the kernels, then runs ``chip_smoke.py``'s shared-x
 phase (``shared_kernel_phase``): the mixture grid (100, m, 1000) and its odd
 and small variants at ranks 0, 12, 40, 100 and 258 in float64, float32,
 bfloat16 and float16, the float32 odd and wide shapes, the plans with rank
@@ -21,8 +21,9 @@ tensor-core bound). ``--parent DIR`` loads the kernel wrapper of another
 checkout of the repo (``DIR/pathfinder_tpu_torch``; unpack it with ``git
 archive <commit> pathfinder_tpu_torch | tar -x -C build/ab/x``) and times
 its B2 over a shared x at the same cases in turns with this one (parent,
-this, this, parent), from the same inputs. ``--phases`` builds the kernel
-with ``-DPFS_PHASES`` and prints, for each timed case, the clock64 cycles
+this, this, parent), from the same inputs. ``--phases`` runs the cases on a
+copy of the wrapper and the shared-x source with ``PFS_PHASES`` defined
+(under ``build/phases/``) and prints, for each timed case, the clock64 cycles
 at which CTA 0 and the middle CTA ended each phase of their first item
 (pass 1, pass 2, pass 3, sums), and the cycles that item's steps spent
 waiting for copies, converting and computing. ``--stages`` runs the
@@ -37,7 +38,6 @@ first; ``--out FILE`` writes every line to FILE as well.
 import argparse
 import contextlib
 import ctypes
-import importlib.util
 import io
 import statistics
 import subprocess
@@ -52,6 +52,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from pathfinder_tpu_torch.ops.kernels import woodbury_kernels as wk  # noqa: E402
+from woodbury_general_bench import WRAPPER, load_wrapper  # noqa: E402
 
 _lines = []
 
@@ -62,13 +63,8 @@ def say(line):
 
 
 def load_parent(path):
-    """The kernel wrapper of the checkout at ``path``, building into this
-    checkout's build directory (libraries are named by their source's hash)."""
-    spec = importlib.util.spec_from_file_location(
-        "parent_woodbury_kernels", Path(path) / "pathfinder_tpu_torch/ops/kernels/woodbury_kernels.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    mod._BUILD_DIR = wk._BUILD_DIR
+    """The kernel wrapper of the checkout at ``path``, its kernels loaded."""
+    mod = load_wrapper(path, "parent_woodbury_kernels")
     mod.load_library()
     return mod
 
@@ -76,19 +72,21 @@ def load_parent(path):
 PHASES = ("pass1", "pass2", "pass3", "sums")
 
 
-def load_phases_library():
-    """The shared-x source built with its phase stamps, in place of the plain build."""
-    out = wk._BUILD_DIR / "woodbury_shared_phases.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [wk._nvcc(), *wk._NVCC_FLAGS, "-DPFS_PHASES", "-o", str(out), str(wk._SHARED_SOURCE)]
-    done = subprocess.run(cmd, capture_output=True, text=True, check=True)
-    lib = ctypes.CDLL(str(out))
-    wk._bind_shared(lib)
+def load_phases_wrapper():
+    """This checkout's wrapper over a copy of the shared-x source with its
+    phase stamps on (``PFS_PHASES``), under ``build/phases/shared``; returns
+    the wrapper and its shared-x library."""
+    root = ROOT / "build" / "phases" / "shared"
+    for rel, text in ((WRAPPER, (ROOT / WRAPPER).read_text()),
+                      ("pathfinder_tpu_torch/csrc/woodbury_shared.cu",
+                       "#define PFS_PHASES\n" + wk._SHARED_SOURCE.read_text())):
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        (root / rel).write_text(text)
+    mod = load_wrapper(root, "phases_woodbury_kernels")
+    lib = mod.load_shared_library()
     lib.pfs_read_stamps.argtypes = [ctypes.c_void_p]
     lib.pfs_read_stamps.restype = ctypes.c_int
-    wk._libs[wk._SHARED_SOURCE.name] = lib
-    wk._lib_logs[wk._SHARED_SOURCE.name] = done.stdout + done.stderr  # ptxas -v reports on stderr
-    return lib
+    return mod, lib
 
 
 class Phases:
@@ -187,6 +185,7 @@ def stages(parent):
 
 
 def main():
+    global wk
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", help="a checkout whose kernels are timed beside this one")
     parser.add_argument("--phases", action="store_true", help="cycles of each phase")
@@ -201,7 +200,10 @@ def main():
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     say(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    lib = load_phases_library() if opts.phases else wk.load_shared_library()
+    if opts.phases:  # every case runs on the instrumented build
+        wk, lib = load_phases_wrapper()
+    else:
+        wk.load_shared_library()
     parent = load_parent(opts.parent) if opts.parent else None
     say(f"build: {time.perf_counter() - t0:.1f}s")
     if opts.phases:
